@@ -1,0 +1,191 @@
+"""Core transformer layers of the port.
+
+ref mpreid_tpu/models/layers.py::LayerNorm, ::quick_gelu,
+::MultiHeadAttention, ::MLP, ::ResidualAttentionBlock, ::BNNeck,
+::make_classifier.
+
+Parameters are fp32 and keep the reference torch state_dict names
+(``nn.MultiheadAttention``'s packed ``in_proj_weight``, ``out_proj``,
+``ln_1``/``ln_2``, ``mlp.c_fc``/``mlp.c_proj``, BatchNorm1d buffers), so a
+reference ``.pth`` loads with ``load_state_dict(strict=True)``. Activations
+run in the model's compute dtype (bf16 by default) with the JAX package's
+numerics:
+
+* LayerNorm and BNNeck compute in fp32 and cast back;
+* the attention projections (and patchify and ``proj`` in vit.py)
+  accumulate in fp32, add the fp32 bias, then cast (``linear_f32acc``);
+* the MLP computes in the activation dtype;
+* attention logits and softmax are fp32 (ops/attention.py).
+
+Parameters are created empty; ``init_`` methods fill them from an explicit
+``torch.Generator`` (models/factory.py seeds it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mpreid_tpu_torch.ops.attention import fused_attention
+
+
+def linear_f32acc(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """``(x @ weight.T)`` summed in fp32 over inputs cast to ``dtype``, plus
+    the fp32 bias, then cast to ``dtype``. ``weight`` is (out, in)."""
+    w = weight.to(dtype)
+    x = x.to(dtype)
+    if dtype == torch.float32:
+        y = F.linear(x, w)
+    elif x.is_cuda:
+        # bf16 operands, fp32 accumulation and fp32 result in one GEMM
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], w.shape[0])
+    else:
+        # products of two bf16 values are exact in fp32
+        y = F.linear(x.float(), w.float())
+    if bias is not None:
+        y = y + bias
+    return y.to(dtype)
+
+
+def init_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.normal_(0.0, std, generator=gen)
+
+
+class Linear(nn.Module):
+    """Weight (out, in) and optional bias (out,), fp32 (the ``nn.Linear`` layout)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def init_(self, gen: torch.Generator, std: Optional[float] = None) -> None:
+        """Normal init (lecun: std = fan_in^-½ unless given), zero bias."""
+        init_normal_(self.weight, std if std is not None else self.weight.shape[1] ** -0.5, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything in the activation dtype (the flax ``Dense`` convention)."""
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 whatever the activation dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with ``nn.MultiheadAttention``-compatible parameters:
+    ``in_proj_weight`` (3d, d) packed [q|k|v], ``in_proj_bias``, ``out_proj``.
+    LoRA adapters belong to the training slice."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = Linear(dim, dim)
+
+    def init_(self, gen: torch.Generator) -> None:
+        # xavier-uniform over the (d, 3d) and (d, d) kernels, zero biases
+        for w in (self.in_proj_weight, self.out_proj.weight):
+            limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+            with torch.no_grad():
+                w.uniform_(-limit, limit, generator=gen)
+        nn.init.zeros_(self.in_proj_bias)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        qkv = linear_f32acc(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+        out = fused_attention(qkv, self.num_heads, mask, layout="packed")
+        return linear_f32acc(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
+
+
+class MLP(nn.Module):
+    """c_fc → QuickGELU → c_proj, in the activation dtype."""
+
+    def __init__(self, dim: int, hidden_mult: int = 4):
+        super().__init__()
+        self.c_fc = Linear(dim, dim * hidden_mult)
+        self.c_proj = Linear(dim * hidden_mult, dim)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.c_fc.init_(gen)
+        self.c_proj.init_(gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(quick_gelu(self.c_fc(x)))
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.ln_1 = LayerNorm(dim)
+        self.mlp = MLP(dim)
+        self.ln_2 = LayerNorm(dim)
+
+    def init_(self, gen: torch.Generator) -> None:
+        self.attn.init_(gen)
+        self.mlp.init_(gen)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp(self.ln_2(x))
+
+
+class BNNeck(nn.Module):
+    """BatchNorm1d bottleneck in eval form (running statistics), fp32.
+
+    Keeps the ``BatchNorm1d`` state_dict keys; the bias stays zero in the
+    reference. Training-mode statistics belong to the training slice."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        y = (x32 - self.running_mean) * torch.rsqrt(self.running_var + self.eps) \
+            * self.weight + self.bias
+        return y.to(x.dtype)
+
+
+def make_classifier(num_classes: int, in_features: int, cos_layer: str = "") -> Linear:
+    """Bias-free classifier (ref make_model.py:48-51). Margin heads
+    (``MODEL.COS_LAYER``) belong to the training slice."""
+    if cos_layer:
+        raise NotImplementedError(
+            "MODEL.COS_LAYER margin heads are not ported yet (ROADMAP.md, A4)"
+        )
+    return Linear(in_features, num_classes, bias=False)

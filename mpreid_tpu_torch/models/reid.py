@@ -1,0 +1,99 @@
+"""Baseline CLIP-ReID model: CLIP visual tower + dual BNNeck + classifiers.
+
+ref mpreid_tpu/models/reid.py::ReIDModel (``_sie``, ``backbone_features``,
+``forward_eval``).
+
+* feature dims: ViT-B/16 → (768 tokens, 512 proj),
+* SIE camera/view embedding added to the class token, scaled by ``sie_coe``,
+* two BNNecks and two bias-free classifiers,
+* eval forward → the 1280-d concat of post-BN (``neck_feat='after'``) or
+  pre-BN (``'before'``) features, in the compute dtype.
+
+Parameter names follow the reference state_dict (``image_encoder.*``,
+``bottleneck{,_proj}.*``, ``classifier{,_proj}.weight``, ``cv_embed``).
+The train forward belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .clip_model import CLIPConfig, make_visual_tower
+from .layers import BNNeck, make_classifier
+
+
+class ReIDModel(nn.Module):
+    def __init__(self, clip_config: CLIPConfig, num_classes: int, camera_num: int = 0,
+                 view_num: int = 0, sie_camera: bool = False, sie_view: bool = False,
+                 sie_coe: float = 3.0, neck_feat: str = "after", cos_layer: str = "",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.clip_config = clip_config
+        self.camera_num = camera_num
+        self.view_num = view_num
+        self.sie_camera = sie_camera
+        self.sie_view = sie_view
+        self.sie_coe = sie_coe
+        self.neck_feat = neck_feat
+        self.dtype = dtype
+        self.in_planes = clip_config.vision_width
+        self.in_planes_proj = clip_config.embed_dim
+        self.image_encoder = make_visual_tower(clip_config, dtype)
+        self.bottleneck = BNNeck(self.in_planes)
+        self.bottleneck_proj = BNNeck(self.in_planes_proj)
+        self.classifier = make_classifier(num_classes, self.in_planes, cos_layer)
+        self.classifier_proj = make_classifier(num_classes, self.in_planes_proj, cos_layer)
+        if sie_camera and sie_view:
+            n_embed = camera_num * view_num
+        elif sie_camera:
+            n_embed = camera_num
+        elif sie_view:
+            n_embed = view_num
+        else:
+            n_embed = 0
+        self.cv_embed = nn.Parameter(torch.empty(n_embed, self.in_planes)) if n_embed else None
+
+    def init_(self, gen: torch.Generator) -> None:
+        """Seeded random init (distributions of the JAX package's inits)."""
+        self.image_encoder.init_(gen)
+        self.classifier.init_(gen, std=0.001)
+        self.classifier_proj.init_(gen, std=0.001)
+        if self.cv_embed is not None:
+            with torch.no_grad():
+                self.cv_embed.normal_(0.0, 0.02, generator=gen).clamp_(-0.04, 0.04)
+
+    def _sie(self, cam_label, view_label) -> Optional[torch.Tensor]:
+        """SIE lookup (ref make_model.py:88-96)."""
+        if self.sie_camera and self.sie_view:
+            if cam_label is None or view_label is None:
+                raise ValueError("SIE camera+view needs both camera and view labels")
+            idx = cam_label * self.view_num + view_label
+        elif self.sie_camera:
+            if cam_label is None:
+                return None
+            idx = cam_label
+        elif self.sie_view:
+            if view_label is None:
+                return None
+            idx = view_label
+        else:
+            return None
+        return self.sie_coe * self.cv_embed[idx.long()]
+
+    def backbone_features(self, x, cam_label=None, view_label=None):
+        """→ (feat_last, feat, feat_proj, raw_proj_tokens): class-token vectors."""
+        cv = self._sie(cam_label, view_label)
+        x11, x12, xproj = self.image_encoder(x, cv)
+        return x11[:, 0], x12[:, 0], xproj[:, 0], xproj
+
+    def forward_eval(self, x, cam_label=None, view_label=None) -> torch.Tensor:
+        _, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label)
+        if self.neck_feat == "after":
+            return torch.cat([self.bottleneck(feat), self.bottleneck_proj(feat_proj)], dim=1)
+        return torch.cat([feat, feat_proj], dim=1)
+
+    def forward(self, x, cam_label=None, view_label=None) -> torch.Tensor:
+        return self.forward_eval(x, cam_label, view_label)

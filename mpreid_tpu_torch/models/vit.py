@@ -1,0 +1,109 @@
+"""CLIP VisionTransformer, dense path.
+
+ref mpreid_tpu/models/vit.py::PatchEmbed, ::VisionTransformer.
+
+The public input is NHWC, as in the JAX package. Patchify with stride equal
+to the patch is a space-to-depth reshape plus one fp32-accumulated matmul
+(no cuDNN, so no TF32); overlapping patches (stride < patch) unfold and
+multiply in the activation dtype, as the JAX package's conv does. The
+tower returns ``(x11, x12, xproj)``: tokens after L-1 blocks, tokens after
+all L blocks through ``ln_post``, and ``x12 @ proj``. The MoE path belongs
+to a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import LayerNorm, ResidualAttentionBlock, init_normal_, linear_f32acc
+
+
+class PatchEmbed(nn.Module):
+    """Bias-free patchify conv with the reference ``conv1.weight`` (w, 3, p, p)."""
+
+    def __init__(self, patch_size: int, stride_size: int, width: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.stride_size = stride_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(width, 3, patch_size, patch_size))
+
+    def init_(self, gen: torch.Generator) -> None:
+        init_normal_(self.weight, (3 * self.patch_size ** 2) ** -0.5, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) → (B, hw, width)."""
+        p, s = self.patch_size, self.stride_size
+        b, h, wd, c = x.shape
+        width = self.weight.shape[0]
+        if s == p:
+            # VALID-conv semantics: crop a trailing remainder smaller than a patch
+            x = x[:, : h // p * p, : wd // p * p, :]
+            x = x.reshape(b, h // p, p, wd // p, p, c).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(b, (h // p) * (wd // p), p * p * c)
+            # (w, 3, p, p) → rows ordered (py, px, c) like the patches
+            w = self.weight.permute(0, 2, 3, 1).reshape(width, p * p * c)
+            return linear_f32acc(x, w, None, self.dtype)
+        cols = F.unfold(x.permute(0, 3, 1, 2).to(self.dtype), kernel_size=p, stride=s)
+        w = self.weight.reshape(width, c * p * p).to(self.dtype)
+        return torch.matmul(cols.transpose(1, 2), w.t())
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            [ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)]
+        )
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, h_resolution: int, w_resolution: int, patch_size: int,
+                 stride_size: int, width: int, layers: int, heads: int,
+                 output_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.width = width
+        self.dtype = dtype
+        self.conv1 = PatchEmbed(patch_size, stride_size, width, dtype)
+        self.class_embedding = nn.Parameter(torch.empty(width))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(h_resolution * w_resolution + 1, width)
+        )
+        self.ln_pre = LayerNorm(width)
+        self.transformer = Transformer(width, layers, heads, dtype)
+        self.ln_post = LayerNorm(width)
+        self.proj = nn.Parameter(torch.empty(width, output_dim))
+
+    def init_(self, gen: torch.Generator) -> None:
+        scale = self.width ** -0.5
+        self.conv1.init_(gen)
+        for p in (self.class_embedding, self.positional_embedding):
+            init_normal_(p, scale, gen)
+        for block in self.transformer.resblocks:
+            block.init_(gen)
+        init_normal_(self.proj, scale, gen)
+
+    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x: (B, H, W, 3) NHWC. Returns (x11, x12, xproj)."""
+        x = self.conv1(x)
+        b = x.shape[0]
+        cls = self.class_embedding.to(self.dtype).expand(b, 1, self.width)
+        if cv_emb is not None:
+            # SIE embedding added to the class token only (ref model.py:420-421)
+            cls = cls + cv_emb[:, None, :].to(self.dtype)
+        x = torch.cat([cls, x], dim=1)
+        x = x + self.positional_embedding.to(self.dtype)
+        x = self.ln_pre(x)
+        blocks = self.transformer.resblocks
+        for block in blocks[:-1]:
+            x = block(x)
+        x11 = x
+        x12 = self.ln_post(blocks[-1](x11))
+        xproj = linear_f32acc(x12, self.proj.t(), None, self.dtype)
+        return x11, x12, xproj

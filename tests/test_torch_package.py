@@ -1,0 +1,100 @@
+"""Package rules of the port (mpreid_tpu_torch): what it imports, where it
+runs, what its config accepts, and how its kernel wrapper dispatches."""
+
+import glob
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mpreid_tpu_torch
+from mpreid_tpu.config import get_default_cfg as jax_default_cfg
+from mpreid_tpu_torch.config import get_default_cfg
+from mpreid_tpu_torch.ops import attention as tattn
+from mpreid_tpu_torch.utils import device as tdevice
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(mpreid_tpu_torch.__path__, "mpreid_tpu_torch.")
+)
+
+
+def test_every_module_imports_without_jax_or_optional_packages():
+    """Importing every module of the port pulls in no jax, flax or JAX-package
+    module, and neither PyYAML nor Pillow (the card's machine may lack both)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True, timeout=120)
+    loaded = set(__import__("json").loads(out.stdout.strip().splitlines()[-1]))
+    banned = {m for m in loaded
+              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpreid_tpu", "yaml", "PIL")}
+    assert not banned, sorted(banned)
+    assert "mpreid_tpu_torch.test" in MODULES and "mpreid_tpu_torch.kernels.build" in MODULES
+
+
+@pytest.mark.parametrize("name", ["tpu", "gpu", "cuda", "TPU", "cuda:0"])
+def test_card_devices_raise_without_a_card(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="MODEL.DEVICE cpu"):
+        tdevice.resolve_device(name)
+
+
+def test_cpu_device_is_explicit_and_unknown_raises():
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown device"):
+        tdevice.resolve_device("npu")
+
+
+def test_make_model_refuses_to_fall_back_to_cpu(monkeypatch):
+    from mpreid_tpu_torch.models import make_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "ViT-B-16"
+    cfg.MODEL.DEBUG_TINY = True
+    assert cfg.MODEL.DEVICE == "tpu"
+    with pytest.raises(RuntimeError, match="none is available"):
+        make_model(cfg, 4, 2, 1)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+def test_cpu_tensor_takes_the_plain_path(layout):
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 9, 3 * 128)).astype(np.float32))
+    before = tattn.fused_attention.launches
+    got = tattn.fused_attention(qkv, 2, layout=layout)
+    assert tattn.fused_attention.launches == before
+    torch.testing.assert_close(got, tattn.attention_plain(qkv, 2, layout=layout),
+                               atol=0, rtol=0)
+
+
+def test_default_config_equals_jax_packages():
+    assert dict(get_default_cfg()) == dict(jax_default_cfg())
+    assert '"NAME": "resnet50"' in get_default_cfg().dump()
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yml"), recursive=True)),
+    ids=lambda p: os.path.relpath(p, REPO),
+)
+def test_every_config_file_merges(path):
+    cfg = get_default_cfg()
+    cfg.merge_from_file(path)
+    ref = jax_default_cfg()
+    ref.merge_from_file(path)
+    assert dict(cfg) == dict(ref)
+
+
+def test_entry_point_refuses_an_orbax_directory(tmp_path):
+    from mpreid_tpu_torch import test as entry
+
+    with pytest.raises(ValueError, match="torch state_dicts only"):
+        entry.main(["MODEL.DEVICE", "cpu", "TEST.WEIGHT", str(tmp_path / "ckpt_10")])
