@@ -46,18 +46,14 @@ def _stage_solver() -> CN:
     s.GAMMA = 0.1
     s.STEPS = (40, 70)
     # Adam/SGD moment storage dtype: "float32" (torch-exact) or "bfloat16"
-    # (halves optimizer-state HBM traffic — the Adam update is HBM-bound on
-    # TPU; moment math still accumulates fp32, see solver/optim.py)
+    # (the Adam update is bound by memory traffic, and bf16 moments move
+    # 20 instead of 28 bytes per element; moment math still accumulates
+    # fp32, see solver/optim.py)
     s.MOMENT_DTYPE = "float32"
-    # Fused Pallas Adam/AdamW update for large leaves (ops/adam_kernel.py).
-    # MEASURED DEAD END on the v5e (tools/bench_adam_ab.py, round 4): the
-    # XLA loop-fusion update already streams p/m/v/g at ~690 GB/s isolated
-    # (3.5 ms for the 87M stage-2 trainables) while the Pallas kernel reads
-    # 238 GB/s (10.2 ms) — the round-3 in-step 513 GB/s attribution was
-    # scheduling overlap, not an implementation gap. Off by default; the
-    # kernel + equivalence tests remain for future tuning. Auto-disabled
-    # off-TPU and for multi-device programs regardless (GSPMD cannot
-    # partition the custom call).
+    # Fused Adam/AdamW update (ops/adam.py, the CUDA kernel
+    # kernels/csrc/adam.cu) for CUDA leaves of at least
+    # ops.adam.MIN_FUSED_SIZE elements; off: the plain per-leaf update.
+    # Times on the card: PERF.md.
     s.FUSED_ADAM = False
     return s
 
@@ -99,12 +95,10 @@ def get_default_cfg() -> CN:
     _C.MODEL.STRIDE_SIZE = [16, 16]
     # Shrink the CLIP towers to a 2-layer/64-wide debug model (CLI smoke runs)
     _C.MODEL.DEBUG_TINY = False
-    # Attention QKV param layout per tower: "" → the measured-fastest
-    # defaults (ops/attention.py: "hm_native" for both towers); explicit
-    # values: "packed" | "hm" (in-graph column permute, torch-packed
-    # storage) | "hm_native" (params STORED head-major; converters permute
-    # on torch import/export). Checkpoints record the storage layout and
-    # loads verify it (utils/checkpoint.py::check_attn_storage).
+    # How the JAX package stores each tower's in_proj columns ("" → its
+    # default "hm_native", head-major; "packed" | "hm" keep torch [q|k|v]):
+    # models/convert.py reads JAX weights with it. The port itself always
+    # stores and computes the torch packing (models/clip_model.py).
     _C.MODEL.ATTN_LAYOUT_VISION = ""
     _C.MODEL.ATTN_LAYOUT_TEXT = ""
 
@@ -189,8 +183,7 @@ def get_default_cfg() -> CN:
     _C.SOLVER.IMS_PER_BATCH = 64
     # Moment storage dtype (see _stage_solver.MOMENT_DTYPE)
     _C.SOLVER.MOMENT_DTYPE = "float32"
-    # Fused Pallas Adam update (see _stage_solver.FUSED_ADAM — measured
-    # slower than XLA's own loop fusion on the v5e; off by default)
+    # Fused Adam update kernel (see _stage_solver.FUSED_ADAM; off by default)
     _C.SOLVER.FUSED_ADAM = False
     # Per-stage blocks (Uni-Prompt pipeline)
     _C.SOLVER.STAGE1 = _stage_solver()

@@ -1,5 +1,7 @@
 from .evaluator import R1mAPEvaluator
-from .processor import do_inference, run_validation
-from .steps import make_eval_step
+from .processor import do_inference, do_train, run_validation
+from .steps import loss_and_grads, make_eval_step, make_train_step
+from .train_state import TrainState, initial_state
 
-__all__ = ["R1mAPEvaluator", "do_inference", "make_eval_step", "run_validation"]
+__all__ = ["R1mAPEvaluator", "TrainState", "do_inference", "do_train", "initial_state",
+           "loss_and_grads", "make_eval_step", "make_train_step", "run_validation"]

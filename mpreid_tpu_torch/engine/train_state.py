@@ -1,0 +1,27 @@
+"""Training state: the model (parameters and BN buffers), the optimizer's
+moments and step, and the center-loss centers.
+
+ref mpreid_tpu/engine/train_state.py::TrainState, ::initial_state. The JAX
+package threads an immutable pytree through its steps; the port updates
+the model and the moments in place and hands the same state back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from mpreid_tpu_torch.solver.optim import OptState
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    opt_state: OptState
+    centers: Optional[torch.Tensor] = None
+
+
+def initial_state(model, optimizer, centers: Optional[torch.Tensor] = None) -> TrainState:
+    return TrainState(model=model, opt_state=optimizer.init(model), centers=centers)

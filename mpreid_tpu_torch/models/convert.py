@@ -9,7 +9,8 @@ head-major column order of ``hm_native`` storage, transposes Dense kernels
 to (out, in), reorders the patchify kernel (p, p, 3, w) → (w, 3, p, p), and
 maps LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var`` →
 ``running_*``. ``load_param`` reads a reference ``.pth`` (``module.``
-prefix stripped) into a model with ``load_state_dict(strict=True)``.
+prefix stripped), or the weights of a training checkpoint of the port
+(utils/checkpoint.py), into a model with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -111,6 +112,10 @@ def strip_module(sd: Dict[str, Any]) -> Dict[str, Any]:
 def load_param(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a reference-layout ``.pth`` into ``model`` (ref make_model.py:118-122),
     strictly: every key must match."""
+    from mpreid_tpu_torch.utils.checkpoint import is_checkpoint
+
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if is_checkpoint(sd):
+        sd = sd["model"]
     model.load_state_dict(strip_module(sd), strict=True)
     return model

@@ -2,7 +2,7 @@
 
 ref mpreid_tpu/models/layers.py::LayerNorm, ::quick_gelu,
 ::MultiHeadAttention, ::MLP, ::ResidualAttentionBlock, ::BNNeck,
-::make_classifier.
+::make_classifier, ::classifier_scores, ::linear_bias_act, ::_lba_bwd.
 
 Parameters are fp32 and keep the reference torch state_dict names
 (``nn.MultiheadAttention``'s packed ``in_proj_weight``, ``out_proj``,
@@ -16,6 +16,10 @@ numerics:
   accumulate in fp32, add the fp32 bias, then cast (``linear_f32acc``);
 * the MLP computes in the activation dtype;
 * attention logits and softmax are fp32 (ops/attention.py).
+
+Both linear forms share the JAX package's gradient (``_lba_bwd``): dx and
+dW summed in fp32 and rounded to the activation dtype (dW then accumulates
+into the fp32 parameter's ``.grad`` through the cast), db summed in fp32.
 
 Parameters are created empty; ``init_`` methods fill them from an explicit
 ``torch.Generator`` (models/factory.py seeds it).
@@ -33,24 +37,66 @@ from torch import nn
 from mpreid_tpu_torch.ops.attention import fused_attention
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-D ``a @ b`` summed in fp32, fp32 result."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        # bf16 operands, fp32 accumulation and fp32 result in one GEMM
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # products of two bf16 values are exact in fp32
+    return torch.mm(a.float(), b.float())
+
+
+def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
+    if not accum_f32:
+        return F.linear(x, w, bias.to(x.dtype) if bias is not None else None)
+    if x.dtype == torch.float32 or not x.is_cuda:
+        y = F.linear(x.float(), w.float())
+    else:
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def linear_bias_act(x, w, bias, accum_f32: bool) -> torch.Tensor:
+    """``_LinearBiasAct`` where a gradient is wanted, its forward alone
+    otherwise (the eval path skips the autograd Function's overhead)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        return _LinearBiasAct.apply(x, w, bias, accum_f32)
+    return _linear_fwd(x, w, bias, accum_f32)
+
+
+class _LinearBiasAct(torch.autograd.Function):
+    """``y = x @ w.T (+ bias)`` with the JAX package's VJP (ref ``_lba_bwd``).
+
+    ``x`` and ``w`` arrive in the activation dtype, ``bias`` in fp32. The
+    forward is the caller's (``accum_f32``: fp32 sums plus the fp32 bias,
+    then one cast; else everything in the activation dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, accum_f32):
+        ctx.save_for_backward(x, w)
+        return _linear_fwd(x, w, bias, accum_f32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = _mm_f32(dy2, w).to(x.dtype).reshape(x.shape) if need_x else None
+        dw = _mm_f32(dy2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if need_w else None
+        db = dy2.float().sum(0) if need_b else None
+        return dx, dw, db, None
+
+
 def linear_f32acc(x: torch.Tensor, weight: torch.Tensor,
                   bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
     """``(x @ weight.T)`` summed in fp32 over inputs cast to ``dtype``, plus
     the fp32 bias, then cast to ``dtype``. ``weight`` is (out, in)."""
-    w = weight.to(dtype)
-    x = x.to(dtype)
-    if dtype == torch.float32:
-        y = F.linear(x, w)
-    elif x.is_cuda:
-        # bf16 operands, fp32 accumulation and fp32 result in one GEMM
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-        y = y.reshape(*x.shape[:-1], w.shape[0])
-    else:
-        # products of two bf16 values are exact in fp32
-        y = F.linear(x.float(), w.float())
-    if bias is not None:
-        y = y + bias
-    return y.to(dtype)
+    return linear_bias_act(x.to(dtype), weight.to(dtype), bias, True)
 
 
 def init_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
@@ -74,8 +120,7 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Everything in the activation dtype (the flax ``Dense`` convention)."""
-        bias = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return linear_bias_act(x, self.weight.to(x.dtype), self.bias, False)
 
 
 class LayerNorm(nn.Module):
@@ -160,10 +205,16 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class BNNeck(nn.Module):
-    """BatchNorm1d bottleneck in eval form (running statistics), fp32.
+    """BatchNorm1d bottleneck, fp32 (ref ``BNNeck``).
 
-    Keeps the ``BatchNorm1d`` state_dict keys; the bias stays zero in the
-    reference. Training-mode statistics belong to the training slice."""
+    Keeps the ``BatchNorm1d`` state_dict keys. The bias stays zero: the
+    solver never trains it (solver/optim.py::bnneck_bias). ``train=True``
+    normalises with the batch mean and biased variance and updates the
+    running statistics with the unbiased variance, EMA decay 0.9, and counts
+    the batch in ``num_batches_tracked``; ``train=False`` uses the running
+    statistics."""
+
+    momentum = 0.9  # torch BN momentum 0.1 → EMA decay 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -174,18 +225,38 @@ class BNNeck(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
-        y = (x32 - self.running_mean) * torch.rsqrt(self.running_var + self.eps) \
-            * self.weight + self.bias
+        if train:
+            mean = x32.mean(dim=0)
+            var = torch.square(x32 - mean).mean(dim=0)
+            n = x.shape[0]
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_(
+                    self.momentum * self.running_mean + (1 - self.momentum) * mean)
+                self.running_var.copy_(
+                    self.momentum * self.running_var + (1 - self.momentum) * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(x.dtype)
 
 
 def make_classifier(num_classes: int, in_features: int, cos_layer: str = "") -> Linear:
     """Bias-free classifier (ref make_model.py:48-51). Margin heads
-    (``MODEL.COS_LAYER``) belong to the training slice."""
+    (``MODEL.COS_LAYER``, ref ``MarginHead``) are not ported: no config
+    turns them on."""
     if cos_layer:
         raise NotImplementedError(
-            "MODEL.COS_LAYER margin heads are not ported yet (ROADMAP.md, A4)"
+            "MODEL.COS_LAYER margin heads are not ported yet (ROADMAP.md, MarginHead)"
         )
     return Linear(in_features, num_classes, bias=False)
+
+
+def classifier_scores(classifier: nn.Module, feats: torch.Tensor) -> torch.Tensor:
+    """Train-time logits of a plain classifier, in fp32 on the BN features
+    (ref ``classifier_scores``; margin heads, which also take the labels,
+    are not ported)."""
+    return classifier(feats.float())

@@ -1,17 +1,20 @@
 """Baseline CLIP-ReID model: CLIP visual tower + dual BNNeck + classifiers.
 
 ref mpreid_tpu/models/reid.py::ReIDModel (``_sie``, ``backbone_features``,
-``forward_eval``).
+``forward_train``, ``forward_eval``).
 
 * feature dims: ViT-B/16 → (768 tokens, 512 proj),
 * SIE camera/view embedding added to the class token, scaled by ``sie_coe``,
 * two BNNecks and two bias-free classifiers,
+* train forward → ``{"scores": [cls_score, cls_score_proj],
+  "feats": [feat_last, feat, feat_proj]}``: BNNecks in train mode (batch
+  statistics, running statistics updated), fp32 logits on the BN features,
+  ``feat_last`` the class token after L-1 blocks (before ``ln_post``),
 * eval forward → the 1280-d concat of post-BN (``neck_feat='after'``) or
   pre-BN (``'before'``) features, in the compute dtype.
 
 Parameter names follow the reference state_dict (``image_encoder.*``,
 ``bottleneck{,_proj}.*``, ``classifier{,_proj}.weight``, ``cv_embed``).
-The train forward belongs to the training slice.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 
 from .clip_model import CLIPConfig, make_visual_tower
-from .layers import BNNeck, make_classifier
+from .layers import BNNeck, classifier_scores, make_classifier
 
 
 class ReIDModel(nn.Module):
@@ -88,6 +91,18 @@ class ReIDModel(nn.Module):
         cv = self._sie(cam_label, view_label)
         x11, x12, xproj = self.image_encoder(x, cv)
         return x11[:, 0], x12[:, 0], xproj[:, 0], xproj
+
+    def forward_train(self, x, label=None, cam_label=None, view_label=None) -> dict:
+        """``label`` is unused by the plain classifiers (margin heads, which
+        take it, are not ported); it keeps the JAX package's signature."""
+        feat_last, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label)
+        feat_bn = self.bottleneck(feat, train=True)
+        feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
+        return {
+            "scores": [classifier_scores(self.classifier, feat_bn),
+                       classifier_scores(self.classifier_proj, feat_proj_bn)],
+            "feats": [feat_last, feat, feat_proj],
+        }
 
     def forward_eval(self, x, cam_label=None, view_label=None) -> torch.Tensor:
         _, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label)

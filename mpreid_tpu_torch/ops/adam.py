@@ -1,0 +1,109 @@
+"""Fused Adam / AdamW update of one parameter leaf.
+
+ref mpreid_tpu/ops/adam_kernel.py::fused_adam_leaf, ::_adam_kernel,
+::MIN_FUSED_SIZE, and the per-leaf math of
+mpreid_tpu/solver/optim.py::Optimizer.update.
+
+``fused_adam_leaf`` updates ``p``, ``m`` and ``v`` in place from ``g``. On
+CUDA tensors it launches the hand-written Hopper kernel
+(``kernels/csrc/adam.cu``: one pass, 16-byte vector loads, no padding copy)
+or raises; on CPU tensors it runs ``adam_leaf_plain``, the same math in
+plain PyTorch. Coupled L2 (Adam) folds ``wd·p`` into the gradient;
+decoupled decay (AdamW) adds ``lr·wd·p`` to the step. The moments update
+in fp32 and are stored as fp32 or bf16; the step uses the fresh fp32
+moments. The solver uses the kernel for leaves of at least
+``MIN_FUSED_SIZE`` elements when ``SOLVER.FUSED_ADAM`` is on.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+# leaves below this many elements stay on the plain path (as in the JAX package)
+MIN_FUSED_SIZE = 262144
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def adam_leaf_plain(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    lr: float, bc1: float, bc2: float, b1: float, b2: float, eps: float,
+                    wd: float, decoupled: bool) -> None:
+    """The kernel's function in plain PyTorch, in place under ``no_grad``.
+
+    ``lr`` is the base lr times the leaf's multiplier; ``bc1``/``bc2`` are
+    ``1 - b1**t`` and ``1 - b2**t``."""
+    with torch.no_grad():
+        if not decoupled:
+            g = g + wd * p  # coupled L2 (torch Adam)
+        m32 = b1 * m.float() + (1 - b1) * g
+        v32 = b2 * v.float() + (1 - b2) * (g * g)
+        step = lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+        if decoupled:
+            step = step + _lr_wd(lr, wd) * p  # torch AdamW decays with the group's lr
+        p.sub_(step)
+        m.copy_(m32)
+        v.copy_(v32)
+
+
+def _lr_wd(lr: float, wd: float) -> float:
+    """lr·wd as the JAX package's fp32 scalar product."""
+    return float(np.float32(lr) * np.float32(wd))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from mpreid_tpu_torch.kernels import build
+
+    lib = build.load("adam")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mpreid_adam.argtypes = [p, p, p, p, ctypes.c_longlong, i,
+                                f, f, f, f, f, f, f, f, f, f, i, p]
+    lib.mpreid_adam.restype = i
+    return lib
+
+
+def _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled) -> None:
+    if p.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"fused_adam_leaf takes fp32 p and g, got {p.dtype} and {g.dtype}")
+    if m.dtype not in MOMENT_DTYPES or v.dtype != m.dtype:
+        raise TypeError(f"fused_adam_leaf takes moments of one type in {MOMENT_DTYPES}, "
+                        f"got {m.dtype} and {v.dtype}")
+    tensors = (p, m, v, g)
+    if any(t.shape != p.shape for t in tensors):
+        raise ValueError("fused_adam_leaf needs p, m, v and g of one shape")
+    if any(t.device != p.device for t in tensors):
+        raise ValueError("fused_adam_leaf needs p, m, v and g on one device")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_adam_leaf needs contiguous, 16-byte aligned tensors")
+    cap = torch.cuda.get_device_capability(p.device)
+    if cap != (9, 0):
+        raise RuntimeError(f"the Adam kernel is built for sm_90a; device capability is {cap}")
+    rc = _library().mpreid_adam(
+        p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), p.numel(),
+        int(m.dtype == torch.bfloat16), lr, bc1, bc2, b1, 1 - b1, b2, 1 - b2, eps, wd,
+        _lr_wd(lr, wd), int(bool(decoupled)), torch.cuda.current_stream(p.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"Adam kernel launch failed with CUDA error {rc}")
+    fused_adam_leaf.launches += 1
+
+
+def fused_adam_leaf(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    lr: float, bc1: float, bc2: float, b1: float, b2: float, eps: float,
+                    wd: float, decoupled: bool) -> None:
+    """One leaf's Adam/AdamW update, in place (arguments as ``adam_leaf_plain``).
+
+    CUDA tensors run the Hopper kernel (no synchronisation, launched on the
+    current stream) and count one launch in ``fused_adam_leaf.launches``;
+    CPU tensors run ``adam_leaf_plain``."""
+    if p.device.type == "cpu":
+        return adam_leaf_plain(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled)
+    if p.device.type != "cuda":
+        raise RuntimeError(f"fused_adam_leaf runs on cuda or cpu, not {p.device}")
+    return _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled)
+
+
+fused_adam_leaf.launches = 0

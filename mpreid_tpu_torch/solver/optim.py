@@ -1,0 +1,194 @@
+"""Optimizers with the reference's per-parameter-group semantics.
+
+ref mpreid_tpu/solver/optim.py::is_bias, ::is_classifier, ::bnneck_bias,
+::stage_trainable, ::group_trees, ::OptState, ::Optimizer, ::make_optimizer,
+::CenterOptimizer.
+
+Parameters are named by the port's torch names (the reference state_dict's,
+e.g. ``image_encoder.transformer.resblocks.0.attn.in_proj_bias``,
+``bottleneck.bias``), and the predicates reach the JAX package's decisions
+from them: a name whose last part holds ``bias`` is a bias
+(``in_proj_bias``, ``out_proj.bias``, ``ln_1.bias``, ``bottleneck.bias``),
+a name holding ``classifier`` is a classifier, and the BNNeck bias is never
+trained. The visual tower's root is ``image_encoder`` (the JAX package's
+``visual``).
+
+``Optimizer.update`` is SGD (momentum), Adam (coupled L2: wd·p added to the
+gradient, as torch's Adam) or AdamW (decoupled: lr·mult·wd·p added to the
+step), per leaf, written in plain PyTorch and applied in place under
+``no_grad``; it is not ``torch.optim.Adam``. Moments are stored as
+``MOMENT_DTYPE`` (fp32 or bf16) with their math in fp32, and the step uses
+the fresh fp32 moments. With ``FUSED_ADAM`` on, CUDA leaves of at least
+``ops.adam.MIN_FUSED_SIZE`` elements go through the fused kernel
+(``ops/adam.py``). Frozen parameters get neither gradients nor moments.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from mpreid_tpu_torch.ops.adam import MIN_FUSED_SIZE, adam_leaf_plain, fused_adam_leaf
+
+_VISUAL = "image_encoder"
+
+
+def named_params(params) -> Dict[str, torch.Tensor]:
+    """``{name: parameter}`` of a module, or a mapping as given."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def is_bias(name: str) -> bool:
+    return "bias" in name.split(".")[-1]
+
+
+def is_classifier(name: str) -> bool:
+    return "classifier" in name
+
+
+def bnneck_bias(name: str) -> bool:
+    parts = name.split(".")
+    return parts[0] in ("bottleneck", "bottleneck_proj") and parts[-1] == "bias"
+
+
+def stage_trainable(params, stage: Optional[str]) -> Dict[str, bool]:
+    """``{name: trainable}`` for a training stage (ref ``stage_trainable``)."""
+
+    def pred(name: str) -> bool:
+        if bnneck_bias(name):
+            return False
+        if stage in ("baseline", "stage2", None):
+            return True
+        if stage == "stage1a":
+            return name.endswith("ctx_generic")
+        if stage == "stage1b":
+            return name.endswith("ctx_modality") or name.endswith("ctx_platform")
+        if stage == "lora":
+            return "lora" in name.split(".")[-1]
+        root = name.split(".")[0]
+        if stage == "stage2a":
+            return not (root == "text" or "expert" in name or root == "prompt_learner")
+        if stage == "stage2b":
+            return "gate" in name or (root == _VISUAL and "experts" not in name)
+        raise ValueError(f"Unknown stage {stage!r}")
+
+    return {name: pred(name) for name in named_params(params)}
+
+
+def group_trees(params, stage_cfg):
+    """(``{name: lr multiplier}``, ``{name: weight decay}``) from the stage's
+    solver block (ref ``group_trees``)."""
+    bias_factor = getattr(stage_cfg, "BIAS_LR_FACTOR", 1)
+    large_fc = getattr(stage_cfg, "LARGE_FC_LR", False)
+
+    def lr_mult(name: str) -> float:
+        m = 1.0
+        if is_bias(name):
+            m = float(bias_factor)
+        if large_fc and is_classifier(name):
+            m = 2.0
+        return m
+
+    names = named_params(params)
+    decay = {n: float(stage_cfg.WEIGHT_DECAY_BIAS if is_bias(n) else stage_cfg.WEIGHT_DECAY)
+             for n in names}
+    return {n: lr_mult(n) for n in names}, decay
+
+
+class OptState(NamedTuple):
+    step: int                    # updates taken
+    mu: Dict[str, torch.Tensor]  # first moment / momentum buffer (trainable leaves)
+    nu: Dict[str, torch.Tensor]  # second moment (trainable leaves)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to fp32, as the JAX package's fp32 scalar arithmetic leaves it."""
+    return float(np.float32(x))
+
+
+class Optimizer:
+    """SGD / Adam / AdamW with per-leaf lr multiplier and weight decay.
+
+    ``partition(params) → (train, frozen)``; ``init(params) → OptState``;
+    ``update(grads, state, train, lr) → OptState`` updates ``train`` (and the
+    moments) in place."""
+
+    def __init__(self, name: str, params, stage_cfg, stage: Optional[str] = None,
+                 trainable: Optional[Mapping[str, bool]] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        if name not in ("SGD", "Adam", "AdamW"):
+            raise ValueError(f"Unsupported optimizer {name!r}")
+        self.name = name
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.momentum = getattr(stage_cfg, "MOMENTUM", 0.9)
+        md = getattr(stage_cfg, "MOMENT_DTYPE", "float32")
+        if md not in ("float32", "bfloat16"):
+            raise ValueError(f"MOMENT_DTYPE must be 'float32' or 'bfloat16', got {md!r}")
+        self.moment_dtype = torch.bfloat16 if md == "bfloat16" else torch.float32
+        self.fused_adam = bool(getattr(stage_cfg, "FUSED_ADAM", False))
+        self.trainable = dict(trainable) if trainable is not None \
+            else stage_trainable(params, stage)
+        lr_mult, wd = group_trees(params, stage_cfg)
+        self.lr_mult = {k: v for k, v in lr_mult.items() if self.trainable[k]}
+        self.wd = {k: v for k, v in wd.items() if self.trainable[k]}
+
+    def partition(self, params):
+        flat = named_params(params)
+        train = {k: v for k, v in flat.items() if self.trainable[k]}
+        frozen = {k: v for k, v in flat.items() if not self.trainable[k]}
+        return train, frozen
+
+    def init(self, params) -> OptState:
+        train, _ = self.partition(params)
+
+        def zeros():
+            return {k: torch.zeros_like(p, dtype=self.moment_dtype,
+                                        memory_format=torch.contiguous_format)
+                    for k, p in train.items()}
+
+        return OptState(step=0, mu=zeros(), nu=zeros())
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
+               train: Mapping[str, torch.Tensor], lr: float) -> OptState:
+        t = state.step + 1
+        if self.name == "SGD":
+            for k, p in train.items():
+                g = grads[k] + self.wd[k] * p  # coupled L2 (torch SGD)
+                mu32 = self.momentum * state.mu[k].float() + g
+                p.sub_(lr * mu32 * self.lr_mult[k])
+                state.mu[k].copy_(mu32)
+            return OptState(step=t, mu=state.mu, nu=state.nu)
+
+        decoupled = self.name == "AdamW"
+        bc1 = _f32(1 - np.float32(self.b1) ** np.float32(t))
+        bc2 = _f32(1 - np.float32(self.b2) ** np.float32(t))
+        for k, p in train.items():
+            lr_eff = _f32(np.float32(lr) * np.float32(self.lr_mult[k]))
+            fused = self.fused_adam and p.is_cuda and p.numel() >= MIN_FUSED_SIZE
+            (fused_adam_leaf if fused else adam_leaf_plain)(
+                p, state.mu[k], state.nu[k], grads[k].contiguous(), lr_eff, bc1, bc2,
+                self.b1, self.b2, self.eps, self.wd[k], decoupled)
+        return OptState(step=t, mu=state.mu, nu=state.nu)
+
+
+def make_optimizer(cfg_stage, params, stage: Optional[str] = None,
+                   trainable: Optional[Mapping[str, bool]] = None) -> Optimizer:
+    """The stage's optimizer (ref make_optimizer*.py dispatch)."""
+    return Optimizer(cfg_stage.OPTIMIZER_NAME, params, cfg_stage, stage, trainable)
+
+
+class CenterOptimizer:
+    """Plain SGD on the center-loss centers, the gradient rescaled by
+    1/CENTER_LOSS_WEIGHT (ref processor/processor.py:80-84)."""
+
+    def __init__(self, lr: float, loss_weight: float):
+        self.lr = lr
+        self.loss_weight = loss_weight
+
+    def update(self, grad: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        return centers - self.lr * (grad / self.loss_weight)

@@ -1,0 +1,85 @@
+"""Baseline training entry point: ``python -m mpreid_tpu_torch.train``.
+
+ref train.py (the JAX package's entry script): the same CLI,
+
+    python -m mpreid_tpu_torch.train --config_file configs/person/vit_base.yml \
+        DATASETS.ROOT_DIR ../data
+
+It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
+weights start random from ``SOLVER.SEED``: loading the OpenAI CLIP weights
+(``MODEL.PRETRAIN_PATH``, ``MODEL.PRETRAIN_AUTO``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+
+import numpy as np
+import torch
+
+from mpreid_tpu_torch.config import get_default_cfg
+from mpreid_tpu_torch.data import make_dataloader
+from mpreid_tpu_torch.engine import do_train
+from mpreid_tpu_torch.losses import make_loss
+from mpreid_tpu_torch.models import make_model
+from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
+from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
+
+
+def set_seed(seed: int) -> None:
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="ReID Baseline Training")
+    parser.add_argument("--config_file", default="", type=str, help="path to config file")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
+                        help="Modify config options from the command line")
+    args = parser.parse_args(argv)
+
+    cfg = get_default_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts)
+    # the baseline uses the flat SOLVER block for loaders built on stage fields
+    cfg.SOLVER.STAGE2.IMS_PER_BATCH = cfg.SOLVER.IMS_PER_BATCH
+    cfg.freeze()
+
+    device = device_from_cfg(cfg)
+    if cfg.MODEL.PRETRAIN_PATH or cfg.MODEL.PRETRAIN_AUTO:
+        raise NotImplementedError(
+            "loading CLIP weights (MODEL.PRETRAIN_PATH / PRETRAIN_AUTO) is not ported yet "
+            "(ROADMAP.md, A2 load_torch_clip)"
+        )
+    set_seed(cfg.SOLVER.SEED)
+    output_dir = cfg.OUTPUT_DIR
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=True)
+    logger.info(f"Saving model in the path :{cfg.OUTPUT_DIR}")
+    if args.config_file:
+        logger.info(f"Loaded configuration file {args.config_file}")
+    logger.info(f"Running on {device} with config:\n{cfg}")
+
+    (train_loader, _, val_loader, num_query, num_classes,
+     camera_num, view_num) = make_dataloader(cfg)
+    model = make_model(cfg, num_class=num_classes, camera_num=camera_num,
+                       view_num=view_num, device=device)
+
+    loss_fn, (center_init, _) = make_loss(cfg, num_classes=num_classes)
+    centers = None
+    if "center" in cfg.MODEL.METRIC_LOSS_TYPE:
+        centers = center_init(torch.Generator().manual_seed(cfg.SOLVER.SEED + 1)).to(device)
+
+    optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    scheduler = make_scheduler(cfg.SOLVER, "multistep")
+    return do_train(cfg, model, train_loader, val_loader, optimizer, scheduler, loss_fn,
+                    num_query, centers=centers)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Full-state training checkpoints with ``torch.save``/``torch.load``.
+
+ref mpreid_tpu/utils/checkpoint.py::save_checkpoint, ::load_checkpoint. The
+JAX package writes orbax directories; the port writes one ``.pth`` file
+holding the model's state_dict (parameters and BN buffers, the reference
+layout), the optimizer's step and moments, the center-loss centers and the
+epoch, so ``SOLVER.RESUME`` continues a run exactly where it stopped.
+``models/convert.py::load_param`` also reads the weights out of such a
+file, so ``python -m mpreid_tpu_torch.test TEST.WEIGHT`` takes it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from mpreid_tpu_torch.solver.optim import OptState
+
+FORMAT = "mpreid_tpu_torch.train_state.v1"
+
+
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+def save_checkpoint(path: str, state, epoch: int) -> str:
+    """Write ``state`` (engine.train_state.TrainState) after ``epoch`` to
+    ``path`` (atomically: a temporary file, then a rename)."""
+    payload = {
+        "format": FORMAT,
+        "epoch": int(epoch),
+        "model": _cpu(state.model.state_dict()),
+        "opt_state": {"step": int(state.opt_state.step), "mu": _cpu(state.opt_state.mu),
+                      "nu": _cpu(state.opt_state.nu)},
+        "centers": None if state.centers is None else state.centers.detach().cpu(),
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def is_checkpoint(obj) -> bool:
+    return isinstance(obj, dict) and obj.get("format") == FORMAT
+
+
+def load_checkpoint(path: str) -> dict:
+    """The payload of a file ``save_checkpoint`` wrote, tensors on the CPU."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not is_checkpoint(payload):
+        raise ValueError(f"{path} is not a training checkpoint of the port ({FORMAT})")
+    return payload
+
+
+def restore_state(state, payload: dict) -> int:
+    """Load ``payload`` into ``state`` in place (model, moments, step,
+    centers) on the state's devices → the epoch it was saved after."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    opt = payload["opt_state"]
+    for key in ("mu", "nu"):
+        mine, theirs = getattr(state.opt_state, key), opt[key]
+        if set(mine) != set(theirs):
+            raise ValueError(f"checkpoint moments {key} cover other parameters than the optimizer's")
+        for name, t in mine.items():
+            t.copy_(theirs[name])
+    state.opt_state = OptState(step=int(opt["step"]), mu=state.opt_state.mu,
+                               nu=state.opt_state.nu)
+    if payload["centers"] is not None:
+        device = next(state.model.parameters()).device
+        state.centers = payload["centers"].to(device)
+    return int(payload["epoch"])

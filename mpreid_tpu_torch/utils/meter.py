@@ -1,0 +1,21 @@
+"""Running-average meter.
+
+ref mpreid_tpu/utils/meter.py::AverageMeter (reference utils/meter.py:1-20).
+"""
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

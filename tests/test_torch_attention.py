@@ -8,6 +8,7 @@ fp32 is held to 1e-5; bf16 to 2e-2 (outputs are averages of O(1) values
 rounded to bf16).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,3 +101,95 @@ def test_head_major_perms_match_jax(d, heads):
 def test_unknown_layout_raises():
     with pytest.raises(ValueError, match="layout"):
         tattn.fused_attention(torch.zeros(1, 3, 3 * D), HEADS, layout="hm_native")
+
+
+# ---------------------------------------------------------------------------
+# backward: attention_bwd_plain and the FusedAttention autograd Function
+# against jax.vjp of the Pallas kernels in interpret mode. fp32 is held to
+# 1e-5 · max(1, max |ref|); bf16 to 3e-2 · max(1, max |ref|): dq and dk are
+# products of ds rounded to bf16 and dv of p rounded to bf16, and the
+# outputs themselves are rounded to bf16 (8 bits of mantissa, 4e-3 relative),
+# so a sum taken in another order can land one or two bf16 steps away.
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [(length, masked, dtype)
+             for length in (17, 77) for masked in (False, True)
+             for dtype in ("float32", "bfloat16")]
+BWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _cotangent(length, dtype, seed):
+    do = np.random.default_rng(seed).standard_normal((B, length, D)).astype(np.float32)
+    return jnp.asarray(do, dtype=getattr(jnp, dtype)), torch.from_numpy(do).to(getattr(torch, dtype))
+
+
+def _jax_dqkv(fn, jq, jm, jdo):
+    _, vjp = jax.vjp(lambda q: fn(q, HEADS, jm, force="interpret"), jq)
+    return vjp(jdo)[0]
+
+
+def _assert_bwd_close(got, want, dtype):
+    got, want = _np(got), _np(want)
+    bound = BWD_TOL[dtype] * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= bound
+
+
+@pytest.mark.parametrize("length,masked,dtype", BWD_CASES)
+def test_bwd_plain_packed_matches_pallas_interpret(length, masked, dtype):
+    jq, jm, tq, tm = _inputs(length, dtype, masked, seed=5)
+    jdo, tdo = _cotangent(length, dtype, seed=6)
+    want = _jax_dqkv(jattn.fused_attention, jq, jm, jdo)
+    got = tattn.attention_bwd_plain(tq, tdo, HEADS, tm, layout="packed")
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("length,masked,dtype", BWD_CASES)
+def test_bwd_plain_head_major_matches_pallas_hm_interpret(length, masked, dtype):
+    jq, jm, tq, tm = _inputs(length, dtype, masked, seed=7)
+    jdo, tdo = _cotangent(length, dtype, seed=8)
+    want = _jax_dqkv(jattn.fused_attention_hm, jq, jm, jdo)
+    got = tattn.attention_bwd_plain(tq, tdo, HEADS, tm, layout="head_major")
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+@pytest.mark.parametrize("length,masked,dtype", BWD_CASES)
+def test_autograd_function_matches_jax_vjp(layout, length, masked, dtype):
+    """fused_attention on a CPU tensor that requires a gradient: the forward
+    and qkv.grad against the JAX package's custom VJP."""
+    jfn = jattn.fused_attention if layout == "packed" else jattn.fused_attention_hm
+    jq, jm, tq, tm = _inputs(length, dtype, masked, seed=9)
+    jdo, tdo = _cotangent(length, dtype, seed=10)
+    jout, vjp = jax.vjp(lambda q: jfn(q, HEADS, jm, force="interpret"), jq)
+    tq.requires_grad_(True)
+    before = tattn.fused_attention_bwd.launches
+    out = tattn.fused_attention(tq, HEADS, tm, layout=layout)
+    out.backward(tdo)
+    assert tattn.fused_attention_bwd.launches == before  # CPU: the plain versions
+    np.testing.assert_allclose(_np(out.detach()), _np(jout), **TOL[dtype])
+    _assert_bwd_close(tq.grad, vjp(jdo)[0], dtype)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_autograd_function_saves_only_qkv_and_mask(masked):
+    _, _, tq, tm = _inputs(17, "float32", masked)
+    tq.requires_grad_(True)
+    out = tattn.fused_attention(tq, HEADS, tm)
+    assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == (2 if masked else 1)
+    assert saved[0].data_ptr() == tq.data_ptr()
+    if masked:
+        assert saved[1].data_ptr() == tm.data_ptr()
+
+
+def test_bwd_plain_equals_autograd_of_plain_in_fp32():
+    """In fp32 no rounding point matters, so the written-out backward is the
+    derivative of the plain forward."""
+    _, _, tq, tm = _inputs(17, "float32", True, seed=11)
+    tdo = _cotangent(17, "float32", seed=12)[1]
+    tq.requires_grad_(True)
+    tattn.attention_plain(tq, HEADS, tm).backward(tdo)
+    got = tattn.attention_bwd_plain(tq.detach(), tdo, HEADS, tm)
+    torch.testing.assert_close(got, tq.grad, atol=1e-5, rtol=1e-5)

@@ -98,3 +98,204 @@ def test_tiny_model_on_the_card_matches_the_cpu(card):
         got = gpu_model.forward_eval(x.to(card)).cpu()
     assert tattn.fused_attention.launches == before + 2  # one per block
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# attention backward kernel (kernels/csrc/attention_bwd.cu): fp32 to
+# 1e-5 · max(1, max |plain|), bf16 to 3e-2 · max(1, max |plain|) (an fp32
+# sum in another order can round to the neighbouring bf16 value)
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _bwd_err(got, want):
+    return (got.float() - want.float()).abs().max().item() / max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length", [17, 77, 129])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bwd_kernel_matches_plain(card, layout, dtype, length, masked, dh):
+    qkv = _qkv(card, 3, length, 2, dh, dtype, seed=3)
+    do = _qkv(card, 3, length, 2, dh, dtype, seed=4)[..., :2 * dh].contiguous()
+    mask = _causal(card, length) if masked else None
+    if dtype == torch.float32 and dh == 128 and length == 129:
+        with pytest.raises(ValueError, match="shared memory"):
+            tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
+        return
+    before = tattn.fused_attention_bwd.launches
+    got = tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
+    want = tattn.attention_bwd_plain(qkv, do, 2, mask, layout=layout)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == qkv.shape
+    assert _bwd_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 129, 12, False), (64, 77, 8, True)])
+def test_bwd_kernel_at_the_main_shapes(card, shape):
+    b, length, heads, masked = shape
+    qkv = _qkv(card, b, length, heads, 64, torch.bfloat16, seed=5)
+    do = _qkv(card, b, length, heads, 64, torch.bfloat16, seed=6)[..., :heads * 64].contiguous()
+    mask = _causal(card, length) if masked else None
+    got = tattn.fused_attention_bwd(qkv, do, heads, mask)
+    want = tattn.attention_bwd_plain(qkv, do, heads, mask)
+    torch.cuda.synchronize()
+    assert _bwd_err(got, want) <= BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_launches_both_kernels(card, dtype):
+    qkv = _qkv(card, 2, 129, 2, 64, dtype, seed=7).requires_grad_(True)
+    do = _qkv(card, 2, 129, 2, 64, dtype, seed=8)[..., :128].contiguous()
+    fwd, bwd = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+    tattn.fused_attention(qkv, 2).backward(do)
+    torch.cuda.synchronize()
+    assert (tattn.fused_attention.launches, tattn.fused_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    want = tattn.attention_bwd_plain(qkv.detach(), do, 2)
+    assert _bwd_err(qkv.grad, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    qkv = _qkv(card, 2, 17, 2, 64, torch.float32)
+    do = torch.zeros(2, 17, 128, device=card)
+    with pytest.raises(TypeError):
+        tattn.fused_attention_bwd(qkv.half(), do.half(), 2)
+    with pytest.raises(ValueError, match="do must be"):
+        tattn.fused_attention_bwd(qkv, do.bfloat16(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.fused_attention_bwd(qkv, do.transpose(0, 1).contiguous().transpose(0, 1), 2)
+    with pytest.raises(ValueError, match="head widths"):
+        tattn.fused_attention_bwd(_qkv(card, 2, 17, 2, 32, torch.float32), do[..., :64], 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        tattn.fused_attention_bwd(_qkv(card, 1, 200, 1, 64, torch.bfloat16),
+                                  torch.zeros(1, 200, 64, device=card, dtype=torch.bfloat16), 1)
+
+
+# ---------------------------------------------------------------------------
+# Adam kernel (kernels/csrc/adam.cu): every operation rounded on its own, as
+# the plain version's separate PyTorch ops are, so m and v are held to 1e-6
+# relative, and p to 1e-6 relative plus 1e-3·lr (PyTorch divides a CUDA
+# tensor by a scalar as a product with the reciprocal, so the step can
+# differ in its last bits, which shows where p - step cancels)
+# ---------------------------------------------------------------------------
+
+def _adam_leaf(card, n, moment_dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    p = torch.randn(n, device=card, generator=g)
+    grad = torch.randn(n, device=card, generator=g) * 1e-3
+    m = (torch.randn(n, device=card, generator=g) * 1e-3).to(moment_dtype)
+    v = (torch.rand(n, device=card, generator=g) * 1e-6).to(moment_dtype)
+    return p, m, v, grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoupled", [False, True])
+@pytest.mark.parametrize("n", [3072 * 768, 262144 + 13, 5])
+def test_adam_kernel_matches_plain(card, moment_dtype, decoupled, n):
+    from mpreid_tpu_torch.ops import adam
+
+    p, m, v, grad = _adam_leaf(card, n, moment_dtype)
+    p2, m2, v2 = p.clone(), m.clone(), v.clone()
+    lr = 5e-6 * 2
+    args = (lr, 1 - 0.9 ** 3, 1 - 0.999 ** 3, 0.9, 0.999, 1e-8, 1e-4, decoupled)
+    before = adam.fused_adam_leaf.launches
+    adam.fused_adam_leaf(p, m, v, grad, *args)
+    adam.adam_leaf_plain(p2, m2, v2, grad, *args)
+    torch.cuda.synchronize()
+    assert adam.fused_adam_leaf.launches == before + 1
+    for got, want, atol in ((p, p2, 1e-3 * lr), (m, m2, 0.0), (v, v2, 0.0)):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-6, atol=atol)
+
+
+@pytest.mark.cuda
+def test_adam_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from mpreid_tpu_torch.ops import adam
+
+    p, m, v, grad = _adam_leaf(card, 64, torch.float32)
+    args = (1e-3, 0.1, 0.001, 0.9, 0.999, 1e-8, 0.0, False)
+    with pytest.raises(TypeError):
+        adam.fused_adam_leaf(p.half(), m, v, grad, *args)
+    with pytest.raises(TypeError):
+        adam.fused_adam_leaf(p, m.bfloat16(), v, grad, *args)
+    with pytest.raises(ValueError, match="shape"):
+        adam.fused_adam_leaf(p, m[:32], v, grad, *args)
+    with pytest.raises(ValueError, match="aligned"):
+        adam.fused_adam_leaf(p[1:], m[1:], v[1:], grad[1:], *args)
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_linear_bf16_backward_on_the_card(card):
+    """linear_f32acc in bf16 takes a gradient on the card (fp32-summed dx and
+    dW rounded to bf16): within one bf16 step (2⁻⁷ relative) of the fp32
+    products, plus 1e-4 of the largest value for fp32 sums taken in another
+    order where they cancel."""
+    from mpreid_tpu_torch.models.layers import linear_f32acc
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((4, 129, 768)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2304, 768)).astype(np.float32) * 0.03)
+    dy = torch.from_numpy(rng.standard_normal((4, 129, 2304)).astype(np.float32))
+    xc = x.to(card, torch.bfloat16).requires_grad_(True)
+    wc = w.to(card).requires_grad_(True)
+    dyc = dy.to(card, torch.bfloat16)
+    linear_f32acc(xc, wc, None, torch.bfloat16).backward(dyc)
+    wb, dyf = wc.detach().bfloat16().float(), dyc.float().reshape(-1, 2304)
+    dx = (dyf @ wb).reshape(xc.shape)
+    dw = dyf.t() @ xc.detach().float().reshape(-1, 768)
+    assert wc.grad.dtype == torch.float32
+    for got, want in ((xc.grad.float(), dx), (wc.grad, dw)):
+        assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()).all()
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_cpu(card):
+    """fp32 tiny train step, augmentation off: loss and gradients on the card
+    (both attention kernels, 2 launches each) against the CPU's plain path,
+    each leaf to a norm-relative 1e-4 (floored at 1e-3 of the largest)."""
+    from mpreid_tpu_torch.config import get_default_cfg
+    from mpreid_tpu_torch.engine import loss_and_grads
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "ViT-B-16"
+    cfg.MODEL.DEBUG_TINY = True
+    cfg.MODEL.DEVICE = "cpu"
+    cfg.INPUT.SIZE_TRAIN = [64, 32]
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.DATALOADER.SAMPLER = "softmax_triplet"
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((8, 64, 32, 3))
+                         .astype(np.float32))
+    target = torch.arange(2).repeat_interleave(4)
+    results = []
+    for device in ("cpu", card):
+        model = make_model(cfg, 8, 2, 1, device=device)
+        loss_fn, _ = make_loss(cfg, 8)
+        opt = make_optimizer(cfg.SOLVER, model)
+        fwd, bwd = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+        loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x.to(device),
+                                           target.to(device))
+        torch.cuda.synchronize()
+        launched = (tattn.fused_attention.launches - fwd, tattn.fused_attention_bwd.launches - bwd)
+        assert launched == ((0, 0) if device == "cpu" else (2, 2))
+        results.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (cpu_loss, cpu_g), (card_loss, card_g) = results
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    floor = 1e-3 * max(g.norm().item() for g in cpu_g.values())
+    for name, g in card_g.items():
+        assert (g - cpu_g[name]).norm().item() <= 1e-4 * max(cpu_g[name].norm().item(), floor), name

@@ -38,6 +38,42 @@ def test_every_module_imports_without_jax_or_optional_packages():
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpreid_tpu", "yaml", "PIL")}
     assert not banned, sorted(banned)
     assert "mpreid_tpu_torch.test" in MODULES and "mpreid_tpu_torch.kernels.build" in MODULES
+    assert {"mpreid_tpu_torch.train", "mpreid_tpu_torch.ops.adam", "mpreid_tpu_torch.losses.triplet",
+            "mpreid_tpu_torch.solver.optim", "mpreid_tpu_torch.solver.schedules",
+            "mpreid_tpu_torch.utils.checkpoint", "mpreid_tpu_torch.engine.train_state"} <= set(MODULES)
+
+
+def test_chip_smoke_imports_without_jax_and_builds_every_source():
+    """chip_smoke.py pulls in no jax, flax or JAX-package module either, and
+    the build list names every CUDA source of the port."""
+    code = ("import json, sys\nimport chip_smoke\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True, timeout=120)
+    loaded = set(__import__("json").loads(out.stdout.strip().splitlines()[-1]))
+    assert not {m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpreid_tpu")}
+    from mpreid_tpu_torch.kernels import build
+
+    sources = sorted(os.path.basename(p)[:-3] for p in glob.glob(str(build.CSRC / "*.cu")))
+    assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_fwd"]
+
+
+def test_chip_smoke_config_is_vit_base_yml():
+    """The training slice of chip_smoke.py runs configs/person/vit_base.yml's
+    settings (built in code so the script needs no yaml)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = get_default_cfg()
+    want.merge_from_file(os.path.join(REPO, "configs", "person", "vit_base.yml"))
+    got = chip_smoke.vit_base_cfg()
+    for section in ("MODEL", "INPUT", "DATALOADER", "SOLVER", "TEST"):
+        g, w = dict(got[section]), dict(want[section])
+        for key in ("DEVICE", "STAGE2"):  # the card on request; the baseline copies IMS_PER_BATCH
+            g.pop(key, None)
+            w.pop(key, None)
+        assert g == w, section
+    assert got.TPU.COMPUTE_DTYPE == "bfloat16" and got.SOLVER.STAGE2.IMS_PER_BATCH == 64
 
 
 @pytest.mark.parametrize("name", ["tpu", "gpu", "cuda", "TPU", "cuda:0"])
