@@ -24,13 +24,28 @@ Phases, in order; any failure raises and the exit code is not 0:
    Adam kernel's launches, and one fused update against the plain one;
 6. cross-checks: eval features and a train step's loss and gradients in
    fp32 on the card against fp32 on the CPU, and bf16 against fp32 on the
-   card.
+   card;
+7. the re-ranking slice (``TEST.RE_RANKING``): the eval path of phase 4
+   through ``do_inference`` with re-ranking (one L1 kernel launch), its
+   distance matrix against the same features re-ranked on the CPU; the
+   dense route at Market-1501 scale (3,368 × 15,913, 1280-d seeded
+   clustered features) through ``R1mAPEvaluator``, exact and quantized; the
+   sparse-V route at MSMT17 scale (11,659 × 82,161) with the quantized
+   min-sum, then 256 query rows recomputed exactly by
+   ``re_ranking_sparse_rows`` (21 min-sum kernel launches) as its oracle.
+
+Phase 3 also holds the L1 and min-sum kernels (re-ranking's exact Jaccard
+step) against their plain versions at the path's shapes: the Market-1501
+dense shape, one MSMT17 query block × gallery chunk, and a ragged dense
+case. The plain versions are compared and timed on the first 256 query
+rows at full G and N.
 
 The last two lines of standard output are one JSON object with the kernels'
 numbers and one with the run's verdict and device. ``--profile`` adds
-``torch.profiler`` breakdowns by kernel of three eval batches and of three
-train steps, and the device's idle share over one traced ``do_inference``
-run and over the traced train steps.
+``torch.profiler`` breakdowns by kernel of three eval batches, of three
+train steps and of one re-ranking compute at each scale, and the device's
+idle share over one traced ``do_inference`` run, over the traced train
+steps and over each traced compute.
 """
 
 from __future__ import annotations
@@ -51,13 +66,17 @@ from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data.loader import ImageBatcher, TrainLoader
 from mpreid_tpu_torch.data.sampler import RandomIdentitySampler
 from mpreid_tpu_torch.engine import (
-    do_inference, do_train, initial_state, loss_and_grads, make_eval_step, make_train_step,
+    R1mAPEvaluator, do_inference, do_train, initial_state, loss_and_grads, make_eval_step,
+    make_train_step,
 )
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.models import build_model, make_model
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
+from mpreid_tpu_torch.ops import euclidean_squared_distmat, pairwise
+from mpreid_tpu_torch.ops.reranking import smallest_k
+from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse_rows
 from mpreid_tpu_torch.ops.augment import eval_preprocess
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 
@@ -88,6 +107,26 @@ LOSS_RTOL = 1e-4
 COSINE_FLOOR = 0.99
 VISION = dict(name="vision", b=BATCH, l=129, heads=12, dh=64, masked=False)
 TEXT = dict(name="text", b=BATCH, l=77, heads=8, dh=64, masked=True)
+# re-ranking: Market-1501 (dense route) and MSMT17 (sparse-V route) query and
+# gallery sizes, seeded clustered features of the ViT-B/16 eval width
+MARKET = dict(q=3368, g=15913, ids=750)
+MSMT = dict(q=11659, g=82161, ids=3000)
+FEAT_DIM = 1280
+K1 = 50
+V_NONZEROS = 8 * (K1 + 1)  # nonzeros per V row (the sparse path's width)
+MSMT_BLOCK = (2048, 4096)  # the sparse path's query block × gallery chunk
+PLAIN_ROWS = 256  # query rows the plain versions are compared and timed on
+MARKET_RUNS = 3
+ORACLE_ROWS = 256
+PAIRWISE_TOL = 1e-5  # relative to max(1, max |plain|): K sums in another order
+RERANK_TOL = 1e-4  # card vs CPU re-ranked distances, fp32
+# quantized vs exact rows at MSMT17 scale: the metric bars of
+# tests/test_reranking_sparse.py:116-117 (one sampled query's rank-1, mAP
+# 0.005). Its value bar (0.15 max abs, :102) is reported beside them: the
+# quantized min-sum's value error grows with the corpus, in the JAX
+# package's route as in the port's, which the CPU tests hold equal.
+QUANTIZED_VALUE_BAR = 0.15
+QUANTIZED_MAP_DELTA = 0.005
 
 
 def log(msg: str) -> None:
@@ -291,6 +330,64 @@ def check_adam(moment_dtype: torch.dtype, decoupled: bool, timed: bool) -> dict:
     return row
 
 
+def sparse_rows(rows: int, n: int, nnz: int, gen: torch.Generator) -> torch.Tensor:
+    """(rows, n) fp32 on the card shaped as re-ranking's V: ``nnz`` seeded
+    positive entries per row (a repeated index keeps the larger value), each
+    row normalised to sum 1."""
+    idx = torch.randint(0, n, (rows, nnz), device="cuda", generator=gen)
+    val = torch.rand(rows, nnz, device="cuda", generator=gen)
+    v = torch.zeros(rows, n, device="cuda").scatter_reduce_(1, idx, val, reduce="amax")
+    return v / v.sum(dim=1, keepdim=True)
+
+
+def pairwise_bound_ms(q: int, g: int, n: int) -> tuple:
+    """(ms, bound_by): both inputs read once and the (Q, G) output written
+    once over the memory rate, against two fp32 operations per element pair
+    (a subtract and an add, or a min and an add) over the fp32 peak."""
+    t_bytes = 4 * (q * n + g * n + q * g) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * q * g * n / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_pairwise(name: str, q: int, g: int, n: int, nnz, timed: bool, seed: int = 7) -> dict:
+    """The ``name`` kernel (l1_cross or minsum_cross) against its plain version
+    on the first PLAIN_ROWS query rows; ``nnz`` nonzeros per row shaped as V,
+    or dense |randn| rows when None."""
+    kernel, plain = getattr(pairwise, name), getattr(pairwise, f"{name}_plain")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if nnz:
+        a, b = sparse_rows(q, n, nnz, gen), sparse_rows(g, n, nnz, gen)
+    else:
+        a = torch.randn(q, n, device="cuda", generator=gen).abs()
+        b = torch.randn(g, n, device="cuda", generator=gen).abs()
+    rows = min(q, PLAIN_ROWS)
+    out = kernel(a, b)
+    want = plain(a[:rows], b)
+    torch.cuda.synchronize()
+    err = (out[:rows] - want).abs().max().item()
+    tol = PAIRWISE_TOL * max(1.0, want.abs().max().item())
+    ok = bool(torch.isfinite(out).all().item()) and err <= tol
+    row = dict(name=name, shape=[q, g, n], nonzeros_per_row=nnz, compared_rows=rows,
+               max_abs_err=err, tol=tol, ok=ok)
+    del out, want
+    if timed:
+        if name == "l1_cross":
+            def library():
+                return torch.cdist(a, b, p=1)
+        else:  # min(x, y) = (x + y - |x - y|) / 2
+            def library():
+                return 0.5 * (a.sum(1)[:, None] + b.sum(1)[None] - torch.cdist(a, b, p=1))
+        row["ms"] = cuda_ms(lambda: kernel(a, b), runs=5, warmup=1, reps=1)
+        row["plain_ms"] = cuda_ms(lambda: plain(a[:rows], b), runs=2, warmup=1, reps=1)
+        row["plain_rows"] = rows
+        row["library_ms"] = cuda_ms(library, runs=3, warmup=1, reps=1)
+        row["bound_ms"], row["bound_by"] = pairwise_bound_ms(q, g, n)
+    log(f"  {name} {json.dumps(row)}")
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees with its plain version: {row}")
+    return row
+
+
 class InMemoryBatcher:
     """Seeded uint8 query + gallery images with the ``ImageBatcher.iter_sequential``
     contract: every identity has images on both sides, so CMC is defined."""
@@ -468,19 +565,23 @@ def pk_batches(images, pids, n: int, ids: int = P_IDS, seed: int = 3) -> list:
     return out
 
 
+COUNTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd,
+           "adam": adam.fused_adam_leaf, "l1_cross": pairwise.l1_cross,
+           "minsum_cross": pairwise.minsum_cross}
+
+
 def reset_counts() -> None:
-    attn.fused_attention.launches = 0
-    attn.fused_attention_bwd.launches = 0
-    adam.fused_adam_leaf.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"attention_fwd": attn.fused_attention.launches,
-            "attention_bwd": attn.fused_attention_bwd.launches,
-            "adam": adam.fused_adam_leaf.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def expect_counts(what: str, got: dict, want: dict) -> None:
+    """Every kernel's launches are as ``want`` says, 0 where it says nothing."""
+    want = {name: want.get(name, 0) for name in got}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
 
@@ -718,6 +819,209 @@ def cross_checks(model) -> None:
         raise AssertionError(f"bf16 vs fp32 cosine below 0.99: {cos.tolist()}")
 
 
+def neighbour_flips(feats: torch.Tensor, k: int) -> int:
+    """Rows whose k-NN sets (re-ranking's first step) differ between the
+    card's and the CPU's fp32 distances of the same features."""
+    k = min(k, feats.shape[0])
+    sets = []
+    for device in ("cuda", "cpu"):
+        f = feats.to(device)
+        d = euclidean_squared_distmat(f, f)
+        sets.append(smallest_k((d / d.amax(dim=0)).T, k).sort(dim=1).values.cpu())
+    return int((sets[0] != sets[1]).any(dim=1).sum())
+
+
+def rerank_entry(model) -> dict:
+    """(a) ``do_inference`` with ``TEST.RE_RANKING`` on phase 4's slice: one
+    L1 kernel launch. Then the same normalised features re-ranked by the
+    evaluator on the card and on the CPU, fp32. Random weights give tightly
+    clustered features whose distances nearly tie, so the last-bit
+    differences between the two devices' distance products can swap a
+    neighbour across the k1 + 1 boundary, and one swapped set moves
+    distances by ~1e-2: the error is reported with the rows whose neighbour
+    sets differ. The check holds the features rounded to multiples of 2⁻¹⁰,
+    whose distance products are exact in fp32 on both devices (the same
+    neighbour sets), to RERANK_TOL."""
+    cfg = vit_base_cfg()
+    cfg.TEST.RE_RANKING = True
+    loader = InMemoryBatcher(QUERY, GALLERY, BATCH, HW)
+    depth = len(model.image_encoder.transformer.resblocks)
+    reset_counts()
+    t0 = time.perf_counter()
+    r1, r5 = do_inference(cfg, model, loader, QUERY)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("do_inference with re-ranking", counts, {
+        "attention_fwd": depth * (QUERY + GALLERY) // BATCH, "l1_cross": 1})
+    step = make_eval_step(model, cfg)
+    feats = torch.cat([step(b)[: b["count"]] for b in loader.iter_sequential()]).float()
+    feats = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
+
+    def rerank_both(f):
+        out = []
+        for device in ("cuda", "cpu"):
+            ev = R1mAPEvaluator(QUERY, feat_norm=False, reranking=True, device=device)
+            ev.update((f.to(device), loader.pids, loader.camids))
+            out.append(ev.compute())
+        return out
+
+    (cmc, mAP, dist, *_), (_, _, dist_cpu, *_) = rerank_both(feats)
+    grid = torch.round(feats * 1024) / 1024
+    (cmc_g, _, dist_g, *_), (cmc_g_cpu, _, dist_g_cpu, *_) = rerank_both(grid)
+    err = float(np.abs(dist_g - dist_g_cpu).max())
+    res = dict(seconds=seconds, launches=counts, rank1=float(r1), rank5=float(r5),
+               evaluator_rank1=float(cmc[0]), mAP=mAP,
+               card_vs_cpu_max_abs=float(np.abs(dist - dist_cpu).max()),
+               rows_with_other_neighbours=neighbour_flips(feats, K1 + 1),
+               grid_card_vs_cpu_max_abs=err,
+               grid_rows_with_other_neighbours=neighbour_flips(grid, K1 + 1),
+               tol=RERANK_TOL, shape=list(dist.shape))
+    log(f"rerank entry {json.dumps(res)}")
+    if not (err <= RERANK_TOL and np.isfinite(dist).all() and np.isfinite(dist_g).all()):
+        raise AssertionError(f"re-ranked distances on the card differ from the CPU's: {res}")
+    if float(r1) != float(cmc[0]) or not np.array_equal(cmc_g, cmc_g_cpu):
+        raise AssertionError(f"re-ranked CMC differs between the entry path, card and CPU: {res}")
+    return res
+
+
+def clustered_feats(q: int, g: int, ids: int, seed: int = 0):
+    """bench.py's seeded clustered features (identity centres plus noise
+    0.7) at FEAT_DIM, with identities as pids and camids over 6 cameras."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(ids, FEAT_DIM).astype(np.float32)
+    q_ids, g_ids = rng.randint(0, ids, q), rng.randint(0, ids, g)
+    qf = (centers[q_ids] + rng.randn(q, FEAT_DIM) * 0.7).astype(np.float32)
+    gf = (centers[g_ids] + rng.randn(g, FEAT_DIM) * 0.7).astype(np.float32)
+    camids = rng.randint(0, 6, q + g)
+    return np.concatenate([qf, gf]), np.concatenate([q_ids, g_ids]), camids
+
+
+def rerank_market(profile: bool) -> dict:
+    """(b) The dense route at Market-1501 scale through R1mAPEvaluator
+    (k1 50, k2 15, λ 0.3): median of MARKET_RUNS computes after a warm-up,
+    one L1 launch each; then once with the quantized min-sum. ``profile``
+    adds a breakdown by kernel of one traced compute."""
+    q, g = MARKET["q"], MARKET["g"]
+    feats, pids, camids = clustered_feats(**MARKET)
+    feats = torch.from_numpy(feats).cuda()
+    ev = R1mAPEvaluator(q, reranking=True)
+    ev.update((feats, pids, camids))
+    ev.compute()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds = []
+    for _ in range(MARKET_RUNS):
+        t0 = time.perf_counter()
+        cmc, mAP, dist, *_ = ev.compute()  # ends in host copies
+        seconds.append(time.perf_counter() - t0)
+    counts = read_counts()
+    expect_counts("Market-1501 dense re-ranking", counts, {"l1_cross": MARKET_RUNS})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        profile_compute(ev, "Market-1501 dense")
+    ev_fast = R1mAPEvaluator(q, reranking=True, rerank_fast=True)
+    ev_fast.update((feats, pids, camids))
+    t0 = time.perf_counter()
+    cmc_f, mAP_f, dist_f, *_ = ev_fast.compute()
+    fast_s = time.perf_counter() - t0
+    res = dict(query=q, gallery=g, n=q + g, dim=FEAT_DIM, seconds_median=statistics.median(seconds),
+               seconds=seconds, peak_mem_gb=peak, launches=counts, rank1=float(cmc[0]), mAP=mAP,
+               fast_seconds=fast_s, fast_max_abs_diff=float(np.abs(dist_f - dist).max()),
+               fast_rank1=float(cmc_f[0]), fast_mAP=mAP_f)
+    log(f"rerank market1501 dense {json.dumps(res)}")
+    if not (np.isfinite(dist).all() and np.isfinite(dist_f).all()):
+        raise AssertionError(f"non-finite re-ranked distances at Market-1501 scale: {res}")
+    return res
+
+
+def profile_compute(ev, what: str) -> None:
+    """Breakdown by kernel of one traced ``ev.compute()`` and the device's
+    idle share over it (tracing adds host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.compute()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"profile of one {what} re-ranking compute:\n"
+        + prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    busy = device_busy_ms(prof)
+    log(f"idle {json.dumps(dict(compute_wall_ms_traced=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms))}")
+
+
+def rank_metrics(dist_rows: np.ndarray, rows: np.ndarray, q_ids, g_ids) -> tuple:
+    """(rank-1, mAP) of distance rows against the synthetic identities (bench.py)."""
+    order = np.argsort(dist_rows, axis=1, kind="stable")
+    r1 = float(np.mean(g_ids[order[:, 0]] == q_ids[rows]))
+    aps = []
+    for i, r in enumerate(rows):
+        rel = g_ids[order[i]] == q_ids[r]
+        if rel.any():
+            prec = np.cumsum(rel) / (np.arange(len(rel)) + 1)
+            aps.append(float(np.sum(prec * rel) / rel.sum()))
+    return r1, float(np.mean(aps)) if aps else 0.0
+
+
+def rerank_msmt(profile: bool) -> dict:
+    """(c) The sparse-V route at MSMT17 scale through R1mAPEvaluator (above
+    TEST.RERANK_SPARSE_N: quantized min-sum); then ORACLE_ROWS evenly spaced
+    query rows recomputed exactly by re_ranking_sparse_rows (the min-sum
+    kernel on each gallery chunk): the quantized rows rank the gallery as
+    the exact ones do to within one sampled query's rank-1 and
+    QUANTIZED_MAP_DELTA of mAP; their value error is reported against
+    QUANTIZED_VALUE_BAR. ``profile`` adds a breakdown of a second, traced
+    compute."""
+    q, g = MSMT["q"], MSMT["g"]
+    feats, pids, camids = clustered_feats(**MSMT)
+    ev = R1mAPEvaluator(q, reranking=True)
+    ev.update((torch.from_numpy(feats).cuda(), pids, camids))
+    del feats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cmc, mAP, dist, _, _, qf, gf = ev.compute()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect_counts("MSMT17 sparse quantized re-ranking", read_counts(), {})
+    if profile:
+        profile_compute(ev, "MSMT17 sparse quantized")
+    del ev
+    rows = np.linspace(0, q - 1, ORACLE_ROWS).astype(np.int64)
+    d_rows = dist[rows]
+    del dist
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    exact = re_ranking_sparse_rows(torch.from_numpy(qf).cuda(), torch.from_numpy(gf).cuda(),
+                                   torch.from_numpy(rows).cuda()).cpu().numpy()
+    oracle_s = time.perf_counter() - t0
+    oracle_counts = read_counts()
+    expect_counts("re_ranking_sparse_rows", oracle_counts,
+                  {"minsum_cross": -(-g // MSMT_BLOCK[1])})
+    q_ids, g_ids = pids[:q], pids[q:]
+    r1_q, map_q = rank_metrics(d_rows, rows, q_ids, g_ids)
+    r1_e, map_e = rank_metrics(exact, rows, q_ids, g_ids)
+    diff = np.abs(d_rows - exact)
+    res = dict(query=q, gallery=g, n=q + g, dim=FEAT_DIM, seconds=seconds, peak_mem_gb=peak,
+               rank1=float(cmc[0]), mAP=mAP, oracle_rows=ORACLE_ROWS, oracle_seconds=oracle_s,
+               oracle_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=oracle_counts, rows_max_abs_err_vs_exact=float(diff.max()),
+               rows_mean_abs_err=float(diff.mean()),
+               rows_err_p999=float(np.quantile(diff, 0.999)),
+               rows_share_above_value_bar=float(np.mean(diff > QUANTIZED_VALUE_BAR)),
+               value_bar=QUANTIZED_VALUE_BAR,
+               top1_disagreement=float(np.mean(d_rows.argmin(1) != exact.argmin(1))),
+               rank1_delta=r1_q - r1_e, map_delta_rows=map_q - map_e, rows_rank1_exact=r1_e,
+               rows_map_exact=map_e)
+    log(f"rerank msmt17 sparse {json.dumps(res)}")
+    if not (np.isfinite(exact).all() and abs(r1_q - r1_e) <= 1 / ORACLE_ROWS + 1e-9
+            and abs(map_q - map_e) < QUANTIZED_MAP_DELTA):
+        raise AssertionError(f"quantized MSMT17 rows rank unlike the exact oracle's: {res}")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
@@ -747,6 +1051,14 @@ def main() -> None:
                                             timed=layout == "packed"))
     adam_rows = [check_adam(md, decoupled, timed=md == torch.float32 and not decoupled)
                  for md in (torch.float32, torch.bfloat16) for decoupled in (False, True)]
+    t0 = time.perf_counter()
+    n_market, n_msmt = MARKET["q"] + MARKET["g"], MSMT["q"] + MSMT["g"]
+    l1_rows = [check_pairwise("l1_cross", MARKET["q"], MARKET["g"], n_market, V_NONZEROS, True),
+               check_pairwise("l1_cross", 130, 70, 600, None, False)]
+    minsum_rows = [check_pairwise("minsum_cross", *MSMT_BLOCK, n_msmt, V_NONZEROS, True),
+                   check_pairwise("minsum_cross", 130, 70, 600, None, False)]
+    torch.cuda.empty_cache()
+    log(f"  pairwise kernels {time.perf_counter() - t0:.1f} s")
 
     log("baseline eval slice, ViT-B/16 at full width:")
     reset_counts()
@@ -757,8 +1069,22 @@ def main() -> None:
 
     log("cross-checks:")
     cross_checks(model)
+    train_cross_checks(train_res.pop("model"))
+
+    log("re-ranking slice (TEST.RE_RANKING):")
+    phase_s = {}
+    t0 = time.perf_counter()
+    entry_res = rerank_entry(model)
     del model
-    train_cross_checks(train_res["model"])
+    phase_s["entry"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    market_res = rerank_market(args.profile)
+    phase_s["market1501_dense"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    msmt_res = rerank_msmt(args.profile)
+    phase_s["msmt17_sparse"] = time.perf_counter() - t0
+    log(f"  re-ranking phase seconds {json.dumps(phase_s)}")
 
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -794,6 +1120,29 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",
+    }, {
+        "name": "l1_cross",
+        "route": "cuda",
+        "source": "mpreid_tpu_torch/kernels/csrc/pairwise_cross.cu",
+        "replaces": "mpreid_tpu/ops/pallas_kernels.py:192",
+        "launches": entry_res["launches"]["l1_cross"],
+        "launches_market_dense": market_res["launches"]["l1_cross"],
+        "max_abs_err": max(r["max_abs_err"] for r in l1_rows),
+        **timing(l1_rows[0]),
+        "plain_rows": l1_rows[0]["plain_rows"],
+        "shape": f"Market-1501 dense: ({MARKET['q']}, {n_market}) x ({MARKET['g']}, "
+                 f"{n_market}) fp32, {V_NONZEROS} nonzeros per row",
+    }, {
+        "name": "minsum_cross",
+        "route": "cuda",
+        "source": "mpreid_tpu_torch/kernels/csrc/pairwise_cross.cu",
+        "replaces": "mpreid_tpu/ops/pallas_kernels.py:262",
+        "launches": msmt_res["launches"]["minsum_cross"],
+        "max_abs_err": max(r["max_abs_err"] for r in minsum_rows),
+        **timing(minsum_rows[0]),
+        "plain_rows": minsum_rows[0]["plain_rows"],
+        "shape": f"MSMT17 query block x gallery chunk: ({MSMT_BLOCK[0]}, {n_msmt}) x "
+                 f"({MSMT_BLOCK[1]}, {n_msmt}) fp32, {V_NONZEROS} nonzeros per row",
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

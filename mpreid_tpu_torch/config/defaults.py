@@ -214,12 +214,13 @@ def get_default_cfg() -> CN:
     _C.TEST = CN()
     _C.TEST.IMS_PER_BATCH = 128
     _C.TEST.RE_RANKING = False
-    # MXU-quantized Jaccard min-sum for large galleries (ops/reranking.py)
+    # quantized Jaccard min-sum (bf16 0/1 matrix products) in the dense
+    # re-ranking (ops/reranking.py)
     _C.TEST.RERANK_FAST = False
     # Corpus size (Q+G) above which re-ranking switches to the sparse-V
-    # path (ops/reranking_sparse.py) — the dense path materializes several
-    # N² fp32 matrices and cannot exceed ~25k rows on a 16 GB chip; the
-    # sparse path holds O(N·W) and scales to MSMT17-size galleries.
+    # path (ops/reranking_sparse.py): the dense path holds several N² fp32
+    # matrices; the sparse path holds O(N·W) and scales to MSMT17-size
+    # galleries.
     _C.TEST.RERANK_SPARSE_N = 25000
     _C.TEST.WEIGHT = ""
     _C.TEST.NECK_FEAT = "after"

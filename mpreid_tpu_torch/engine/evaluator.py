@@ -2,9 +2,16 @@
 
 ref mpreid_tpu/engine/evaluator.py::R1mAPEvaluator. Accumulate (features,
 pids, camids) per batch, L2-normalise (``TEST.FEAT_NORM``), split query =
-first ``num_query`` rows, distmat, CMC/mAP. ``compute`` returns the
-reference's 7-tuple (cmc, mAP, distmat, pids, camids, qf, gf) as numpy.
-Re-ranking belongs to a later slice.
+first ``num_query`` rows, distmat (or k-reciprocal re-ranking), CMC/mAP.
+``compute`` returns the reference's 7-tuple (cmc, mAP, distmat, pids,
+camids, qf, gf) as numpy.
+
+Feature tensors stay on their device; numpy features go to ``device``, the
+card unless the caller asks for the CPU (``utils/device.py::resolve_device``
+raises without a card rather than compute on the CPU unasked). With
+``reranking``, corpora of at most ``rerank_sparse_n`` rows take the dense
+re-ranking (``rerank_fast``: the quantized min-sum), larger ones the
+sparse-V re-ranking with the quantized min-sum.
 """
 
 from __future__ import annotations
@@ -14,17 +21,18 @@ from typing import List
 import numpy as np
 import torch
 
-from mpreid_tpu_torch.ops import cmc_map, cosine_distmat, euclidean_squared_distmat
+from mpreid_tpu_torch.ops import (
+    cmc_map, cosine_distmat, euclidean_squared_distmat, re_ranking, re_ranking_sparse,
+)
+from mpreid_tpu_torch.utils.device import resolve_device
 
 
 class R1mAPEvaluator:
     def __init__(self, num_query: int, max_rank: int = 50, feat_norm: bool = True,
-                 reranking: bool = False, camera_filter: bool = False,
-                 dist_metric: str = "euclidean"):
-        if reranking:
-            raise NotImplementedError(
-                "TEST.RE_RANKING is not ported yet (ROADMAP.md, A10 re-ranking)"
-            )
+                 reranking: bool = False, camera_filter: bool = False, rerank_k1: int = 50,
+                 rerank_k2: int = 15, rerank_lambda: float = 0.3, rerank_fast: bool = False,
+                 rerank_sparse_n: int = 25000, dist_metric: str = "euclidean",
+                 device="cuda"):
         if dist_metric not in ("euclidean", "cosine"):
             raise ValueError(
                 f"Unknown dist_metric {dist_metric!r}; expected 'euclidean' or 'cosine'"
@@ -32,8 +40,13 @@ class R1mAPEvaluator:
         self.num_query = num_query
         self.max_rank = max_rank
         self.feat_norm = feat_norm
+        self.reranking = reranking
         self.camera_filter = camera_filter
+        self.rerank_params = (rerank_k1, rerank_k2, rerank_lambda)
+        self.rerank_fast = rerank_fast
+        self.rerank_sparse_n = rerank_sparse_n
         self.dist_metric = dist_metric
+        self.device = device
         self.reset()
 
     def reset(self):
@@ -43,8 +56,9 @@ class R1mAPEvaluator:
 
     def update(self, output):
         feat, pid, camid = output
-        # device tensors stay on the device until the distmat
-        self.feats.append(torch.as_tensor(feat).float())
+        if not isinstance(feat, torch.Tensor):
+            feat = torch.as_tensor(np.asarray(feat), device=resolve_device(self.device))
+        self.feats.append(feat.float())
         self.pids.append(np.asarray(pid))
         self.camids.append(np.asarray(camid))
 
@@ -61,7 +75,16 @@ class R1mAPEvaluator:
             raise AssertionError("Error: all query identities do not appear in gallery")
         q_camids, g_camids = camids[: self.num_query], camids[self.num_query:]
 
-        if self.dist_metric == "cosine":
+        if self.reranking:
+            k1, k2, lam = self.rerank_params
+            if feats.shape[0] > self.rerank_sparse_n:
+                # corpora whose N×N matrices do not fit (MSMT17, N ≈ 94k)
+                distmat = re_ranking_sparse(qf, gf, k1=k1, k2=k2, lambda_value=lam,
+                                            minsum="quantized")
+            else:
+                distmat = re_ranking(qf, gf, k1=k1, k2=k2, lambda_value=lam,
+                                     fast_minsum=self.rerank_fast)
+        elif self.dist_metric == "cosine":
             distmat = cosine_distmat(qf, gf)
         else:
             distmat = euclidean_squared_distmat(qf, gf)

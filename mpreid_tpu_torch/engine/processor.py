@@ -45,7 +45,10 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
         feat_norm=cfg.TEST.FEAT_NORM == "yes",
         reranking=cfg.TEST.RE_RANKING,
         camera_filter=cfg.TEST.CAMERA_FILTER,
+        rerank_fast=cfg.TEST.RERANK_FAST,
+        rerank_sparse_n=cfg.TEST.RERANK_SPARSE_N,
         dist_metric=cfg.TEST.DIST_METRIC,
+        device=next(model.parameters()).device,
     )
     eval_step = make_eval_step(model, cfg)
     for batch in val_loader.iter_sequential():

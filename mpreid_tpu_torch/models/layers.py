@@ -35,17 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpreid_tpu_torch.ops.attention import fused_attention
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """2-D ``a @ b`` summed in fp32, fp32 result."""
-    if a.dtype == torch.float32:
-        return torch.mm(a, b)
-    if a.is_cuda:
-        # bf16 operands, fp32 accumulation and fp32 result in one GEMM
-        return torch.mm(a, b, out_dtype=torch.float32)
-    # products of two bf16 values are exact in fp32
-    return torch.mm(a.float(), b.float())
+from mpreid_tpu_torch.ops.matmul import mm_f32
 
 
 def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
@@ -54,7 +44,7 @@ def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
     if x.dtype == torch.float32 or not x.is_cuda:
         y = F.linear(x.float(), w.float())
     else:
-        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+        y = mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
     if bias is not None:
         y = y + bias
     return y.to(x.dtype)
@@ -86,8 +76,8 @@ class _LinearBiasAct(torch.autograd.Function):
         x, w = ctx.saved_tensors
         need_x, need_w, need_b, _ = ctx.needs_input_grad
         dy2 = dy.reshape(-1, dy.shape[-1])
-        dx = _mm_f32(dy2, w).to(x.dtype).reshape(x.shape) if need_x else None
-        dw = _mm_f32(dy2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if need_w else None
+        dx = mm_f32(dy2, w).to(x.dtype).reshape(x.shape) if need_x else None
+        dw = mm_f32(dy2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if need_w else None
         db = dy2.float().sum(0) if need_b else None
         return dx, dw, db, None
 

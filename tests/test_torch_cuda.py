@@ -299,3 +299,83 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(card):
     floor = 1e-3 * max(g.norm().item() for g in cpu_g.values())
     for name, g in card_g.items():
         assert (g - cpu_g[name]).norm().item() <= 1e-4 * max(cpu_g[name].norm().item(), floor), name
+
+
+# ---------------------------------------------------------------------------
+# pairwise L1 / min-sum kernels (kernels/csrc/pairwise_cross.cu), against the
+# plain versions: fp32 sums of K terms in another order, so max abs error
+# ≤ 1e-5 × max(1, max|plain|)
+# ---------------------------------------------------------------------------
+
+def _pairwise(name):
+    from mpreid_tpu_torch.ops import pairwise
+
+    return getattr(pairwise, name), getattr(pairwise, f"{name}_plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["l1_cross", "minsum_cross"])
+@pytest.mark.parametrize("q", [1, 7, 64, 65, 129])
+@pytest.mark.parametrize("g,n", [(1, 1), (70, 600), (129, 33), (65, 1031)])
+def test_pairwise_kernel_matches_plain(card, name, q, g, n):
+    kernel, plain = _pairwise(name)
+    rng = np.random.default_rng(q * 1000 + g + n)
+    a = torch.from_numpy(np.abs(rng.standard_normal((q, n))).astype(np.float32)).to(card)
+    b = torch.from_numpy(np.abs(rng.standard_normal((g, n))).astype(np.float32)).to(card)
+    before = kernel.launches
+    got = kernel(a, b)
+    want = plain(a, b)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (q, g)
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["l1_cross", "minsum_cross"])
+def test_pairwise_kernel_takes_strided_rows(card, name):
+    """Densified sparse rows are a view with row stride n + 1."""
+    kernel, plain = _pairwise(name)
+    rng = np.random.default_rng(3)
+    wide = torch.from_numpy(rng.random((40, 301), np.float32)).to(card)
+    a, b = wide[:13, :300], wide[13:, :300]
+    got = kernel(a, b)
+    want = plain(a.contiguous(), b.contiguous())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["l1_cross", "minsum_cross"])
+def test_pairwise_wrapper_refuses_what_the_kernel_does_not_take(card, name):
+    kernel, _ = _pairwise(name)
+    a = torch.rand(8, 16, device=card)
+    with pytest.raises(TypeError, match="fp32"):
+        kernel(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous rows"):
+        kernel(a.t(), a.t())
+    with pytest.raises(ValueError, match="one device"):
+        kernel(a, a.cpu())
+
+
+@pytest.mark.cuda
+def test_reranking_on_the_card_matches_the_cpu(card):
+    """Dense re-ranking (one l1_cross launch) and sparse exact re-ranking
+    (one minsum_cross launch per gallery chunk) on the card against the
+    CPU's plain path, fp32, 1e-4 max abs."""
+    from mpreid_tpu_torch.ops import l1_cross, minsum_cross, re_ranking, re_ranking_sparse
+
+    rng = np.random.default_rng(12)
+    centers = rng.standard_normal((10, 32)).astype(np.float32)
+    feats = centers[rng.integers(0, 10, 200)] + 0.5 * rng.standard_normal((200, 32))
+    qf, gf = torch.from_numpy(feats[:40].astype(np.float32)), \
+        torch.from_numpy(feats[40:].astype(np.float32))
+    l1, ms = l1_cross.launches, minsum_cross.launches
+    dense = re_ranking(qf.to(card), gf.to(card), k1=20, k2=6)
+    sparse = re_ranking_sparse(qf.to(card), gf.to(card), k1=20, k2=6, g_chunk=64)
+    torch.cuda.synchronize()
+    assert (l1_cross.launches - l1, minsum_cross.launches - ms) == (1, 3)
+    for got, want in ((dense, re_ranking(qf, gf, k1=20, k2=6)),
+                      (sparse, re_ranking_sparse(qf, gf, k1=20, k2=6, g_chunk=64))):
+        assert (got.cpu() - want).abs().max().item() <= 1e-4

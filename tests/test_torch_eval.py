@@ -1,5 +1,6 @@
 """The port's eval path (distmat, CMC/mAP, evaluator, loader, the whole
-``do_inference`` slice) against the JAX package's.
+``do_inference`` slice, with and without re-ranking) against the JAX
+package's.
 
 Features come from a numpy seed and are tie-free, so both stable sorts give
 one ranking: CMC must be equal exactly and mAP to 1e-6. The whole slice runs
@@ -89,9 +90,14 @@ def test_evaluator_matches_jax(feat_norm, dist_metric):
     assert abs(tmap - jmap) <= 1e-6
 
 
-def test_evaluator_refuses_reranking():
-    with pytest.raises(NotImplementedError, match="RE_RANKING"):
-        R1mAPEvaluator(4, reranking=True)
+def test_evaluator_refuses_reranking(monkeypatch):
+    """Re-ranking runs where the features are: numpy features go to the card
+    and, without one, raise rather than re-rank on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qf, gf, qp, gp, qc, gc = _feats()
+    ev = R1mAPEvaluator(len(qf), reranking=True)
+    with pytest.raises(RuntimeError, match="MODEL.DEVICE cpu"):
+        ev.update((np.concatenate([qf, gf]), np.concatenate([qp, gp]), np.concatenate([qc, gc])))
 
 
 @pytest.fixture(scope="module")
@@ -124,11 +130,14 @@ def test_loader_batches_match_jax(market):
         assert a["count"] == b["count"] and a["paths"] == b["paths"]
 
 
+@pytest.mark.parametrize("re_ranking", [False, True])
 @pytest.mark.parametrize("neck_feat", ["before", "after"])
-def test_do_inference_slice_matches_jax(market, neck_feat):
-    """The whole slice on one tree: features → distmat → CMC/mAP."""
+def test_do_inference_slice_matches_jax(market, neck_feat, re_ranking):
+    """The whole slice on one tree: features → distmat (or k-reciprocal
+    re-ranking, k1 50 clamped to the corpus of ~48 rows) → CMC/mAP."""
     jcfg, tcfg = _cfgs(market)
     jcfg.TEST.NECK_FEAT = tcfg.TEST.NECK_FEAT = neck_feat
+    jcfg.TEST.RE_RANKING = tcfg.TEST.RE_RANKING = re_ranking
     _, _, jval, nq, ncls, ncam, nview = jax_make_dataloader(jcfg)
     jmodel = jax_make_model(jcfg, ncls, ncam, nview)
     variables = init_variables(jmodel, jax.random.PRNGKey(0), jcfg)

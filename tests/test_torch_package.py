@@ -39,6 +39,8 @@ def test_every_module_imports_without_jax_or_optional_packages():
     assert not banned, sorted(banned)
     assert "mpreid_tpu_torch.test" in MODULES and "mpreid_tpu_torch.kernels.build" in MODULES
     assert {"mpreid_tpu_torch.train", "mpreid_tpu_torch.ops.adam", "mpreid_tpu_torch.losses.triplet",
+            "mpreid_tpu_torch.ops.pairwise", "mpreid_tpu_torch.ops.reranking",
+            "mpreid_tpu_torch.ops.reranking_sparse", "mpreid_tpu_torch.ops.matmul",
             "mpreid_tpu_torch.solver.optim", "mpreid_tpu_torch.solver.schedules",
             "mpreid_tpu_torch.utils.checkpoint", "mpreid_tpu_torch.engine.train_state"} <= set(MODULES)
 
@@ -55,7 +57,8 @@ def test_chip_smoke_imports_without_jax_and_builds_every_source():
     from mpreid_tpu_torch.kernels import build
 
     sources = sorted(os.path.basename(p)[:-3] for p in glob.glob(str(build.CSRC / "*.cu")))
-    assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_fwd"]
+    assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_fwd",
+                                                 "pairwise_cross"]
 
 
 def test_chip_smoke_config_is_vit_base_yml():
