@@ -32,20 +32,36 @@ Phases, in order; any failure raises and the exit code is not 0:
    clustered features) through ``R1mAPEvaluator``, exact and quantized; the
    sparse-V route at MSMT17 scale (11,659 × 82,161) with the quantized
    min-sum, then 256 query rows recomputed exactly by
-   ``re_ranking_sparse_rows`` (21 min-sum kernel launches) as its oracle.
+   ``re_ranking_sparse_rows`` (21 min-sum kernel launches) as its oracle;
+8. the Uni-Prompt slice (configs/ours/cctv_ir_cctv_rgb.yml's settings:
+   ViT-B/16 + the 12 × 512 text tower, 1,000 classes, bf16 over fp32, batch
+   64, seeded uint8 images with view labels over 0-14): the stage-1 bank
+   over 4,096 images, one stage-1a and one stage-1b epoch (64 steps each,
+   12 attention forward and 12 backward launches per step at the text
+   shape) through ``do_train_stage1``, the stage-2 text features of every
+   class, 24 timed stage-2a steps (PK 16 × 4, augmentation and the i2t term
+   on), one 12-step stage-2b epoch through ``do_train_stage2`` and
+   ``do_inference``; then ``batch_hard_triplet_loss`` on the feats[1] of a
+   stage-2a forward against ``losses/triplet.py``, margin and soft margin;
+   then one stage-1b and one stage-2a step at batch 8 in fp32 on the card
+   against the CPU (loss, every gradient, parameters after the step), and
+   bf16 against fp32 on text and eval features.
 
 Phase 3 also holds the L1 and min-sum kernels (re-ranking's exact Jaccard
 step) against their plain versions at the path's shapes: the Market-1501
 dense shape, one MSMT17 query block × gallery chunk, and a ragged dense
-case. The plain versions are compared and timed on the first 256 query
-rows at full G and N.
+case (the plain versions compared and timed on the first 256 query rows at
+full G and N), and the batch-hard kernel at the PK batch (64 × 768) in fp32
+and bf16, a ragged 60-row batch, a batch with a singleton identity and a
+single-identity batch.
 
 The last two lines of standard output are one JSON object with the kernels'
 numbers and one with the run's verdict and device. ``--profile`` adds
 ``torch.profiler`` breakdowns by kernel of three eval batches, of three
 train steps and of one re-ranking compute at each scale, and the device's
 idle share over one traced ``do_inference`` run, over the traced train
-steps and over each traced compute.
+steps, over each traced compute and over three traced stage-1b and three
+stage-2a steps.
 """
 
 from __future__ import annotations
@@ -63,17 +79,22 @@ import torch
 import torch.nn.functional as F
 
 from mpreid_tpu_torch.config import get_default_cfg
-from mpreid_tpu_torch.data.loader import ImageBatcher, TrainLoader
+from mpreid_tpu_torch.data.loader import ImageBatcher, ShuffledLoader, TrainLoader
 from mpreid_tpu_torch.data.sampler import RandomIdentitySampler
 from mpreid_tpu_torch.engine import (
-    R1mAPEvaluator, do_inference, do_train, initial_state, loss_and_grads, make_eval_step,
-    make_train_step,
+    R1mAPEvaluator, build_image_bank, do_inference, do_train,
+    do_train_stage1, do_train_stage2, initial_state, loss_and_grads, make_eval_step,
+    make_stage1_step, make_train_step, precompute_text_features, stage1_loss_and_grads,
 )
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
-from mpreid_tpu_torch.models import build_model, make_model
+from mpreid_tpu_torch.losses.triplet import euclidean_dist, triplet_loss
+from mpreid_tpu_torch.models import (
+    build_model, build_model_uniprompt, make_model, make_model_uniprompt,
+)
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
+from mpreid_tpu_torch.ops import batch_hard as bh
 from mpreid_tpu_torch.ops import euclidean_squared_distmat, pairwise
 from mpreid_tpu_torch.ops.reranking import smallest_k
 from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse_rows
@@ -127,6 +148,15 @@ RERANK_TOL = 1e-4  # card vs CPU re-ranked distances, fp32
 # package's route as in the port's, which the CPU tests hold equal.
 QUANTIZED_VALUE_BAR = 0.15
 QUANTIZED_MAP_DELTA = 0.005
+# batch-hard mining: the PK batch of the training paths, feats[1]'s width
+HARD = dict(b=BATCH, d=768)
+HARD_TOL = 1e-5  # relative to max(1, max |plain|): dot products summed in another order
+# the Uni-Prompt slice (configs/ours/cctv_ir_cctv_rgb.yml at full ViT-B/16 width)
+UNI_CLASSES = 1000  # bench.py's full-run class count
+BANK_IMAGES = 4096  # stage-1 bank: 64 steps of 64 per stage-1 epoch
+UNI_VIEWS = 15  # MMMP view labels 0-14: both platforms and both modalities
+STAGE2A_STEPS = 24  # timed
+STAGE2B_IDS = 192  # do_train_stage2's epoch of stage 2b: 192 ids × 4 = 12 batches
 
 
 def log(msg: str) -> None:
@@ -388,6 +418,96 @@ def check_pairwise(name: str, q: int, g: int, n: int, nnz, timed: bool, seed: in
     return row
 
 
+def batch_hard_bound_ms(b: int, d: int, dtype: torch.dtype) -> tuple:
+    """(ms, bound_by): the features, the labels read once and the four (B,)
+    outputs written once over the memory rate, against the B×B dot products
+    and the row norms (2·B·B·D + 2·B·D fp32 operations) over the fp32 peak."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (b * d * size + 4 * b + 16 * b) / PEAK_BYTES_PER_S * 1e3
+    t_ops = (2 * b * b * d + 2 * b * d) / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hard_inputs(b: int, d: int, dtype: torch.dtype, labels=None, grid: bool = False,
+                seed: int = 21):
+    """Seeded features on the card (normal, or on a grid of 1/4, where every
+    distance is exact in fp32) and PK labels of 4, or the labels given."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if grid:
+        f = torch.randint(-4, 5, (b, d), device="cuda", generator=gen).float() / 4
+    else:
+        f = torch.randn(b, d, device="cuda", generator=gen)
+    if labels is None:
+        labels = torch.arange(b, device="cuda") // K_INST
+    return f.to(dtype), torch.as_tensor(labels, device="cuda").int()
+
+
+def hard_mismatch(got, want, f, labels, tol) -> int:
+    """Rows whose p or n index differs where no other candidate of the row lies
+    within ``tol`` of the best (the top two differ by more than the tolerance)."""
+    dist = euclidean_dist(f.float(), f.float())
+    same = labels[:, None] == labels[None, :]
+    bad = 0
+    for val, idx, ref, mask in ((want[0], got[2], want[2], same),
+                                (want[1], got[3], want[3], ~same)):
+        clear = (((dist - val[:, None]).abs() <= tol) & mask).sum(1) == 1
+        bad += int((idx[clear] != ref[clear]).sum())
+    return bad
+
+
+def check_batch_hard(name: str, b: int, d: int, dtype: torch.dtype, timed: bool,
+                     labels=None, grid: bool = False) -> dict:
+    """The batch-hard kernel against ``batch_hard_plain`` on the card: ap/an
+    within HARD_TOL × max(1, max|plain|) (inf where plain is inf), p/n equal
+    wherever the best two candidates differ by more than that; on grid
+    features (exact distances) everything equal, and singleton identities at
+    ap = sqrt(1e-12), p = self."""
+    f, lab = hard_inputs(b, d, dtype, labels, grid)
+    got = bh.batch_hard_mining(f, lab)
+    want = bh.batch_hard_plain(f, lab)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want[1])
+    scale = max([1.0, want[0].abs().max().item()]
+                + ([want[1][fin].abs().max().item()] if bool(fin.any()) else []))
+    tol = HARD_TOL * scale
+    err = max((got[0] - want[0]).abs().max().item(),
+              (got[1] - want[1])[fin].abs().max().item() if bool(fin.any()) else 0.0)
+    ok = (err <= tol and torch.equal(torch.isinf(got[1]), ~fin)
+          and hard_mismatch(got, want, f, lab, tol) == 0)
+    if grid:
+        solo = (lab[:, None] == lab[None, :]).sum(1) == 1
+        ok = ok and all(torch.equal(g, w) for g, w in zip(got, want))
+        ok = ok and bool((got[0][solo] == 1e-6).all()) and torch.equal(
+            got[2][solo].long(), torch.nonzero(solo).flatten())
+        ok = ok and bool((got[3][~fin] == 0).all())
+    row = dict(case=name, dtype=str(dtype).split(".")[-1], shape=[b, d], grid=grid,
+               rows_without_negative=int((~fin).sum()), max_abs_err=err, tol=tol, ok=ok)
+    if timed:
+        row["ms"] = cuda_ms(lambda: bh.batch_hard_mining(f, lab))
+        row["plain_ms"] = cuda_ms(lambda: bh.batch_hard_plain(f, lab))
+        x = f.float()
+        row["library_ms"] = cuda_ms(lambda: torch.cdist(x, x))
+        row["library"] = "torch.cdist(x, x): the distance matrix alone"
+        row["bound_ms"], row["bound_by"] = batch_hard_bound_ms(b, d, dtype)
+    log(f"  batch_hard {json.dumps(row)}")
+    if not ok:
+        raise AssertionError(f"batch-hard kernel disagrees with its plain version: {row}")
+    return row
+
+
+def batch_hard_rows() -> list:
+    """Phase 3's batch-hard cases: the PK batch (64 × 768) in fp32 (timed)
+    and bf16, a ragged 60-row batch, and on grid features a batch with a
+    singleton identity and a single-identity batch (no negatives)."""
+    b, d = HARD["b"], HARD["d"]
+    singleton = [i // K_INST for i in range(b - 1)] + [b]
+    return [check_batch_hard("pk", b, d, torch.float32, timed=True),
+            check_batch_hard("pk", b, d, torch.bfloat16, timed=False),
+            check_batch_hard("ragged", 60, d, torch.float32, timed=False),
+            check_batch_hard("singleton", b, d, torch.float32, False, singleton, grid=True),
+            check_batch_hard("one_identity", b, d, torch.bfloat16, False, [0] * b, grid=True)]
+
+
 class InMemoryBatcher:
     """Seeded uint8 query + gallery images with the ``ImageBatcher.iter_sequential``
     contract: every identity has images on both sides, so CMC is defined."""
@@ -527,11 +647,13 @@ def profile_eval(cfg, model, loader, step, batch) -> None:
 
 
 class MemoryBatcher(ImageBatcher):
-    """``ImageBatcher`` over uint8 images held in memory (record i is image i),
-    so ``TrainLoader`` and the PK sampler run unchanged."""
+    """``ImageBatcher`` over uint8 images held in memory (record i is image i,
+    its view label the camera and track id), so ``TrainLoader``,
+    ``ShuffledLoader`` and the PK sampler run unchanged."""
 
-    def __init__(self, images: np.ndarray, pids: np.ndarray, batch_size: int):
-        records = [(str(i), int(p), 0, 0) for i, p in enumerate(pids)]
+    def __init__(self, images: np.ndarray, pids: np.ndarray, batch_size: int, views=None):
+        views = np.zeros(len(pids), np.int32) if views is None else views
+        records = [(str(i), int(p), int(v), int(v)) for i, (p, v) in enumerate(zip(pids, views))]
         super().__init__(records, images.shape[1:3], batch_size, num_workers=4)
         self.images = images
 
@@ -555,7 +677,7 @@ def pk_batches(images, pids, n: int, ids: int = P_IDS, seed: int = 3) -> list:
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
-        chosen = rng.choice(TRAIN_IDS, ids, replace=False)
+        chosen = rng.choice(np.unique(pids), ids, replace=False)
         idx = np.concatenate([rng.choice(np.flatnonzero(pids == i), K_INST, replace=False)
                               for i in chosen])
         zeros = torch.zeros(len(idx), dtype=torch.int32, device=CARD)
@@ -567,7 +689,7 @@ def pk_batches(images, pids, n: int, ids: int = P_IDS, seed: int = 3) -> list:
 
 COUNTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd,
            "adam": adam.fused_adam_leaf, "l1_cross": pairwise.l1_cross,
-           "minsum_cross": pairwise.minsum_cross}
+           "minsum_cross": pairwise.minsum_cross, "batch_hard": bh.fused_batch_hard}
 
 
 def reset_counts() -> None:
@@ -819,6 +941,368 @@ def cross_checks(model) -> None:
         raise AssertionError(f"bf16 vs fp32 cosine below 0.99: {cos.tolist()}")
 
 
+# configs/ours/cctv_ir_cctv_rgb.yml, built in code (the script needs no yaml);
+# tests/test_torch_package.py holds it to the file
+_STAGE1 = {"IMS_PER_BATCH": BATCH, "OPTIMIZER_NAME": "Adam", "BASE_LR": 0.00035,
+           "WARMUP_LR_INIT": 0.00001, "LR_MIN": 1.0e-6, "WARMUP_METHOD": "linear",
+           "WEIGHT_DECAY": 1.0e-4, "WEIGHT_DECAY_BIAS": 1.0e-4, "LOG_PERIOD": 50,
+           "WARMUP_EPOCHS": 5}
+UNIPROMPT = {
+    "MODEL": {"PRETRAIN_CHOICE": "imagenet", "METRIC_LOSS_TYPE": "triplet",
+              "IF_LABELSMOOTH": "on", "IF_WITH_CENTER": "no", "NAME": "ViT-B-16",
+              "STRIDE_SIZE": [16, 16], "ID_LOSS_WEIGHT": 0.25, "TRIPLET_LOSS_WEIGHT": 1.0,
+              "I2T_LOSS_WEIGHT": 1.0, "MOE": {"ENABLED": False}},
+    "INPUT": VIT_BASE["INPUT"],
+    "DATALOADER": VIT_BASE["DATALOADER"],
+    "SOLVER": {
+        "STAGE1": {**_STAGE1, "MAX_EPOCHS": 120, "CHECKPOINT_PERIOD": 120},
+        "STAGE1A": {**_STAGE1, "MAX_EPOCHS": 60, "CHECKPOINT_PERIOD": 60},
+        "STAGE1B": {**_STAGE1, "MAX_EPOCHS": 60, "CHECKPOINT_PERIOD": 60},
+        "STAGE2": {"IMS_PER_BATCH": BATCH, "OPTIMIZER_NAME": "Adam", "BASE_LR": 0.000005,
+                   "WARMUP_METHOD": "linear", "WARMUP_ITERS": 10, "WARMUP_FACTOR": 0.1,
+                   "WEIGHT_DECAY": 0.0001, "WEIGHT_DECAY_BIAS": 0.0001, "LARGE_FC_LR": False,
+                   "MAX_EPOCHS": 60, "CHECKPOINT_PERIOD": 60, "LOG_PERIOD": 50,
+                   "EVAL_PERIOD": 60, "BIAS_LR_FACTOR": 2, "STEPS": [30, 50], "GAMMA": 0.1},
+    },
+    "TEST": VIT_BASE["TEST"],
+    "DATASETS": {"NAMES": "mmmp", "ROOT_DIR": "/data/mmmp1_10",
+                 "EXP_SETTING": "exp_cctv_ir_cctv_rgb"},
+    "OUTPUT_DIR": "output_uniprompt",
+}
+
+
+def uniprompt_cfg(dtype: str = "bfloat16", device: str = CARD):
+    """configs/ours/cctv_ir_cctv_rgb.yml's settings (as train_uniprompt takes
+    them), on ``device`` in ``dtype``, writing no files; each stage runs one
+    epoch here."""
+    cfg = get_default_cfg()
+    cfg._merge_dict(UNIPROMPT)
+    cfg.MODEL.DEVICE = device
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def uniprompt_images(seed: int = 7):
+    """BANK_IMAGES seeded uint8 images over UNI_CLASSES identities (4 or 5
+    each) with view labels drawn over 0-14."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (BANK_IMAGES, *HW, 3), dtype=np.uint8)
+    pids = (np.arange(BANK_IMAGES) % UNI_CLASSES).astype(np.int32)
+    views = rng.integers(0, UNI_VIEWS, BANK_IMAGES).astype(np.int32)
+    return images, pids, views
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` ending in a synchronize."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_idle(fn, what: str) -> dict:
+    """The device's idle share over ``fn()`` (traced; tracing adds host time)
+    and its breakdown by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    log(f"profile of {what}:\n" + prof.key_averages().table(sort_by="cuda_time_total",
+                                                             row_limit=20))
+    res = dict(what=what, wall_ms_traced=wall_ms, device_busy_ms=busy,
+               device_idle_share=1 - busy / wall_ms)
+    log(f"idle {json.dumps(res)}")
+    return res
+
+
+def run_uniprompt(profile: bool) -> dict:
+    """The Uni-Prompt slice at full width (ViT-B/16 + the 12 × 512 text
+    tower, bf16 over fp32 parameters, 1,000 classes): the stage-1 bank over
+    BANK_IMAGES, one stage-1a and one stage-1b epoch through do_train_stage1,
+    the stage-2 text features, STAGE2A_STEPS timed stage-2a steps (PK 16 × 4,
+    augmentation on, the i2t term), one stage-2b epoch of 12 steps through
+    do_train_stage2, and do_inference; each with its kernel launches."""
+    cfg = uniprompt_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = make_model_uniprompt(cfg, num_class=UNI_CLASSES, camera_num=14, view_num=UNI_VIEWS)
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    images, pids, views = uniprompt_images()
+    loader1 = ShuffledLoader(MemoryBatcher(images, pids, BATCH, views), int(cfg.SOLVER.SEED))
+    log(f"uniprompt model: ViT-B/16 + text tower ({tdepth} × "
+        f"{model.text_encoder.width}, {model.clip_config.transformer_heads} heads), "
+        f"{UNI_CLASSES} classes, {sum(p.numel() for p in model.parameters())} parameters, "
+        f"bf16 over fp32, set up in {time.perf_counter() - t0:.2f} s")
+    res = {}
+
+    # the stage-1 bank
+    build_image_bank(cfg, model, ShuffledLoader(MemoryBatcher(images[:BATCH], pids[:BATCH],
+                                                              BATCH, views[:BATCH]), 0))
+    torch.cuda.synchronize()
+    reset_counts()
+    bank, secs = timed(lambda: build_image_bank(cfg, model, loader1))
+    n_bank = BANK_IMAGES // BATCH
+    expect_counts("image bank", read_counts(), {"attention_fwd": vdepth * n_bank})
+    if tuple(bank[0].shape) != (BANK_IMAGES, model.in_planes_proj) or \
+            not bool(torch.isfinite(bank[0].float()).all()):
+        raise AssertionError(f"bad image bank {tuple(bank[0].shape)}")
+    if set(np.unique(bank[2]).tolist()) != set(range(UNI_VIEWS)):
+        raise AssertionError("the bank's views do not cover 0-14")
+    res["bank"] = dict(images=BANK_IMAGES, seconds=secs, feats_per_s=BANK_IMAGES / secs)
+
+    # stage 1a and 1b: one epoch each (64 steps of 64 bank rows)
+    n_steps = BANK_IMAGES // BATCH
+    for stage in ("1a", "1b"):
+        stage_cfg = cfg.SOLVER[f"STAGE{stage.upper()}"].clone()
+        stage_cfg.MAX_EPOCHS = 1
+        opt = make_optimizer(stage_cfg, model, stage=f"stage{stage}")
+        reset_counts()
+        (state, hist), secs = timed(lambda: do_train_stage1(
+            cfg, model, loader1, opt, make_scheduler(stage_cfg, "cosine"),
+            is_stage1b=stage == "1b", bank=bank, stage_cfg=stage_cfg))
+        counts = read_counts()
+        expect_counts(f"stage {stage} epoch", counts, {"attention_fwd": tdepth * n_steps,
+                                                       "attention_bwd": tdepth * n_steps})
+        if state.opt_state.step != n_steps or not np.isfinite(hist[0]["loss"]):
+            raise AssertionError(f"stage {stage}: {state.opt_state.step} steps, {hist}")
+        res[f"stage{stage}"] = dict(steps=n_steps, batch=BATCH, seconds=secs,
+                                    bank_rows_per_s=BANK_IMAGES / secs, loss=hist[0]["loss"],
+                                    launches=counts)
+        if profile and stage == "1b":
+            step = make_stage1_step(model, cfg, opt, "1b")
+            sel = torch.arange(BATCH, device=CARD)
+            lab, vw = (torch.as_tensor(a[:BATCH]).to(CARD) for a in bank[1:])
+            res["stage1_profile"] = profile_idle(
+                lambda: [step(state, bank[0][sel], lab, vw, 1e-4) for _ in range(3)],
+                "3 stage-1b steps (bf16, batch 64)")
+
+    # the stage-2 text features of every class
+    reset_counts()
+    text, secs = timed(lambda: precompute_text_features(cfg, model, UNI_CLASSES))
+    n_text = -(-UNI_CLASSES // BATCH)
+    expect_counts("text features", read_counts(), {"attention_fwd": tdepth * n_text})
+    if tuple(text.shape) != (UNI_CLASSES, model.in_planes_proj) or \
+            not bool(torch.isfinite(text.float()).all()):
+        raise AssertionError(f"bad text features {tuple(text.shape)}")
+    res["text_features"] = dict(classes=UNI_CLASSES, seconds=secs,
+                                classes_per_s=UNI_CLASSES / secs)
+
+    # stage 2a: timed steps of make_train_step with the i2t term
+    loss_fn, _ = make_loss(cfg, UNI_CLASSES)
+    opt_2a = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    lr = make_scheduler(cfg.SOLVER.STAGE2, "multistep")(1)
+    batches = pk_batches(images, pids, 4, seed=8)
+    state = initial_state(model, opt_2a)
+    step = make_train_step(model, cfg, loss_fn, opt_2a, uniprompt=True, text_features=text)
+    gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+    state, _ = step(state, batches[0], lr, gen)  # warm-up step
+    torch.cuda.synchronize()
+    reset_counts()
+    seconds, losses = [], []
+    for i in range(STAGE2A_STEPS):
+        (state, metrics), secs = timed(lambda: step(state, batches[i % len(batches)], lr, gen))
+        seconds.append(secs)
+        losses.append(metrics["loss"])
+    counts = read_counts()
+    expect_counts("stage 2a steps", counts, {"attention_fwd": vdepth * STAGE2A_STEPS,
+                                             "attention_bwd": vdepth * STAGE2A_STEPS})
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite stage-2a loss: {losses}")
+    q1, med, q3 = (float(x) for x in np.percentile(sorted(BATCH / x for x in seconds),
+                                                   [25, 50, 75]))
+    res["stage2a"] = dict(steps=STAGE2A_STEPS, batch=BATCH, train_img_per_s=med,
+                          train_img_per_s_q1=q1, train_img_per_s_q3=q3,
+                          step_ms_median=float(np.median(seconds)) * 1e3, launches=counts,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses)
+    if profile:
+        res["stage2a_profile"] = profile_idle(
+            lambda: [step(state, batches[i], lr, gen) for i in range(3)],
+            "3 stage-2a steps (bf16, batch 64)")
+    with torch.no_grad():  # feats[1] of one stage-2a forward, for the batch-hard check
+        x = eval_preprocess(batches[1]["images"], mean=cfg.INPUT.PIXEL_MEAN,
+                            std=cfg.INPUT.PIXEL_STD)
+        feats = model.forward_train(x, batches[1]["pids"].long())["feats"][1]
+
+    # stage 2b: one epoch of 12 steps through do_train_stage2
+    sub = np.flatnonzero(pids < STAGE2B_IDS)
+    sampler = RandomIdentitySampler(list(zip(range(len(sub)), pids[sub])), BATCH, K_INST,
+                                    seed=int(cfg.SOLVER.SEED))
+    loader2 = TrainLoader(MemoryBatcher(images[sub], pids[sub], BATCH, views[sub]), sampler)
+    n_2b = len(sampler.epoch_indices(1)) // BATCH
+    opt_2b = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2b")
+    reset_counts()
+    (_, hist), secs = timed(lambda: do_train_stage2(
+        cfg, model, loader2, None, opt_2b, make_scheduler(cfg.SOLVER.STAGE2, "multistep"),
+        loss_fn, QUERY, UNI_CLASSES, max_epochs=1))
+    counts = read_counts()
+    expect_counts("stage 2b epoch", counts, {
+        "attention_fwd": tdepth * n_text + vdepth * n_2b, "attention_bwd": vdepth * n_2b})
+    if not np.isfinite(hist[0]["loss"]):
+        raise AssertionError(f"non-finite stage-2b loss {hist}")
+    res["stage2b"] = dict(steps=n_2b, seconds=secs, img_per_s=n_2b * BATCH / secs,
+                          loss=hist[0]["loss"], acc=hist[0]["acc"], launches=counts)
+
+    # inference
+    loader = InMemoryBatcher(QUERY, GALLERY, BATCH, HW)
+    reset_counts()
+    (r1, r5), secs = timed(lambda: do_inference(cfg, model, loader, QUERY))
+    counts = read_counts()
+    expect_counts("uniprompt do_inference", counts,
+                  {"attention_fwd": vdepth * (QUERY + GALLERY) // BATCH})
+    res["inference"] = dict(images=QUERY + GALLERY, seconds=secs,
+                            feats_per_s=(QUERY + GALLERY) / secs, rank1=float(r1),
+                            rank5=float(r5), launches=counts)
+    log(f"uniprompt {json.dumps(res)}")
+    return dict(res=res, model=model, feats=feats, labels=batches[1]["pids"], text=text)
+
+
+def uniprompt_triplet_check(feats: torch.Tensor, labels: torch.Tensor) -> dict:
+    """batch_hard_triplet_loss (the batch-hard kernel forward, the torch VJP)
+    against autograd through losses/triplet.py::triplet_loss, margin 0.3 and
+    soft margin, on the feats[1] of one stage-2a forward (fp32). The loss is
+    held to 2·HARD_TOL·max(1, max distance) absolute (the hinge and the
+    softplus are 1-Lipschitz in each of ap and an, which the kernel gives to
+    HARD_TOL·max(1, max distance)), the gradient to 1e-4 norm-relative."""
+    reset_counts()
+    res = {}
+    for name, margin in (("margin_0.3", 0.3), ("soft", None)):
+        x = feats.detach().float().requires_grad_(True)
+        y = feats.detach().float().requires_grad_(True)
+        loss, _, _ = bh.batch_hard_triplet_loss(x, labels, margin=margin)
+        loss.backward()
+        want, ap, an = triplet_loss(y, labels.long(), margin=margin)
+        want.backward()
+        torch.cuda.synchronize()
+        res[name] = dict(loss=loss.item(), loss_abs_err=abs(loss.item() - want.item()),
+                         loss_tol=2 * HARD_TOL * max(1.0, ap.max().item(), an.max().item()),
+                         grad_rel_err=(x.grad - y.grad).norm().item() / y.grad.norm().item())
+    res["launches"] = read_counts()["batch_hard"]
+    log(f"batch-hard triplet loss on feats[1] {json.dumps(res)}")
+    if res["launches"] != 2 or not all(
+            r["loss_abs_err"] <= r["loss_tol"] and r["grad_rel_err"] <= 1e-4
+            for k, r in res.items() if k != "launches"):
+        raise AssertionError(f"batch_hard_triplet_loss disagrees with triplet_loss: {res}")
+    return res
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
+    return (a - b).norm().item() / max(b.norm().item(), floor, 1e-30)
+
+
+def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
+    """From the slice's weights: one stage-1b step and one stage-2a step at
+    batch 8 (augmentation off), fp32 on the card against fp32 on the CPU: the
+    loss to LOSS_RTOL, every gradient to GRAD_RTOL norm-relative (floored at
+    1e-3 of the largest leaf; the unused leaves' zeros included), the
+    parameters after the step to 0.25·lr·mult, except where the coupled
+    gradient g' = g + wd·p is below 100·eps: Adam's first step is
+    lr·g'/(|g'| + eps), which rounding of such a g' can move by up to lr
+    either way, so those elements (counted) are held to 2·lr·mult. Then bf16 against fp32 on the card: cosine ≥
+    COSINE_FLOOR on text features and stage-2 eval features."""
+    from mpreid_tpu_torch.engine.steps import trainable_params
+
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    text32 = text.float()
+    images, pids, views = uniprompt_images(seed=9)
+    gen = np.random.default_rng(10)
+    idx = gen.choice(BANK_IMAGES, CHECK_BATCH, replace=False)
+    bank_rows = torch.from_numpy(
+        gen.standard_normal((CHECK_BATCH, model.in_planes_proj)).astype(np.float32))
+    target = torch.arange(CHECK_BATCH) // K_INST
+    out, models = {}, {}
+    for name, device in (("cpu", "cpu"), ("card", CARD)):
+        c = uniprompt_cfg("float32", device)
+        c.INPUT.PROB, c.INPUT.PADDING, c.INPUT.RE_PROB = 0.0, 0, 0.0
+        m = build_model_uniprompt(c, UNI_CLASSES, 14, UNI_VIEWS)
+        m.load_state_dict(weights, strict=True)
+        m = m.to(device)
+        models[name] = m
+        res = {}
+        opt1 = make_optimizer(c.SOLVER.STAGE1B, m, stage="stage1b")
+        loss, grads = stage1_loss_and_grads(m, opt1, "1b", bank_rows.to(device), target.to(device),
+                                            torch.from_numpy(views[idx]).to(device).long())
+        train = trainable_params(m, opt1)
+        opt1.update(grads, opt1.init(m), train, 1e-3)
+        res["1b"] = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+                     {k: p.detach().cpu().clone() for k, p in train.items()}, opt1, 1e-3)
+        m.load_state_dict(weights, strict=True)
+        loss_fn, _ = make_loss(c, UNI_CLASSES)
+        opt2 = make_optimizer(c.SOLVER.STAGE2, m, stage="stage2a")
+        x = eval_preprocess(torch.from_numpy(images[idx]).to(device),
+                            mean=c.INPUT.PIXEL_MEAN, std=c.INPUT.PIXEL_STD)
+        loss, _, grads, _ = loss_and_grads(m, c, loss_fn, opt2, x, target.to(device),
+                                           text_features=text32.to(device))
+        train = trainable_params(m, opt2)
+        lr2 = 1e-3
+        opt2.update(grads, opt2.init(m), train, lr2)
+        res["2a"] = (float(loss), {k: g.float().cpu() for k, g in grads.items()},
+                     {k: p.detach().cpu().clone() for k, p in train.items()}, opt2, lr2)
+        m.load_state_dict(weights, strict=True)
+        out[name] = res
+    checks = {}
+    for stage in ("1b", "2a"):
+        (l_cpu, g_cpu, p_cpu, opt, lr), (l_gpu, g_gpu, p_gpu, _, _) = \
+            out["cpu"][stage], out["card"][stage]
+        floor = 1e-3 * max(g.norm().item() for g in g_cpu.values())
+        zero = [k for k, g in g_cpu.items() if not bool(g.any())]
+        worst_p, worst_all, n_small, ok_p = 0.0, 0.0, 0, True
+        for k, p in p_cpu.items():
+            err = (p_gpu[k] - p).abs() / (lr * opt.lr_mult[k])
+            # Adam's first step is lr·g'/(|g'| + eps) with g' = g + wd·p: where
+            # |g'| < 100·eps rounding of g' moves it by up to lr either way
+            small = (g_cpu[k] + opt.wd[k] * weights[k]).abs() < 100 * opt.eps
+            n_small += int(small.sum())
+            worst_p = max(worst_p, err[~small].max().item() if bool((~small).any()) else 0.0)
+            worst_all = max(worst_all, err.max().item())
+        ok_p = worst_p <= 0.25 and worst_all <= 2.0
+        checks[stage] = dict(
+            loss_rel=abs(l_gpu - l_cpu) / abs(l_cpu),
+            worst_grad_rel=max(_rel_err(g_gpu[k], g, floor) for k, g in g_cpu.items()),
+            zero_grad_leaves=len(zero), zero_on_card=all(not bool(g_gpu[k].any()) for k in zero),
+            worst_param_err_lr_units=worst_p, elements_near_zero_step=n_small,
+            worst_param_err_lr_units_near_zero_step=worst_all, leaves=len(g_cpu))
+        log(f"uniprompt step cross-check {stage} {json.dumps(checks[stage])}")
+        if not (checks[stage]["loss_rel"] <= LOSS_RTOL and checks[stage]["worst_grad_rel"]
+                <= GRAD_RTOL and checks[stage]["zero_on_card"] and ok_p):
+            raise AssertionError(f"stage {stage} step on the card differs from the CPU's: "
+                                 f"{checks[stage]}")
+    if checks["2a"]["zero_grad_leaves"] < 7:
+        raise AssertionError(f"stage 2a: expected the unused leaves' zero gradients: {checks}")
+    # text features fp32 card vs CPU on the first classes, and bf16 vs fp32
+    labels = torch.arange(BATCH)
+    with torch.no_grad():
+        t_cpu = models["cpu"].get_text(labels, None, "2")
+        t_card = models["card"].get_text(labels.to(CARD), None, "2").cpu()
+        x8 = torch.from_numpy(images[idx[:CHECK_BATCH]])
+        f32 = make_eval_step(models["card"], uniprompt_cfg("float32"))({"images": x8}).float()
+    checks["text_fp32_card_vs_cpu_max_abs"] = (t_card - t_cpu).abs().max().item()
+    del models
+    c16 = uniprompt_cfg("bfloat16")
+    m16 = build_model_uniprompt(c16, UNI_CLASSES, 14, UNI_VIEWS)
+    m16.load_state_dict(weights, strict=True)
+    m16 = m16.to(CARD).eval()
+    with torch.no_grad():
+        t16 = m16.get_text(labels.to(CARD), None, "2").float().cpu()
+        f16 = make_eval_step(m16, c16)({"images": x8}).float()
+    checks["text_bf16_vs_fp32_min_cosine"] = F.cosine_similarity(t16, t_card, dim=1).min().item()
+    checks["eval_bf16_vs_fp32_min_cosine"] = F.cosine_similarity(f16, f32, dim=1).min().item()
+    checks.update(loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL, cosine_floor=COSINE_FLOOR)
+    log(f"uniprompt cross-checks {json.dumps(checks)}")
+    if checks["text_fp32_card_vs_cpu_max_abs"] > 1e-3:
+        raise AssertionError(f"fp32 text features differ between the card and the CPU: {checks}")
+    if min(checks["text_bf16_vs_fp32_min_cosine"],
+           checks["eval_bf16_vs_fp32_min_cosine"]) < COSINE_FLOOR:
+        raise AssertionError(f"bf16 vs fp32 cosine below {COSINE_FLOOR}: {checks}")
+    return checks
+
+
 def neighbour_flips(feats: torch.Tensor, k: int) -> int:
     """Rows whose k-NN sets (re-ranking's first step) differ between the
     card's and the CPU's fp32 distances of the same features."""
@@ -1059,6 +1543,7 @@ def main() -> None:
                    check_pairwise("minsum_cross", 130, 70, 600, None, False)]
     torch.cuda.empty_cache()
     log(f"  pairwise kernels {time.perf_counter() - t0:.1f} s")
+    hard_rows = batch_hard_rows()
 
     log("baseline eval slice, ViT-B/16 at full width:")
     reset_counts()
@@ -1085,11 +1570,22 @@ def main() -> None:
     msmt_res = rerank_msmt(args.profile)
     phase_s["msmt17_sparse"] = time.perf_counter() - t0
     log(f"  re-ranking phase seconds {json.dumps(phase_s)}")
+    torch.cuda.empty_cache()
+
+    log("Uni-Prompt slice (stage 1a → 1b → 2a → 2b → inference), full width:")
+    t0 = time.perf_counter()
+    uni = run_uniprompt(args.profile)
+    triplet_res = uniprompt_triplet_check(uni.pop("feats"), uni.pop("labels"))
+    uniprompt_cross_checks(uni.pop("model"), uni.pop("text"))
+    log(f"  Uni-Prompt phase seconds {time.perf_counter() - t0:.1f}")
+    uni_res = uni["res"]
 
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     train_counts = train_res["train"]["launches"]
+    uni_launches = {"stage1a_epoch": uni_res["stage1a"]["launches"],
+                    "stage2a_steps": uni_res["stage2a"]["launches"]}
     kernels = [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -1098,6 +1594,7 @@ def main() -> None:
         "also_replaces": "mpreid_tpu/ops/attention.py:488",
         "launches": train_counts["attention_fwd"],
         "launches_eval": slice_res["launches"],
+        "launches_uniprompt": {k: v["attention_fwd"] for k, v in uni_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
         **timing(rows[0]),
         "shape": "B64 L129 12x64 bf16 packed, no mask",
@@ -1108,6 +1605,7 @@ def main() -> None:
         "replaces": "mpreid_tpu/ops/attention.py:250",
         "also_replaces": "mpreid_tpu/ops/attention.py:514",
         "launches": train_counts["attention_bwd"],
+        "launches_uniprompt": {k: v["attention_bwd"] for k, v in uni_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **timing(bwd_rows[0]),
         "shape": "B64 L129 12x64 bf16 packed, no mask",
@@ -1143,6 +1641,19 @@ def main() -> None:
         "plain_rows": minsum_rows[0]["plain_rows"],
         "shape": f"MSMT17 query block x gallery chunk: ({MSMT_BLOCK[0]}, {n_msmt}) x "
                  f"({MSMT_BLOCK[1]}, {n_msmt}) fp32, {V_NONZEROS} nonzeros per row",
+    }, {
+        "name": "fused_batch_hard",
+        "route": "cuda",
+        "source": "mpreid_tpu_torch/kernels/csrc/batch_hard.cu",
+        "replaces": "mpreid_tpu/ops/pallas_kernels.py:71",
+        "launches": triplet_res["launches"],
+        "launches_note": "batch_hard_triplet_loss on feats[1] of a stage-2a forward; no "
+                         "config reaches it (nor the JAX package's), so the Uni-Prompt path "
+                         "launches it 0 times",
+        "max_abs_err": max(r["max_abs_err"] for r in hard_rows),
+        **timing(hard_rows[0]),
+        "library": hard_rows[0]["library"],
+        "shape": f"PK batch {HARD['b']} x {HARD['d']} fp32 (feats[1]), labels 16 x 4",
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
-"""Synthetic Market-1501 fixture for tests and smoke runs.
+"""Synthetic Market-1501 and MMMP fixtures for tests and smoke runs.
 
-ref mpreid_tpu/data/synthetic.py::make_market1501. The same files, byte for
-byte, from the same seeds, so both packages read one tree. Pillow is
-imported only when a file is written.
+ref mpreid_tpu/data/synthetic.py::make_market1501, ::make_mmmp. The same
+files, byte for byte, from the same seeds, so both packages read one tree.
+Pillow is imported only when a file is written.
 """
 
 from __future__ import annotations
@@ -48,3 +48,33 @@ def make_market1501(root: str, n_ids: int = 6, imgs_per_id: int = 4, n_cams: int
                 )
                 seed += 1
     return base
+
+
+def make_mmmp(root: str, exp_settings=("exp_cctv_ir_cctv_rgb", "exp_rgb"),
+              n_train_ids: int = 4, n_test_ids: int = 3, imgs_per_cam: int = 2):
+    """MMMP layout: {root}/{cam}/{pid}/{cam:02d}_{pid:04d}_{i:04d}.jpg over
+    cameras 01-14, and {root}/{exp_setting}/{train,val,test}_id.txt."""
+    cams = [f"{i:02d}" for i in range(1, 15)]
+    train_ids = list(range(1, n_train_ids + 1))
+    val_ids = [n_train_ids + 1]
+    test_ids = list(range(n_train_ids + 2, n_train_ids + 2 + n_test_ids))
+
+    seed = 100
+    for cam in cams:
+        for pid in train_ids + val_ids + test_ids:
+            for i in range(imgs_per_cam):
+                name = f"{cam}_{pid:04d}_{i:04d}.jpg"
+                _write_img(osp.join(root, cam, f"{pid:04d}", name), seed)
+                seed += 1
+
+    for exp_setting in exp_settings:
+        exp_dir = osp.join(root, exp_setting)
+        os.makedirs(exp_dir, exist_ok=True)
+        for fname, ids in (
+            ("train_id.txt", train_ids),
+            ("val_id.txt", val_ids),
+            ("test_id.txt", test_ids),
+        ):
+            with open(osp.join(exp_dir, fname), "w") as f:
+                f.write(",".join(str(i) for i in ids) + "\n")
+    return root

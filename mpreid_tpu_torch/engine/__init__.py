@@ -1,7 +1,18 @@
 from .evaluator import R1mAPEvaluator
-from .processor import do_inference, do_train, run_validation
-from .steps import loss_and_grads, make_eval_step, make_train_step
+from .processor import do_inference, do_train, run_validation, train_epochs
+from .steps import (
+    loss_and_grads, make_eval_step, make_image_bank_step, make_stage1_step, make_text_step,
+    make_train_step, stage1_loss_and_grads, trainable_params,
+)
 from .train_state import TrainState, initial_state
+from .uniprompt import (
+    build_image_bank, do_train_stage1, do_train_stage2, precompute_text_features,
+)
 
-__all__ = ["R1mAPEvaluator", "TrainState", "do_inference", "do_train", "initial_state",
-           "loss_and_grads", "make_eval_step", "make_train_step", "run_validation"]
+__all__ = [
+    "R1mAPEvaluator", "TrainState", "build_image_bank", "do_inference", "do_train",
+    "do_train_stage1", "do_train_stage2",
+    "initial_state", "loss_and_grads", "make_eval_step", "make_image_bank_step",
+    "make_stage1_step", "make_text_step", "make_train_step", "precompute_text_features",
+    "run_validation", "stage1_loss_and_grads", "train_epochs", "trainable_params",
+]

@@ -1,13 +1,15 @@
 """Baseline train and eval loops.
 
 ref mpreid_tpu/engine/processor.py::run_validation, ::do_inference,
-::do_train. ``do_train`` owns the epoch loop: the lr of each epoch from the
+::do_train. ``do_train`` builds the step and the state (``SOLVER.RESUME``
+included) and runs ``train_epochs``, the epoch loop it shares with the
+Uni-Prompt stage 2 (``engine/uniprompt.py``): the lr of each epoch from the
 schedule, the train steps, metrics drained from the device only at log
 points, samples/s with the reference's definition (batch size / time per
-batch), checkpoints and validation at their periods, and ``SOLVER.RESUME``.
-``run_validation`` extracts features batch by batch, then runs the
-evaluator. The JAX package's eval-step cache keyed on ``id(model)`` is not
-carried over: building the step is cheap in eager PyTorch. Not ported here:
+batch), checkpoints and validation at their periods. ``run_validation``
+extracts features batch by batch, then runs the evaluator. The JAX
+package's eval-step cache keyed on ``id(model)`` is not carried over:
+building the step is cheap in eager PyTorch. Not ported here:
 gallery-sharded eval (``TPU.EVAL_SHARDED``), the mesh, ZeRO and TP branches
 of ``do_train`` (the parallel slice), the whole-epoch device-resident
 dataset (``TPU.DEVICE_DATASET``) and ``TPU.PROFILE_DIR`` tracing.
@@ -76,37 +78,21 @@ def do_inference(cfg, model, val_loader, num_query: int):
     return cmc[0], cmc[4]
 
 
-def do_train(cfg, model, train_loader, val_loader, optimizer,
-             scheduler: Callable[[int], float], loss_fn, num_query: int,
-             centers: Optional[torch.Tensor] = None, max_epochs: Optional[int] = None):
-    """Baseline training loop (ref processor.py:11-164) → (state, history).
-
-    ``train_loader.epoch(e)`` yields numpy batches; the augmentation draws
-    come from a ``torch.Generator`` on the model's device seeded with
-    ``SOLVER.SEED``."""
-    solver = cfg.SOLVER
-    epochs = max_epochs or solver.MAX_EPOCHS
-    for key in ("DEVICE_DATASET", "TP_TOWERS", "ZERO_OPT_STATE", "PROFILE_DIR"):
-        if cfg.TPU[key]:
-            raise NotImplementedError(f"TPU.{key} is not ported yet (ROADMAP.md)")
-    logger = logging.getLogger("mpreid_tpu_torch.train")
-    logger.info("start training")
-
-    with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
-    center_weight = solver.CENTER_LOSS_WEIGHT if with_center else None
-    train_step = make_train_step(model, cfg, loss_fn, optimizer, center_weight=center_weight,
-                                 center_lr=solver.CENTER_LR if with_center else None)
-    state = initial_state(model, optimizer, centers=centers if with_center else None)
-    start_epoch = 1
-    if solver.RESUME:
-        start_epoch = restore_state(state, load_checkpoint(solver.RESUME)) + 1
-        logger.info(f"Resumed from {solver.RESUME} at epoch {start_epoch}")
-
+def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_step, state,
+                 scheduler: Callable[[int], float], start_epoch: int, epochs: int,
+                 log_period: int, checkpoint_period: int, eval_period: int,
+                 checkpoint_path: Callable[[int], str], logger):
+    """The epoch loop shared by ``do_train`` and the Uni-Prompt stage 2:
+    the lr of each epoch from the schedule, the train steps, metrics drained
+    from the device only at log points, samples/s with the reference's
+    definition (batch size / time per batch), checkpoints (to
+    ``checkpoint_path(epoch)`` when it is not empty) and validation at their
+    periods → (state, history). The augmentation draws come from a
+    ``torch.Generator`` on the model's device seeded with ``SOLVER.SEED``."""
     device = next(model.parameters()).device
-    gen = torch.Generator(device=device).manual_seed(int(solver.SEED))
+    gen = torch.Generator(device=device).manual_seed(int(cfg.SOLVER.SEED))
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     batch_size = train_loader.batcher.batch_size
-    all_start = time.monotonic()
     history = []
 
     for epoch in range(start_epoch, epochs + 1):
@@ -126,7 +112,7 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
         for n_iter, batch in enumerate(train_loader.epoch(epoch)):
             state, metrics = train_step(state, batch, lr, gen)
             pending.append(metrics)
-            if (n_iter + 1) % solver.LOG_PERIOD == 0:
+            if (n_iter + 1) % log_period == 0:
                 drain()
                 logger.info(
                     "Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Acc: {:.3f}, Base Lr: {:.2e}".format(
@@ -142,11 +128,43 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
             epoch, time_per_batch, batch_size / time_per_batch))
         history.append({"epoch": epoch, "loss": loss_meter.avg, "acc": acc_meter.avg})
 
-        if cfg.OUTPUT_DIR and epoch % solver.CHECKPOINT_PERIOD == 0:
-            save_checkpoint(os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{epoch}.pth"),
-                            state, epoch)
-        if epoch % solver.EVAL_PERIOD == 0 and val_loader is not None:
+        path = checkpoint_path(epoch)
+        if path and epoch % checkpoint_period == 0:
+            save_checkpoint(path, state, epoch)
+        if epoch % eval_period == 0 and val_loader is not None:
             run_validation(cfg, model, val_loader, num_query, logger, epoch)
+    return state, history
 
+
+def do_train(cfg, model, train_loader, val_loader, optimizer,
+             scheduler: Callable[[int], float], loss_fn, num_query: int,
+             centers: Optional[torch.Tensor] = None, max_epochs: Optional[int] = None):
+    """Baseline training loop (ref processor.py:11-164) → (state, history).
+
+    ``train_loader.epoch(e)`` yields numpy batches."""
+    solver = cfg.SOLVER
+    epochs = max_epochs or solver.MAX_EPOCHS
+    for key in ("DEVICE_DATASET", "TP_TOWERS", "ZERO_OPT_STATE", "PROFILE_DIR"):
+        if cfg.TPU[key]:
+            raise NotImplementedError(f"TPU.{key} is not ported yet (ROADMAP.md)")
+    logger = logging.getLogger("mpreid_tpu_torch.train")
+    logger.info("start training")
+
+    with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
+    center_weight = solver.CENTER_LOSS_WEIGHT if with_center else None
+    train_step = make_train_step(model, cfg, loss_fn, optimizer, center_weight=center_weight,
+                                 center_lr=solver.CENTER_LR if with_center else None)
+    state = initial_state(model, optimizer, centers=centers if with_center else None)
+    start_epoch = 1
+    if solver.RESUME:
+        start_epoch = restore_state(state, load_checkpoint(solver.RESUME)) + 1
+        logger.info(f"Resumed from {solver.RESUME} at epoch {start_epoch}")
+
+    all_start = time.monotonic()
+    state, history = train_epochs(
+        cfg, model, train_loader, val_loader, num_query, train_step, state, scheduler,
+        start_epoch, epochs, solver.LOG_PERIOD, solver.CHECKPOINT_PERIOD, solver.EVAL_PERIOD,
+        lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
+        logger)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history

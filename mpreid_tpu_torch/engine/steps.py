@@ -1,14 +1,24 @@
 """Train and eval steps.
 
 ref mpreid_tpu/engine/steps.py::make_train_step, ::_train_step_impl,
-::make_eval_step. The JAX package compiles one program per step; PyTorch
-runs eagerly, so each step is a closure. The train step moves the uint8
-batch to the model's device, augments it there (``ops/augment.py``), runs
-``ReIDModel.forward_train``, takes the loss and its gradients with respect
-to the trainable parameters only, and lets the optimizer update them in
-place. Loss and accuracy come back as device tensors: nothing in the step
-waits for the device. The whole-epoch scan of ``TPU.DEVICE_DATASET``
-(``make_train_epoch``) is not ported.
+::make_eval_step, ::make_image_bank_step, ::make_text_step,
+::make_stage1_step, ::_stage1_step_impl. The JAX package compiles one
+program per step; PyTorch runs eagerly, so each step is a closure. The train
+step moves the uint8 batch to the model's device, augments it there
+(``ops/augment.py``), runs ``forward_train``, takes the loss and its
+gradients with respect to the trainable parameters only, and lets the
+optimizer update them in place. Loss and accuracy come back as device
+tensors: nothing in the step waits for the device.
+
+Before each gradient the frozen parameters are set ``requires_grad=False``
+and the trainable ones ``True`` (``trainable_params``), so autograd computes
+no weight gradient for a frozen tower (the JAX package differentiates with
+respect to the trainable partition only). A trainable parameter that the
+loss does not reach gets a zero gradient, as under ``jax.value_and_grad``,
+so the optimizer's coupled L2 still moves it. The whole-epoch scans of
+``TPU.DEVICE_DATASET`` (``make_train_epoch``) and of stage 1
+(``make_stage1_epoch``) are Python loops of the steps here
+(``engine/uniprompt.py``); the former is not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from mpreid_tpu_torch.losses import center_loss
+from mpreid_tpu_torch.losses import center_loss, supcon_loss
 from mpreid_tpu_torch.ops.augment import eval_preprocess, train_augment
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
 
@@ -43,26 +53,53 @@ def augment_args(cfg) -> dict:
                 flip_prob=cfg.INPUT.PROB, padding=cfg.INPUT.PADDING, re_prob=cfg.INPUT.RE_PROB)
 
 
+def trainable_params(model, optimizer) -> Dict[str, torch.Tensor]:
+    """The optimizer's trainable parameters of ``model``, with
+    ``requires_grad`` set on them and cleared on the frozen ones."""
+    train, frozen = optimizer.partition(model)
+    for p in train.values():
+        p.requires_grad_(True)
+    for p in frozen.values():
+        p.requires_grad_(False)
+    return train
+
+
+def _grads(loss: torch.Tensor, inputs):
+    """Gradients of ``loss``; zeros for inputs it does not reach."""
+    return torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+
+
 def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
                    target: torch.Tensor, cam=None, view=None,
                    centers: Optional[torch.Tensor] = None,
                    center_weight: Optional[float] = None,
+                   text_features: Optional[torch.Tensor] = None,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor],
                               Optional[torch.Tensor]]:
     """Loss, accuracy, ``{name: gradient}`` over the trainable parameters and
     the centers' gradient (ref ``_train_step_impl``'s ``inner``). The forward
-    runs the BNNecks in train mode, so it updates their running statistics."""
-    train, _ = optimizer.partition(model)
+    runs the BNNecks in train mode, so it updates their running statistics.
+
+    With ``text_features`` (Uni-Prompt stage 2, one row per class) the loss
+    takes score head 0, feature head 1 and the fp32 image-to-text logits
+    ``img_feature_proj · text_featuresᵀ``, and the accuracy comes from those
+    logits (ref processor_uniprompt_stage2.py:110-143)."""
+    train = trainable_params(model, optimizer)
     with torch.enable_grad():
         out = model.forward_train(x, target, cam, view)
-        loss = loss_fn(out["scores"], out["feats"], target, cam)
+        if text_features is not None:
+            logits = torch.matmul(out["img_feature_proj"].float(), text_features.float().t())
+            loss = loss_fn(out["scores"][0], out["feats"][1], target, cam, logits)
+        else:
+            logits = out["scores"][0]
+            loss = loss_fn(out["scores"], out["feats"], target, cam)
         inputs = list(train.values())
         if center_weight is not None:
             centers = centers.detach().requires_grad_(True)
             loss = loss + center_weight * center_loss(centers, out["feats"][1], target)
             inputs.append(centers)
-        grads = torch.autograd.grad(loss, inputs)
-    acc = (out["scores"][0].detach().argmax(dim=-1) == target).float().mean()
+        grads = _grads(loss, inputs)
+    acc = (logits.detach().argmax(dim=-1) == target).float().mean()
     named = dict(zip(train, grads))
     cgrad = grads[-1] if center_weight is not None else None
     return loss.detach(), acc, named, cgrad
@@ -70,18 +107,24 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
 
 def make_train_step(model, cfg, loss_fn: Callable, optimizer,
                     center_weight: Optional[float] = None,
-                    center_lr: Optional[float] = None):
-    """Baseline train step (ref processor.py:57-88 hot loop) →
+                    center_lr: Optional[float] = None,
+                    uniprompt: bool = False,
+                    text_features: Optional[torch.Tensor] = None):
+    """Baseline / Uni-Prompt stage-2 train step (ref processor.py:57-88 and
+    processor_uniprompt_stage2.py:88-156 hot loops) →
     ``step(state, batch, lr, gen) → (state, {"loss", "acc"})``.
 
     ``batch`` holds uint8 ``images`` (B, H, W, 3) and int ``pids``,
     ``camids``, ``trackids``, as numpy arrays or tensors; ``gen`` is a
     ``torch.Generator`` on the model's device that draws the augmentation.
     With ``center_weight`` the center loss joins, and the centers take an
-    SGD step on their gradient rescaled by 1/``center_weight``."""
+    SGD step on their gradient rescaled by 1/``center_weight``. With
+    ``uniprompt`` and ``text_features`` the image-to-text term joins
+    (``loss_and_grads``)."""
     aug = augment_args(cfg)
     device = _device_of(model)
     center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None
+    text = text_features.to(device) if uniprompt and text_features is not None else None
 
     def step(state: TrainState, batch, lr: float, gen: torch.Generator):
         x = train_augment(_to(device, batch["images"]), gen, **aug)
@@ -89,7 +132,7 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
         cam, view = (_to(device, a) for a in labels_for(cfg, batch))
         loss, acc, grads, cgrad = loss_and_grads(
             state.model, cfg, loss_fn, optimizer, x, target, cam, view,
-            state.centers, center_weight)
+            state.centers, center_weight, text)
         if center_opt is not None:
             state.centers = center_opt.update(cgrad, state.centers).detach()
         train, _ = optimizer.partition(state.model)
@@ -109,5 +152,67 @@ def make_eval_step(model, cfg):
         x = eval_preprocess(_to(device, batch["images"]), mean=mean, std=std)
         cam, view = labels_for(cfg, batch)
         return model.forward_eval(x, _to(device, cam), _to(device, view))
+
+    return step
+
+
+def make_image_bank_step(model, cfg):
+    """→ ``step(batch)``: the frozen encoder's projected class-token features
+    of a numpy batch, on the device (stage-1 bank, ref
+    processor_uniprompt_stage1.py:41-64). ``no_grad``, not
+    ``inference_mode``: the bank enters stage 1's differentiated loss."""
+    mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
+    device = _device_of(model)
+
+    @torch.no_grad()
+    def step(batch) -> torch.Tensor:
+        return model.get_image(eval_preprocess(_to(device, batch["images"]), mean=mean, std=std))
+
+    return step
+
+
+def make_text_step(model, stage: str):
+    """→ ``step(labels, views=None)``: prompted text features of the labels
+    for ``stage`` (ref make_model_uniprompt.py:160-170), without a gradient."""
+    device = _device_of(model)
+
+    @torch.no_grad()
+    def step(labels, views=None) -> torch.Tensor:
+        views = None if views is None else _to(device, views).long()
+        return model.get_text(_to(device, labels).long(), views, stage)
+
+    return step
+
+
+def stage1_loss_and_grads(model, optimizer, stage: str, image_feats: torch.Tensor,
+                          target: torch.Tensor, views: Optional[torch.Tensor]
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SupCon(i2t) + SupCon(t2i) of the prompted text features against image
+    features, and ``{name: gradient}`` over the trainable (context)
+    parameters (ref ``_stage1_step_impl``'s ``inner``). The gradient reaches
+    the contexts through the frozen text tower."""
+    train = trainable_params(model, optimizer)
+    with torch.enable_grad():
+        text = model.get_text(target, views, stage)
+        loss = (supcon_loss(image_feats, text, target, target)
+                + supcon_loss(text, image_feats, target, target))
+        grads = _grads(loss, list(train.values()))
+    return loss.detach(), dict(zip(train, grads))
+
+
+def make_stage1_step(model, cfg, optimizer, stage: str):
+    """Prompt-context step (ref processor_uniprompt_stage1.py:72-98) →
+    ``step(state, image_feats, target, views, lr) → (state, {"loss"})``;
+    ``stage`` is ``'1a'`` or ``'1b'``, ``views`` None in 1a."""
+    device = _device_of(model)
+
+    def step(state: TrainState, image_feats, target, views, lr: float):
+        target = _to(device, target).long()
+        views = None if views is None else _to(device, views).long()
+        loss, grads = stage1_loss_and_grads(state.model, optimizer, stage,
+                                            _to(device, image_feats), target, views)
+        train, _ = optimizer.partition(state.model)
+        state.opt_state = optimizer.update(grads, state.opt_state, train, lr)
+        return state, {"loss": loss}
 
     return step

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention_fwd", "attention_bwd", "adam", "pairwise_cross")
+SOURCES = ("attention_fwd", "attention_bwd", "adam", "pairwise_cross", "batch_hard")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",

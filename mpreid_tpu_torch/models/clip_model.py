@@ -1,7 +1,7 @@
-"""CLIP architecture configuration and the visual tower builder.
+"""CLIP architecture configuration and the tower factories.
 
 ref mpreid_tpu/models/clip_model.py::CLIPConfig, ::VIT_B16, ::RN50,
-::make_visual_tower.
+::make_visual_tower, ::make_text_tower.
 
 ``vision_layout``/``text_layout`` name how the JAX package STORES its
 in_proj columns ('' resolves to its default, "hm_native", which stores them
@@ -20,6 +20,7 @@ import torch
 
 from mpreid_tpu_torch.ops.attention import head_major_perm_inverse
 
+from .text import TextTransformer
 from .vit import VisionTransformer
 
 # the JAX package's default storage layout for both towers
@@ -99,8 +100,6 @@ def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32) -> Vi
         raise NotImplementedError("the RN50 backbone is not ported yet (ROADMAP.md, A8)")
     if cfg.use_moe:
         raise NotImplementedError("the MoE vision tower is not ported yet (ROADMAP.md, A7)")
-    if cfg.lora_rank:
-        raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP.md, A5)")
     return VisionTransformer(
         h_resolution=cfg.h_resolution,
         w_resolution=cfg.w_resolution,
@@ -111,4 +110,20 @@ def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32) -> Vi
         heads=cfg.vision_width // 64,
         output_dim=cfg.embed_dim,
         dtype=dtype,
+        lora_rank=cfg.lora_rank,
+        lora_alpha=cfg.lora_alpha,
+    )
+
+
+def make_text_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32) -> TextTransformer:
+    return TextTransformer(
+        context_length=cfg.context_length,
+        vocab_size=cfg.vocab_size,
+        width=cfg.transformer_width,
+        heads=cfg.transformer_heads,
+        layers=cfg.transformer_layers,
+        embed_dim=cfg.embed_dim,
+        dtype=dtype,
+        lora_rank=cfg.lora_rank,
+        lora_alpha=cfg.lora_alpha,
     )

@@ -3,14 +3,19 @@
 ref mpreid_tpu/models/convert.py::export_reid_state_dict, ::load_param.
 
 ``from_jax_variables`` turns the JAX package's ``{"params", "batch_stats"}``
-tree of a ReID model (as numpy arrays) into the port's state_dict, which is
-the reference torch layout: it folds LoRA adapters into in_proj, undoes the
-head-major column order of ``hm_native`` storage, transposes Dense kernels
-to (out, in), reorders the patchify kernel (p, p, 3, w) → (w, 3, p, p), and
-maps LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var`` →
-``running_*``. ``load_param`` reads a reference ``.pth`` (``module.``
-prefix stripped), or the weights of a training checkpoint of the port
-(utils/checkpoint.py), into a model with ``load_state_dict(strict=True)``.
+tree of a baseline ReID or a Uni-Prompt model (as numpy arrays) into the
+port's state_dict, which is the reference torch layout: it undoes the
+head-major column order of ``hm_native`` storage (per tower), transposes
+Dense kernels to (out, in), reorders the patchify kernel (p, p, 3, w) →
+(w, 3, p, p), maps LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var``
+→ ``running_*``, and renames the Uni-Prompt subtrees (``text`` →
+``text_encoder``, ``fusion_fc*`` → ``image_fusion_net.fc*``,
+``ve_linear*`` → ``prompt_learner.visual_enhanced_net.linear*``). LoRA
+adapters are folded into in_proj (the reference layout, which has no
+adapter keys), or carried as ``attn.lora_a``/``attn.lora_b`` for a port
+model built with adapters (``keep_lora``). ``load_param`` reads a
+reference ``.pth`` (``module.`` prefix stripped), or the weights of a
+training checkpoint of the port (utils/checkpoint.py), into a model.
 """
 
 from __future__ import annotations
@@ -24,6 +29,14 @@ from .clip_model import CLIPConfig
 
 _REID_KEYS = ("visual", "bottleneck", "bottleneck_proj", "classifier",
               "classifier_proj", "cv_embed")
+_UNIPROMPT_KEYS = ("text", "prompt_learner", "visual_prompt", "fusion_fc1", "fusion_fc2")
+# keys of a reference Uni-Prompt state_dict that the port derives instead:
+# the prompt learner's template embeddings (buffers the reference computes
+# from the CLIP token embedding at init)
+_DERIVED_KEYS = ("prompt_learner.token_prefix", "prompt_learner.token_suffix")
+# the text tower's token embedding, which a reference Uni-Prompt state_dict
+# does not hold (the JAX load_param overlay leaves it as initialised too)
+_TOKEN_EMBEDDING = "text_encoder.token_embedding.weight"
 
 
 def _t(x) -> torch.Tensor:
@@ -42,15 +55,20 @@ def _norm(sub, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 
 def _block(sub, prefix: str, out: Dict[str, torch.Tensor], lora_alpha: float,
-           inv_perm) -> None:
+           inv_perm, keep_lora: bool) -> None:
     attn = sub["attn"]
     in_kernel = np.asarray(attn["in_proj_kernel"], np.float32)
     in_bias = np.asarray(attn["in_proj_bias"], np.float32)
     if "lora_a" in attn:
-        # fold ΔW = (α/r)·A·B in the stored layout, before un-permuting
         a = np.asarray(attn["lora_a"], np.float32)
         bmat = np.asarray(attn["lora_b"], np.float32)
-        in_kernel = in_kernel + (lora_alpha / a.shape[1]) * (a @ bmat)
+        if keep_lora:
+            # lora_b's columns are stored in in_proj's order: un-permute alike
+            out[f"{prefix}.attn.lora_a"] = _t(a)
+            out[f"{prefix}.attn.lora_b"] = _t(bmat if inv_perm is None else bmat[:, inv_perm])
+        else:
+            # fold ΔW = (α/r)·A·B in the stored layout, before un-permuting
+            in_kernel = in_kernel + (lora_alpha / a.shape[1]) * (a @ bmat)
     if inv_perm is not None:
         in_kernel = in_kernel[:, inv_perm]
         in_bias = in_bias[inv_perm]
@@ -71,14 +89,28 @@ def _bn(params, stats, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig
-                       ) -> Dict[str, torch.Tensor]:
-    """The JAX package's ReID variable tree → the port's (reference) state_dict."""
+def _text(tp, clip_config: CLIPConfig, out: Dict[str, torch.Tensor], keep_lora: bool) -> None:
+    pre = "text_encoder"
+    out[f"{pre}.token_embedding.weight"] = _t(tp["token_embedding"]["embedding"])
+    out[f"{pre}.positional_embedding"] = _t(tp["positional_embedding"])
+    inv_perm = clip_config.jax_perm_inverse("text")
+    for i in range(clip_config.transformer_layers):
+        _block(tp[f"resblocks_{i}"], f"{pre}.transformer.resblocks.{i}", out,
+               clip_config.lora_alpha, inv_perm, keep_lora)
+    _norm(tp["ln_final"], f"{pre}.ln_final", out)
+    out[f"{pre}.text_projection"] = _t(tp["text_projection"])
+
+
+def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig,
+                       keep_lora: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX package's baseline ReID or Uni-Prompt variable tree → the
+    port's (reference) state_dict. ``keep_lora`` carries LoRA adapters as
+    parameters (a port model built with ``lora_rank``) instead of folding them."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    unknown = sorted(set(params) - set(_REID_KEYS))
+    unknown = sorted(set(params) - set(_REID_KEYS) - set(_UNIPROMPT_KEYS))
     if unknown:
-        raise ValueError(f"not a baseline ReID variable tree; unported keys {unknown}")
+        raise ValueError(f"not a baseline or Uni-Prompt variable tree; unported keys {unknown}")
     if not clip_config.is_vit or clip_config.use_moe:
         raise NotImplementedError("only the dense ViT tower is ported (ROADMAP.md, A7/A8)")
     out: Dict[str, torch.Tensor] = {}
@@ -93,7 +125,7 @@ def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig
     inv_perm = clip_config.jax_perm_inverse("vision")
     for i in range(clip_config.vision_layers):
         _block(vp[f"resblocks_{i}"], f"{pre}.transformer.resblocks.{i}", out,
-               clip_config.lora_alpha, inv_perm)
+               clip_config.lora_alpha, inv_perm, keep_lora)
     _norm(vp["ln_post"], f"{pre}.ln_post", out)
     out[f"{pre}.proj"] = _t(vp["proj"])
     for name in ("bottleneck", "bottleneck_proj"):
@@ -102,6 +134,19 @@ def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig
         out[f"{name}.weight"] = _t(params[name]["kernel"]).T.contiguous()
     if "cv_embed" in params:
         out["cv_embed"] = _t(params["cv_embed"])
+    if "text" in params:
+        _text(params["text"], clip_config, out, keep_lora)
+    if "prompt_learner" in params:
+        pl = params["prompt_learner"]
+        for name in ("ctx_generic", "ctx_modality", "ctx_platform"):
+            out[f"prompt_learner.{name}"] = _t(pl[name])
+        for i in (1, 2):
+            _dense(pl[f"ve_linear{i}"], f"prompt_learner.visual_enhanced_net.linear{i}", out)
+    if "visual_prompt" in params:
+        out["visual_prompt"] = _t(params["visual_prompt"])
+    for i in (1, 2):
+        if f"fusion_fc{i}" in params:
+            _dense(params[f"fusion_fc{i}"], f"image_fusion_net.fc{i}", out)
     return out
 
 
@@ -111,11 +156,19 @@ def strip_module(sd: Dict[str, Any]) -> Dict[str, Any]:
 
 def load_param(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a reference-layout ``.pth`` into ``model`` (ref make_model.py:118-122),
-    strictly: every key must match."""
+    or the weights of a training checkpoint of the port, strictly: every key
+    must match. A reference Uni-Prompt state_dict is the one exception: it
+    holds no ``text_encoder.token_embedding.weight`` (that stays as
+    initialised, as the JAX package's overlay leaves it) and may hold the
+    prompt learner's ``token_prefix``/``token_suffix`` buffers, which the port
+    derives from the token embedding and ignores."""
     from mpreid_tpu_torch.utils.checkpoint import is_checkpoint
 
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if is_checkpoint(sd):
         sd = sd["model"]
-    model.load_state_dict(strip_module(sd), strict=True)
+    sd = {k: v for k, v in strip_module(sd).items() if k not in _DERIVED_KEYS}
+    if _TOKEN_EMBEDDING in model.state_dict() and _TOKEN_EMBEDDING not in sd:
+        sd[_TOKEN_EMBEDDING] = model.state_dict()[_TOKEN_EMBEDDING]
+    model.load_state_dict(sd, strict=True)
     return model

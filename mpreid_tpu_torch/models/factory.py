@@ -1,6 +1,7 @@
-"""Model factory — the ``make_model`` entry point.
+"""Model factory — the ``make_model`` and ``make_model_uniprompt`` entry points.
 
-ref mpreid_tpu/models/factory.py::clip_config_from_cfg, ::make_model.
+ref mpreid_tpu/models/factory.py::clip_config_from_cfg, ::make_model,
+::make_model_uniprompt, ::init_variables.
 
 The (h, w) token grid follows ref ``make_model.py:60-62``:
 ``h_res = (SIZE_TRAIN[0] - 16) // STRIDE[0] + 1`` (and likewise for w).
@@ -20,6 +21,7 @@ from mpreid_tpu_torch.utils.device import device_from_cfg
 
 from .clip_model import CLIPConfig, RN50, VIT_B16
 from .reid import ReIDModel
+from .uniprompt import UniPromptReID
 
 _BASE_CONFIGS = {"ViT-B-16": VIT_B16, "RN50": RN50}
 
@@ -63,10 +65,8 @@ def compute_dtype(cfg) -> torch.dtype:
     return COMPUTE_DTYPES[name]
 
 
-def build_model(cfg, num_class: int, camera_num: int, view_num: int) -> ReIDModel:
-    """The baseline CLIP-ReID model (ref make_model.py:131-133) on the CPU, with
-    its parameters allocated but not initialised (for a state_dict to fill)."""
-    return ReIDModel(
+def _common_kwargs(cfg, num_class: int, camera_num: int, view_num: int) -> dict:
+    return dict(
         clip_config=clip_config_from_cfg(cfg),
         num_classes=num_class,
         camera_num=camera_num,
@@ -80,11 +80,35 @@ def build_model(cfg, num_class: int, camera_num: int, view_num: int) -> ReIDMode
     )
 
 
+def build_model(cfg, num_class: int, camera_num: int, view_num: int) -> ReIDModel:
+    """The baseline CLIP-ReID model (ref make_model.py:131-133) on the CPU, with
+    its parameters allocated but not initialised (for a state_dict to fill)."""
+    return ReIDModel(**_common_kwargs(cfg, num_class, camera_num, view_num))
+
+
+def build_model_uniprompt(cfg, num_class: int, camera_num: int, view_num: int
+                          ) -> UniPromptReID:
+    """The Uni-Prompt model (ref make_model_uniprompt.py:252-254) on the CPU,
+    allocated but not initialised."""
+    return UniPromptReID(**_common_kwargs(cfg, num_class, camera_num, view_num))
+
+
+def _initialised(cfg, model, device) -> ReIDModel:
+    device = device_from_cfg(cfg) if device is None else torch.device(device)
+    model.init_(torch.Generator().manual_seed(int(cfg.SOLVER.SEED)))
+    return model.to(device).eval()
+
+
 def make_model(cfg, num_class: int, camera_num: int, view_num: int,
                device: Optional[torch.device] = None) -> ReIDModel:
     """``build_model``, randomly initialised from ``SOLVER.SEED``, in eval mode
     on ``device`` (by default the device ``MODEL.DEVICE`` names)."""
-    device = device_from_cfg(cfg) if device is None else torch.device(device)
-    model = build_model(cfg, num_class, camera_num, view_num)
-    model.init_(torch.Generator().manual_seed(int(cfg.SOLVER.SEED)))
-    return model.to(device).eval()
+    return _initialised(cfg, build_model(cfg, num_class, camera_num, view_num), device)
+
+
+def make_model_uniprompt(cfg, num_class: int, camera_num: int, view_num: int,
+                         device: Optional[torch.device] = None) -> UniPromptReID:
+    """``build_model_uniprompt``, randomly initialised from ``SOLVER.SEED``
+    (the JAX package's init distributions), in eval mode on ``device``."""
+    return _initialised(cfg, build_model_uniprompt(cfg, num_class, camera_num, view_num),
+                        device)

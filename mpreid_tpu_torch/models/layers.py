@@ -134,15 +134,27 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """Self-attention with ``nn.MultiheadAttention``-compatible parameters:
     ``in_proj_weight`` (3d, d) packed [q|k|v], ``in_proj_bias``, ``out_proj``.
-    LoRA adapters belong to the training slice."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    With ``lora_rank`` > 0 a low-rank adapter joins the QKV projection
+    (ref ``MultiHeadAttention``'s LoRA, ``SOLVER.LORA``): ``lora_a`` (d, r),
+    ``lora_b`` (r, 3d) in [q|k|v] packing, and qkv += (α/r)·((x·A)·B), with
+    x·A summed in fp32 and rounded to the activation dtype, ·B summed in
+    fp32, scaled in fp32, then rounded. The reference state_dict has no
+    such keys (models/convert.py folds adapters into in_proj for it)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim)
+        if lora_rank:
+            self.lora_a = nn.Parameter(torch.empty(dim, lora_rank))
+            self.lora_b = nn.Parameter(torch.empty(lora_rank, 3 * dim))
 
     def init_(self, gen: torch.Generator) -> None:
         # xavier-uniform over the (d, 3d) and (d, d) kernels, zero biases
@@ -152,9 +164,16 @@ class MultiHeadAttention(nn.Module):
                 w.uniform_(-limit, limit, generator=gen)
         nn.init.zeros_(self.in_proj_bias)
         nn.init.zeros_(self.out_proj.bias)
+        if self.lora_rank:
+            init_normal_(self.lora_a, 0.02, gen)
+            nn.init.zeros_(self.lora_b)  # the adapter starts as the identity
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         qkv = linear_f32acc(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+        if self.lora_rank:
+            h = linear_f32acc(x, self.lora_a.t(), None, self.dtype)
+            delta = torch.matmul(h.float(), self.lora_b.to(self.dtype).float())
+            qkv = qkv + ((self.lora_alpha / self.lora_rank) * delta).to(self.dtype)
         out = fused_attention(qkv, self.num_heads, mask, layout="packed")
         return linear_f32acc(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
 
@@ -178,9 +197,10 @@ class MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
-        self.attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype, lora_rank, lora_alpha)
         self.ln_1 = LayerNorm(dim)
         self.mlp = MLP(dim)
         self.ln_2 = LayerNorm(dim)

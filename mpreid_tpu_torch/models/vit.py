@@ -55,17 +55,20 @@ class PatchEmbed(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)]
+            [ResidualAttentionBlock(width, heads, dtype, lora_rank, lora_alpha)
+             for _ in range(layers)]
         )
 
 
 class VisionTransformer(nn.Module):
     def __init__(self, h_resolution: int, w_resolution: int, patch_size: int,
                  stride_size: int, width: int, layers: int, heads: int,
-                 output_dim: int, dtype: torch.dtype = torch.float32):
+                 output_dim: int, dtype: torch.dtype = torch.float32, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.width = width
         self.dtype = dtype
@@ -75,7 +78,7 @@ class VisionTransformer(nn.Module):
             torch.empty(h_resolution * w_resolution + 1, width)
         )
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, layers, heads, dtype)
+        self.transformer = Transformer(width, layers, heads, dtype, lora_rank, lora_alpha)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 

@@ -10,8 +10,8 @@ e.g. ``image_encoder.transformer.resblocks.0.attn.in_proj_bias``,
 from them: a name whose last part holds ``bias`` is a bias
 (``in_proj_bias``, ``out_proj.bias``, ``ln_1.bias``, ``bottleneck.bias``),
 a name holding ``classifier`` is a classifier, and the BNNeck bias is never
-trained. The visual tower's root is ``image_encoder`` (the JAX package's
-``visual``).
+trained. The towers' roots are ``image_encoder`` and ``text_encoder`` (the
+JAX package's ``visual`` and ``text``).
 
 ``Optimizer.update`` is SGD (momentum), Adam (coupled L2: wd·p added to the
 gradient, as torch's Adam) or AdamW (decoupled: lr·mult·wd·p added to the
@@ -33,6 +33,7 @@ import torch
 from mpreid_tpu_torch.ops.adam import MIN_FUSED_SIZE, adam_leaf_plain, fused_adam_leaf
 
 _VISUAL = "image_encoder"
+_TEXT = "text_encoder"
 
 
 def named_params(params) -> Dict[str, torch.Tensor]:
@@ -71,7 +72,7 @@ def stage_trainable(params, stage: Optional[str]) -> Dict[str, bool]:
             return "lora" in name.split(".")[-1]
         root = name.split(".")[0]
         if stage == "stage2a":
-            return not (root == "text" or "expert" in name or root == "prompt_learner")
+            return not (root == _TEXT or "expert" in name or root == "prompt_learner")
         if stage == "stage2b":
             return "gate" in name or (root == _VISUAL and "experts" not in name)
         raise ValueError(f"Unknown stage {stage!r}")

@@ -71,8 +71,11 @@ def main(argv=None):
 
     if cfg.DATASETS.NAMES != "VehicleID":
         return do_inference(cfg, model, val_loader, num_query)
+    return vehicleid_trials(cfg, model, dataset, logger)
 
-    # 10 random gallery trials, averaged (ref test.py:46-63)
+
+def vehicleid_trials(cfg, model, dataset, logger):
+    """10 random gallery trials, averaged (ref test.py:46-63) → (rank-1, rank-5)."""
     all_r1, all_r5, all_map = [], [], []
     for trial in range(10):
         dataset.resample()

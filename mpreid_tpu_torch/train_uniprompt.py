@@ -1,0 +1,112 @@
+"""Uni-Prompt training entry point: ``python -m mpreid_tpu_torch.train_uniprompt``.
+
+ref train_uniprompt.py (the JAX package's entry script): the same CLI and
+the same four phases, stage 1a → 1b → 2a → 2b, then inference,
+
+    python -m mpreid_tpu_torch.train_uniprompt \\
+        --config_file configs/ours/cctv_ir_cctv_rgb.yml DATASETS.ROOT_DIR ../data
+
+It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
+weights start random from ``SOLVER.SEED``: loading the OpenAI CLIP weights
+(``MODEL.PRETRAIN_PATH``, ``MODEL.PRETRAIN_AUTO``) is not ported yet, and
+neither is the dense → MoE switch after stage 1b (``MODEL.MOE.ENABLED``
+raises there, ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from mpreid_tpu_torch.config import get_default_cfg
+from mpreid_tpu_torch.data import make_dataloader
+from mpreid_tpu_torch.engine import (
+    build_image_bank, do_inference, do_train_stage1, do_train_stage2,
+)
+from mpreid_tpu_torch.losses import make_loss
+from mpreid_tpu_torch.models import make_model_uniprompt
+from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
+from mpreid_tpu_torch.train import set_seed
+from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Uni-Prompt ReID Training")
+    parser.add_argument("--config_file", default="configs/ours/cctv_ir_cctv_rgb.yml", type=str)
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    cfg = get_default_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    cfg.merge_from_list(args.opts)
+    cfg.freeze()
+
+    device = device_from_cfg(cfg)
+    if cfg.MODEL.PRETRAIN_PATH or cfg.MODEL.PRETRAIN_AUTO:
+        raise NotImplementedError(
+            "loading CLIP weights (MODEL.PRETRAIN_PATH / PRETRAIN_AUTO) is not ported yet "
+            "(ROADMAP.md, A2 load_torch_clip)"
+        )
+    set_seed(cfg.SOLVER.SEED)
+    output_dir = cfg.OUTPUT_DIR
+    if output_dir:
+        output_dir = os.path.join(output_dir, cfg.DATASETS.EXP_SETTING)
+        os.makedirs(output_dir, exist_ok=True)
+    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=True)
+    logger.info(f"Saving model in the path :{cfg.OUTPUT_DIR}")
+    logger.info(f"Running on {device} with config:\n{cfg}")
+
+    (train_loader_stage2, train_loader_stage1, val_loader, num_query,
+     num_classes, camera_num, view_num) = make_dataloader(cfg)
+
+    # stage 1 trains the dense model; the MoE switch would come after it
+    stage1_cfg = cfg.clone()
+    stage1_cfg.MODEL.MOE.ENABLED = False
+    stage1_cfg.freeze()
+    model = make_model_uniprompt(stage1_cfg, num_class=num_classes, camera_num=camera_num,
+                                 view_num=view_num, device=device)
+
+    loss_fn, (center_init, _) = make_loss(cfg, num_classes=num_classes)
+    centers = None
+    if "center" in cfg.MODEL.METRIC_LOSS_TYPE:
+        centers = center_init(torch.Generator().manual_seed(cfg.SOLVER.SEED + 1)).to(device)
+
+    logger.info("===== Configuring and starting Stage 1a training =====")
+    bank = build_image_bank(cfg, model, train_loader_stage1)
+    opt_1a = make_optimizer(cfg.SOLVER.STAGE1A, model, stage="stage1a")
+    do_train_stage1(cfg, model, train_loader_stage1, opt_1a,
+                    make_scheduler(cfg.SOLVER.STAGE1A, "cosine"), is_stage1b=False, bank=bank,
+                    stage_cfg=cfg.SOLVER.STAGE1A)
+
+    logger.info("===== Configuring and starting Stage 1b training =====")
+    opt_1b = make_optimizer(cfg.SOLVER.STAGE1B, model, stage="stage1b")
+    do_train_stage1(cfg, model, train_loader_stage1, opt_1b,
+                    make_scheduler(cfg.SOLVER.STAGE1B, "cosine"), is_stage1b=True, bank=bank,
+                    stage_cfg=cfg.SOLVER.STAGE1B)
+    del bank
+
+    if cfg.MODEL.MOE.ENABLED:
+        raise NotImplementedError(
+            "MODEL.MOE.ENABLED: the dense → MoE switch after stage 1b is not ported yet "
+            "(ROADMAP.md, A7)"
+        )
+
+    logger.info("2a stage, train parameters marked as trainable...")
+    opt_2a = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    sched_2 = make_scheduler(cfg.SOLVER.STAGE2, "multistep")
+    do_train_stage2(cfg, model, train_loader_stage2, val_loader, opt_2a, sched_2, loss_fn,
+                    num_query, num_classes, centers=centers)
+
+    logger.info("2b stage, train gate and image_encoder mlp (except experts)")
+    opt_2b = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2b")
+    do_train_stage2(cfg, model, train_loader_stage2, val_loader, opt_2b, sched_2, loss_fn,
+                    num_query, num_classes, centers=centers)
+
+    return do_inference(cfg, model, val_loader, num_query)
+
+
+if __name__ == "__main__":
+    main()

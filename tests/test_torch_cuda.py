@@ -379,3 +379,151 @@ def test_reranking_on_the_card_matches_the_cpu(card):
     for got, want in ((dense, re_ranking(qf, gf, k1=20, k2=6)),
                       (sparse, re_ranking_sparse(qf, gf, k1=20, k2=6, g_chunk=64))):
         assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# batch-hard kernel (kernels/csrc/batch_hard.cu), against batch_hard_plain:
+# distances to 1e-5 × max(1, max|plain|) (dot products summed in another
+# order); indices equal wherever the best two candidates of a row differ by
+# more than that; features on a grid of 1/4 (exact distances) hold ties and
+# degenerate rows bit for bit
+# ---------------------------------------------------------------------------
+
+def _hard_case(card, b, d, dtype, grid=False, seed=0):
+    rng = np.random.default_rng(seed)
+    f = rng.integers(-4, 5, (b, d)) / 4 if grid else rng.standard_normal((b, d))
+    labels = np.repeat(np.arange(-(-b // 4)), 4)[:b]
+    return (torch.from_numpy(f.astype(np.float32)).to(card, dtype),
+            torch.from_numpy(labels.astype(np.int32)).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d", [(64, 768), (60, 768), (16, 32), (12, 40), (200, 129), (3, 8)])
+def test_batch_hard_kernel_matches_plain(card, dtype, b, d):
+    from mpreid_tpu_torch.ops import batch_hard as bh
+
+    f, labels = _hard_case(card, b, d, dtype, seed=b + d)
+    before = bh.fused_batch_hard.launches
+    got = bh.batch_hard_mining(f, labels)
+    want = bh.batch_hard_plain(f, labels)
+    torch.cuda.synchronize()
+    assert bh.fused_batch_hard.launches == before + 1
+    assert [t.dtype for t in got] == [torch.float32, torch.float32, torch.int32, torch.int32]
+    fin = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    scale = max(1.0, want[0].abs().max().item(), want[1][fin].abs().max().item() if fin.any() else 0)
+    tol = 1e-5 * scale
+    assert (got[0] - want[0]).abs().max().item() <= tol
+    if fin.any():
+        assert (got[1] - want[1])[fin].abs().max().item() <= tol
+    # indices: equal wherever no other candidate lies within the tolerance
+    from mpreid_tpu_torch.losses.triplet import euclidean_dist
+
+    dist = euclidean_dist(f.float(), f.float())
+    same = labels[:, None] == labels[None, :]
+    for vals, idx, ref, mask in ((want[0], got[2], want[2], same),
+                                 (want[1], got[3], want[3], ~same)):
+        clear = (((dist - vals[:, None]).abs() <= tol) & mask).sum(1) == 1
+        assert torch.equal(idx[clear], ref[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels", [
+    [0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 3],   # a singleton identity
+    [0] * 12,                                # one identity: no negatives
+    list(range(12)),                         # every row its own identity
+    [0, 1, 0, 1, 2, 2, 2, 2, 0, 1, 3, 3],   # with duplicated rows: ties
+])
+def test_batch_hard_kernel_degenerate_rows_and_ties(card, dtype, labels):
+    from mpreid_tpu_torch.ops import batch_hard as bh
+
+    rng = np.random.default_rng(5)
+    base = rng.integers(-4, 5, (4, 96)) / 4
+    f = torch.from_numpy(np.concatenate([base, base, base]).astype(np.float32)).to(card, dtype)
+    lab = torch.tensor(labels, dtype=torch.int32, device=card)
+    got = bh.batch_hard_mining(f, lab)
+    want = bh.batch_hard_plain(f, lab)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g, w)
+    solo = torch.tensor([labels.count(x) == 1 for x in labels], device=card)
+    assert bool((got[0][solo] == 1e-6).all())
+    assert torch.equal(got[2][solo].long(), torch.nonzero(solo).flatten())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin", [0.3, None])
+def test_batch_hard_loss_on_the_card_matches_triplet_loss(card, margin):
+    """batch_hard_triplet_loss's value and gradient (the kernel forward, the
+    torch VJP) against autograd through losses/triplet.py, fp32."""
+    from mpreid_tpu_torch.losses.triplet import triplet_loss
+    from mpreid_tpu_torch.ops import batch_hard as bh
+
+    f, labels = _hard_case(card, 64, 768, torch.float32, seed=11)
+    x = (f * 0.1).requires_grad_(True)
+    y = (f * 0.1).requires_grad_(True)
+    loss, _, _ = bh.batch_hard_triplet_loss(x, labels, margin=margin)
+    loss.backward()
+    want, _, _ = triplet_loss(y, labels.long(), margin=margin)
+    want.backward()
+    torch.cuda.synchronize()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    assert (x.grad - y.grad).norm().item() <= 1e-4 * y.grad.norm().item()
+
+
+@pytest.mark.cuda
+def test_batch_hard_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from mpreid_tpu_torch.ops import batch_hard as bh
+
+    f, labels = _hard_case(card, 16, 32, torch.float32)
+    with pytest.raises(TypeError):
+        bh.fused_batch_hard(f.half(), labels)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        bh.fused_batch_hard(f.t().contiguous().t(), labels)
+
+
+# ---------------------------------------------------------------------------
+# the Uni-Prompt path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["1a", "1b"])
+def test_tiny_stage1_step_on_the_card_matches_the_cpu(card, stage):
+    """fp32 tiny stage-1 step (SupCon through the frozen text tower to the
+    contexts): loss and the contexts' gradients on the card (both attention
+    kernels under the causal mask, 2 launches each) against the CPU's plain
+    path, to 1e-5 relative and 1e-4 norm-relative."""
+    from mpreid_tpu_torch.config import get_default_cfg
+    from mpreid_tpu_torch.engine import stage1_loss_and_grads
+    from mpreid_tpu_torch.models import make_model_uniprompt
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "ViT-B-16"
+    cfg.MODEL.DEBUG_TINY = True
+    cfg.MODEL.DEVICE = "cpu"
+    cfg.INPUT.SIZE_TRAIN = [64, 32]
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    rng = np.random.default_rng(13)
+    feats = torch.from_numpy(rng.standard_normal((8, 32)).astype(np.float32))
+    target = torch.from_numpy(rng.integers(0, 8, 8))
+    views = torch.from_numpy(rng.integers(0, 15, 8))
+    results = []
+    for device in ("cpu", card):
+        model = make_model_uniprompt(cfg, 8, 14, 15, device=device)
+        opt = make_optimizer(cfg.SOLVER[f"STAGE{stage.upper()}"], model, stage=f"stage{stage}")
+        fwd, bwd = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+        loss, grads = stage1_loss_and_grads(model, opt, stage, feats.to(device),
+                                            target.to(device),
+                                            views.to(device) if stage == "1b" else None)
+        torch.cuda.synchronize()
+        launched = (tattn.fused_attention.launches - fwd, tattn.fused_attention_bwd.launches - bwd)
+        assert launched == ((0, 0) if device == "cpu" else (2, 2))
+        results.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (cpu_loss, cpu_g), (card_loss, card_g) = results
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    assert set(card_g) == set(cpu_g) and cpu_g
+    for name, g in card_g.items():
+        assert (g - cpu_g[name]).norm().item() <= 1e-4 * cpu_g[name].norm().item(), name

@@ -25,7 +25,8 @@ MODULES = sorted(
 
 def test_every_module_imports_without_jax_or_optional_packages():
     """Importing every module of the port pulls in no jax, flax or JAX-package
-    module, and neither PyYAML nor Pillow (the card's machine may lack both)."""
+    module, and neither PyYAML, Pillow, regex nor ftfy (the card's machine
+    may lack them)."""
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -35,14 +36,19 @@ def test_every_module_imports_without_jax_or_optional_packages():
                          text=True, check=True, timeout=120)
     loaded = set(__import__("json").loads(out.stdout.strip().splitlines()[-1]))
     banned = {m for m in loaded
-              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpreid_tpu", "yaml", "PIL")}
+              if m.split(".")[0] in ("jax", "jaxlib", "flax", "mpreid_tpu", "yaml", "PIL",
+                                     "regex", "ftfy")}
     assert not banned, sorted(banned)
     assert "mpreid_tpu_torch.test" in MODULES and "mpreid_tpu_torch.kernels.build" in MODULES
     assert {"mpreid_tpu_torch.train", "mpreid_tpu_torch.ops.adam", "mpreid_tpu_torch.losses.triplet",
             "mpreid_tpu_torch.ops.pairwise", "mpreid_tpu_torch.ops.reranking",
             "mpreid_tpu_torch.ops.reranking_sparse", "mpreid_tpu_torch.ops.matmul",
             "mpreid_tpu_torch.solver.optim", "mpreid_tpu_torch.solver.schedules",
-            "mpreid_tpu_torch.utils.checkpoint", "mpreid_tpu_torch.engine.train_state"} <= set(MODULES)
+            "mpreid_tpu_torch.utils.checkpoint", "mpreid_tpu_torch.engine.train_state",
+            "mpreid_tpu_torch.train_uniprompt", "mpreid_tpu_torch.test_uniprompt",
+            "mpreid_tpu_torch.models.tokenizer", "mpreid_tpu_torch.models.text",
+            "mpreid_tpu_torch.models.uniprompt", "mpreid_tpu_torch.losses.supcon",
+            "mpreid_tpu_torch.engine.uniprompt", "mpreid_tpu_torch.ops.batch_hard"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax_and_builds_every_source():
@@ -58,7 +64,7 @@ def test_chip_smoke_imports_without_jax_and_builds_every_source():
 
     sources = sorted(os.path.basename(p)[:-3] for p in glob.glob(str(build.CSRC / "*.cu")))
     assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_fwd",
-                                                 "pairwise_cross"]
+                                                 "batch_hard", "pairwise_cross"]
 
 
 def test_chip_smoke_config_is_vit_base_yml():
@@ -77,6 +83,23 @@ def test_chip_smoke_config_is_vit_base_yml():
             w.pop(key, None)
         assert g == w, section
     assert got.TPU.COMPUTE_DTYPE == "bfloat16" and got.SOLVER.STAGE2.IMS_PER_BATCH == 64
+
+
+def test_chip_smoke_uniprompt_config_is_cctv_ir_cctv_rgb_yml():
+    """The Uni-Prompt slice of chip_smoke.py runs
+    configs/ours/cctv_ir_cctv_rgb.yml's settings (built in code)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = get_default_cfg()
+    want.merge_from_file(os.path.join(REPO, "configs", "ours", "cctv_ir_cctv_rgb.yml"))
+    got = chip_smoke.uniprompt_cfg()
+    for section in ("MODEL", "INPUT", "DATALOADER", "SOLVER", "TEST", "DATASETS"):
+        g, w = dict(got[section]), dict(want[section])
+        g.pop("DEVICE", None)  # the card on request
+        w.pop("DEVICE", None)
+        assert g == w, section
+    assert got.TPU.COMPUTE_DTYPE == "bfloat16" and not got.MODEL.MOE.ENABLED
 
 
 @pytest.mark.parametrize("name", ["tpu", "gpu", "cuda", "TPU", "cuda:0"])
