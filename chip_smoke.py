@@ -10,8 +10,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    of the main paths, with the stated tolerance, and its times: the kernel,
    the plain version, one library call computing the same function, and the
    bound (the least time the card could take for the same work): the
-   attention forward and backward (vision and text shapes, both layouts)
-   and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW);
+   attention forward and backward (bf16 on the tensor-core kernels at the
+   vision, text and 256×256 vehicle shapes, fp32 on the CUDA-core kernels
+   at the vision shape, both layouts; the ptxas report of the tensor-core
+   sources, which must show no spills at dh 64) and the Adam leaf update (a
+   c_fc leaf, fp32/bf16 moments, Adam/AdamW);
 4. the baseline eval path (ViT-B/16, 256×128, bf16, batch 64) at full width
    on seeded random weights through ``engine.processor.do_inference``,
    counting the forward kernel's launches in that run;
@@ -21,7 +24,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    a warm-up step, then timed steps, counting the attention kernels'
    launches; one short epoch through ``engine.processor.do_train`` over a
    ``TrainLoader``; then steps with ``SOLVER.FUSED_ADAM`` on, counting the
-   Adam kernel's launches, and one fused update against the plain one;
+   Adam kernel's launches, and one fused update against the plain one; then
+   three train steps of configs/veri/vit_base.yml (ViT-B/16 at 256×256, L
+   257, 576 classes), whose attention backward the CUDA-core kernel refused;
 6. cross-checks: eval features and a train step's loss and gradients in
    fp32 on the card against fp32 on the CPU, and bf16 against fp32 on the
    card;
@@ -56,7 +61,8 @@ and bf16, a ragged 60-row batch, a batch with a singleton identity and a
 single-identity batch.
 
 The last two lines of standard output are one JSON object with the kernels'
-numbers and one with the run's verdict and device. ``--profile`` adds
+numbers and one with the run's verdict and device. Every bf16 attention
+launch of a path must count on the tensor-core route ("tc"). ``--profile`` adds
 ``torch.profiler`` breakdowns by kernel of three eval batches, of three
 train steps and of one re-ranking compute at each scale, and the device's
 idle share over one traced ``do_inference`` run, over the traced train
@@ -69,6 +75,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +135,9 @@ LOSS_RTOL = 1e-4
 COSINE_FLOOR = 0.99
 VISION = dict(name="vision", b=BATCH, l=129, heads=12, dh=64, masked=False)
 TEXT = dict(name="text", b=BATCH, l=77, heads=8, dh=64, masked=True)
+VEHICLE = dict(name="vehicle", b=BATCH, l=257, heads=12, dh=64, masked=False)
+VEHICLE_HW, VEHICLE_CLASSES, VEHICLE_CAMERAS = (256, 256), 576, 20  # VeRi-776
+VEHICLE_STEPS = 3
 # re-ranking: Market-1501 (dense route) and MSMT17 (sparse-V route) query and
 # gallery sizes, seeded clustered features of the ViT-B/16 eval width
 MARKET = dict(q=3368, g=15913, ids=750)
@@ -315,6 +325,43 @@ def check_attention_bwd(case: dict, dtype: torch.dtype, layout: str, timed: bool
     if not ok:
         raise AssertionError(f"attention backward kernel disagrees with its plain version: {row}")
     return row
+
+
+def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc")) -> dict:
+    """Registers, spills and static shared memory that ptxas reported for each
+    kernel of ``names`` built in this process, by head width; raises where a
+    kernel at dh 64 spills."""
+    out = {}
+    for name in names:
+        text = build.LOGS.get(name)
+        if text is None:
+            out[name] = "built before this process: not reported"
+            continue
+        kernels, current = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                dh = re.search(r"ILi(\d+)E", m.group(1)).group(1)
+                current = kernels.setdefault(f"dh{dh}", {})
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                current.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                current["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                current["static_smem_bytes"] = int(m.group(1))
+        out[name] = kernels
+    log(f"  ptxas {json.dumps(out)}")
+    for name, kernels in out.items():
+        dh64 = kernels.get("dh64", {}) if isinstance(kernels, dict) else {}
+        if dh64.get("spill_stores") or dh64.get("spill_loads"):
+            raise AssertionError(f"{name} spills registers at dh 64: {dh64}")
+    return out
 
 
 def adam_bound_ms(n: int, moment_dtype: torch.dtype) -> tuple:
@@ -556,11 +603,20 @@ VIT_BASE = {
 }
 
 
-def vit_base_cfg(dtype: str = "bfloat16", device: str = "cuda"):
-    """configs/person/vit_base.yml's settings (as train.py takes them), on
-    ``device`` in ``dtype``, writing no files."""
+# configs/veri/vit_base.yml: the same but 256×256 (L 257) and VeRi-776;
+# tests/test_torch_package.py holds it to the file
+VERI = {**VIT_BASE,
+        "INPUT": {**VIT_BASE["INPUT"], "SIZE_TRAIN": list(VEHICLE_HW),
+                  "SIZE_TEST": list(VEHICLE_HW)},
+        "DATASETS": {"NAMES": "veri", "ROOT_DIR": "../data"},
+        "OUTPUT_DIR": "output/veri_vit_base"}
+
+
+def vit_base_cfg(dtype: str = "bfloat16", device: str = "cuda", settings: dict = VIT_BASE):
+    """configs/person/vit_base.yml's settings (as train.py takes them), or
+    ``settings``, on ``device`` in ``dtype``, writing no files."""
     cfg = get_default_cfg()
-    cfg._merge_dict(VIT_BASE)
+    cfg._merge_dict(settings)
     cfg.SOLVER.STAGE2.IMS_PER_BATCH = cfg.SOLVER.IMS_PER_BATCH
     cfg.MODEL.DEVICE = device
     cfg.TPU.COMPUTE_DTYPE = dtype
@@ -579,7 +635,7 @@ def run_slice(profile: bool) -> tuple:
 
     do_inference(cfg, model, loader, QUERY)  # warm-up pass
     torch.cuda.synchronize()
-    attn.fused_attention.launches = 0
+    reset_counts()
     seconds = []
     for _ in range(RUNS):
         t0 = time.perf_counter()
@@ -587,9 +643,7 @@ def run_slice(profile: bool) -> tuple:
         seconds.append(time.perf_counter() - t0)
     launches = attn.fused_attention.launches
     depth = len(model.image_encoder.transformer.resblocks)
-    if launches != depth * n_batches * RUNS:
-        raise AssertionError(
-            f"{launches} attention launches, expected {depth} × {n_batches} × {RUNS}")
+    expect_counts("eval slice", read_counts(), {"attention_fwd": depth * n_batches * RUNS})
     rates = sorted((QUERY + GALLERY) / s for s in seconds)
     q1, med, q3 = (float(x) for x in np.percentile(rates, [25, 50, 75]))
 
@@ -624,6 +678,12 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
+def attention_ms(prof) -> float:
+    """Device time of the attention kernels (``mha_*``) in a profile, in ms."""
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "mha_" in e.name) / 1e3
+
+
 def profile_eval(cfg, model, loader, step, batch) -> None:
     """Per-kernel breakdown of 3 eval batches, and the device's idle share
     over one whole ``do_inference`` run (traced; tracing adds host time)."""
@@ -635,6 +695,8 @@ def profile_eval(cfg, model, loader, step, batch) -> None:
             step(batch)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    shares = dict(eval_batches_device_ms=device_busy_ms(prof), attention_ms=attention_ms(prof))
+    shares["attention_share"] = shares["attention_ms"] / shares["eval_batches_device_ms"]
     with profile(activities=acts) as prof_run:
         t0 = time.perf_counter()
         do_inference(cfg, model, loader, QUERY)
@@ -643,6 +705,7 @@ def profile_eval(cfg, model, loader, step, batch) -> None:
     idle = dict(do_inference_wall_ms_traced=wall_ms, device_busy_ms=busy,
                 device_idle_share=1 - busy / wall_ms)
     log("profile of 3 eval batches (bf16, batch 64):\n" + table)
+    log(f"attention {json.dumps(shares)}")
     log(f"idle {json.dumps(idle)}")
 
 
@@ -661,11 +724,11 @@ class MemoryBatcher(ImageBatcher):
         return self.images[int(rec[0])]
 
 
-def train_images(seed: int = 2):
-    """Seeded uint8 train set: TRAIN_IDS identities × TRAIN_IMGS_PER_ID images,
-    a per-identity pattern plus per-image noise."""
+def train_images(seed: int = 2, hw=HW):
+    """Seeded uint8 train set: TRAIN_IDS identities × TRAIN_IMGS_PER_ID images
+    of ``hw``, a per-identity pattern plus per-image noise."""
     rng = np.random.default_rng(seed)
-    h, w = HW
+    h, w = hw
     bases = rng.integers(40, 215, (TRAIN_IDS, h, w, 3), dtype=np.int16)
     pids = np.repeat(np.arange(TRAIN_IDS), TRAIN_IMGS_PER_ID)
     noise = rng.integers(-60, 61, (len(pids), h, w, 3), dtype=np.int16)
@@ -690,22 +753,35 @@ def pk_batches(images, pids, n: int, ids: int = P_IDS, seed: int = 3) -> list:
 COUNTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd,
            "adam": adam.fused_adam_leaf, "l1_cross": pairwise.l1_cross,
            "minsum_cross": pairwise.minsum_cross, "batch_hard": bh.fused_batch_hard}
+ROUTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd}
 
 
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    for fn in ROUTED.values():
+        fn.launches_by_route = dict.fromkeys(attn.ROUTES, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
+def read_routes() -> dict:
+    return {name: dict(fn.launches_by_route) for name, fn in ROUTED.items()}
+
+
 def expect_counts(what: str, got: dict, want: dict) -> None:
-    """Every kernel's launches are as ``want`` says, 0 where it says nothing."""
+    """Every kernel's launches are as ``want`` says, 0 where it says nothing,
+    and every attention launch (the paths run bf16) on the "tc" route."""
     want = {name: want.get(name, 0) for name in got}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+    routes = read_routes()
+    for name, by_route in routes.items():
+        if by_route != {r: got[name] if r == "tc" else 0 for r in attn.ROUTES}:
+            raise AssertionError(f"{what}: attention launches by route {routes}, "
+                                 f"expected all {got[name]} of {name} on tc")
 
 
 def run_train(profile: bool) -> dict:
@@ -759,6 +835,7 @@ def run_train(profile: bool) -> dict:
     res = dict(train_img_per_s=med, train_img_per_s_q1=q1, train_img_per_s_q3=q3,
                step_ms_median=float(np.median(seconds)) * 1e3, steps=TRAIN_STEPS, batch=BATCH,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+               launches_by_route=read_routes(),
                changed_leaves=len(changed), trainable_leaves=len(train), losses=losses)
     log(f"train {json.dumps(res)}")
 
@@ -850,6 +927,47 @@ def fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batch, lr) -> di
     return res
 
 
+def run_vehicle_train() -> dict:
+    """configs/veri/vit_base.yml at full width: ViT-B/16 at 256×256 (L 257),
+    576 classes, bf16 over fp32, VEHICLE_STEPS train steps on PK batches of
+    seeded images (augmentation on, Adam): finite losses and 12 + 12
+    attention launches a step, all on the tensor-core route."""
+    cfg = vit_base_cfg(device=CARD, settings=VERI)
+    model = make_model(cfg, num_class=VEHICLE_CLASSES, camera_num=VEHICLE_CAMERAS, view_num=1)
+    depth = len(model.image_encoder.transformer.resblocks)
+    length = model.image_encoder.positional_embedding.shape[0]
+    if length != VEHICLE["l"]:
+        raise AssertionError(f"vehicle ViT-B/16 sequence length {length}, expected {VEHICLE['l']}")
+    loss_fn, _ = make_loss(cfg, VEHICLE_CLASSES)
+    optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    lr = make_scheduler(cfg.SOLVER, "multistep")(1)
+    images, pids = train_images(seed=11, hw=VEHICLE_HW)
+    batches = pk_batches(images, pids, VEHICLE_STEPS, seed=12)
+    del images
+    state = initial_state(model, optimizer)
+    step = make_train_step(model, cfg, loss_fn, optimizer)
+    gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds, losses = [], []
+    for batch in batches:
+        (state, metrics), secs = timed(lambda: step(state, batch, lr, gen))
+        seconds.append(secs)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    expect_counts("vehicle train steps", counts, {"attention_fwd": depth * VEHICLE_STEPS,
+                                                  "attention_bwd": depth * VEHICLE_STEPS})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite vehicle train loss: {losses}")
+    res = dict(config="configs/veri/vit_base.yml", hw=list(VEHICLE_HW), seq_len=length,
+               classes=VEHICLE_CLASSES, steps=VEHICLE_STEPS, batch=BATCH, losses=losses,
+               step_seconds=seconds, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts, launches_by_route=read_routes())
+    log(f"vehicle train {json.dumps(res)}")
+    return res
+
+
 def profile_train(step, state, batches, lr, gen) -> None:
     """Per-kernel breakdown of 3 train steps and the device's idle share
     over them (traced; tracing adds host time)."""
@@ -864,7 +982,8 @@ def profile_train(step, state, batches, lr, gen) -> None:
     busy = device_busy_ms(prof)
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     log("profile of 3 train steps (bf16, batch 64):\n" + table)
-    log(f"idle {json.dumps(dict(train_steps_wall_ms_traced=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms))}")
+    att = attention_ms(prof)
+    log(f"idle {json.dumps(dict(train_steps_wall_ms_traced=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms, attention_ms=att, attention_share=att / busy))}")
 
 
 def train_cross_checks(model) -> dict:
@@ -1014,8 +1133,10 @@ def profile_idle(fn, what: str) -> dict:
     busy = device_busy_ms(prof)
     log(f"profile of {what}:\n" + prof.key_averages().table(sort_by="cuda_time_total",
                                                              row_limit=20))
+    att = attention_ms(prof)
     res = dict(what=what, wall_ms_traced=wall_ms, device_busy_ms=busy,
-               device_idle_share=1 - busy / wall_ms)
+               device_idle_share=1 - busy / wall_ms, attention_ms=att,
+               attention_share=att / busy)
     log(f"idle {json.dumps(res)}")
     return res
 
@@ -1202,10 +1323,11 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
     loss to LOSS_RTOL, every gradient to GRAD_RTOL norm-relative (floored at
     1e-3 of the largest leaf; the unused leaves' zeros included), the
     parameters after the step to 0.25·lr·mult, except where the coupled
-    gradient g' = g + wd·p is below 100·eps: Adam's first step is
-    lr·g'/(|g'| + eps), which rounding of such a g' can move by up to lr
-    either way, so those elements (counted) are held to 2·lr·mult. Then bf16 against fp32 on the card: cosine ≥
-    COSINE_FLOOR on text features and stage-2 eval features."""
+    gradient g' = g + wd·p is below 100·eps or has another sign on the card
+    than on the CPU: Adam's first step is lr·g'/(|g'| + eps), which rounding
+    of such a g' can move by up to lr either way, so those elements
+    (counted) are held to 2·lr·mult. Then bf16 against fp32 on the card:
+    cosine ≥ COSINE_FLOOR on text features and stage-2 eval features."""
     from mpreid_tpu_torch.engine.steps import trainable_params
 
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -1252,13 +1374,17 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
             out["cpu"][stage], out["card"][stage]
         floor = 1e-3 * max(g.norm().item() for g in g_cpu.values())
         zero = [k for k, g in g_cpu.items() if not bool(g.any())]
-        worst_p, worst_all, n_small, ok_p = 0.0, 0.0, 0, True
+        worst_p, worst_all, n_small, n_flip, ok_p = 0.0, 0.0, 0, 0, True
         for k, p in p_cpu.items():
             err = (p_gpu[k] - p).abs() / (lr * opt.lr_mult[k])
             # Adam's first step is lr·g'/(|g'| + eps) with g' = g + wd·p: where
-            # |g'| < 100·eps rounding of g' moves it by up to lr either way
-            small = (g_cpu[k] + opt.wd[k] * weights[k]).abs() < 100 * opt.eps
+            # |g'| < 100·eps, or where the two devices' g' (held to GRAD_RTOL)
+            # differ in sign, rounding of g' moves it by up to lr either way
+            g_c, g_g = (g[k] + opt.wd[k] * weights[k] for g in (g_cpu, g_gpu))
+            flip = torch.sign(g_c) != torch.sign(g_g)
+            small = (g_c.abs() < 100 * opt.eps) | flip
             n_small += int(small.sum())
+            n_flip += int(flip.sum())
             worst_p = max(worst_p, err[~small].max().item() if bool((~small).any()) else 0.0)
             worst_all = max(worst_all, err.max().item())
         ok_p = worst_p <= 0.25 and worst_all <= 2.0
@@ -1267,6 +1393,7 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
             worst_grad_rel=max(_rel_err(g_gpu[k], g, floor) for k, g in g_cpu.items()),
             zero_grad_leaves=len(zero), zero_on_card=all(not bool(g_gpu[k].any()) for k in zero),
             worst_param_err_lr_units=worst_p, elements_near_zero_step=n_small,
+            elements_with_flipped_step=n_flip,
             worst_param_err_lr_units_near_zero_step=worst_all, leaves=len(g_cpu))
         log(f"uniprompt step cross-check {stage} {json.dumps(checks[stage])}")
         if not (checks[stage]["loss_rel"] <= LOSS_RTOL and checks[stage]["worst_grad_rel"]
@@ -1517,22 +1644,17 @@ def main() -> None:
     log("build:")
     secs = build.build(verbose=True)
     log(f"  built {json.dumps(secs)} (seconds per source, 0 = already built)")
+    ptxas = ptxas_report()
 
     log("kernels against their plain versions on the card:")
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    rows, bwd_rows = [], []
+    cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
+             (VEHICLE, torch.bfloat16)]
+    for case, dtype in cases:
         for layout in attn.LAYOUTS:
-            rows.append(check_attention(VISION, dtype, layout, timed=dtype == torch.bfloat16))
-    for layout in attn.LAYOUTS:
-        rows.append(check_attention(TEXT, torch.bfloat16, layout, timed=layout == "packed"))
-    bwd_rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for layout in attn.LAYOUTS:
-            bwd_rows.append(check_attention_bwd(VISION, dtype, layout,
-                                                timed=dtype == torch.bfloat16))
-    for layout in attn.LAYOUTS:
-        bwd_rows.append(check_attention_bwd(TEXT, torch.bfloat16, layout,
-                                            timed=layout == "packed"))
+            timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
+            rows.append(check_attention(case, dtype, layout, timed=timed_here))
+            bwd_rows.append(check_attention_bwd(case, dtype, layout, timed=timed_here))
     adam_rows = [check_adam(md, decoupled, timed=md == torch.float32 and not decoupled)
                  for md in (torch.float32, torch.bfloat16) for decoupled in (False, True)]
     t0 = time.perf_counter()
@@ -1551,6 +1673,8 @@ def main() -> None:
 
     log("baseline training slice, ViT-B/16 at full width:")
     train_res = run_train(args.profile)
+    log("vehicle training slice, configs/veri/vit_base.yml (256×256, L 257), full width:")
+    vehicle_res = run_vehicle_train()
 
     log("cross-checks:")
     cross_checks(model)
@@ -1583,33 +1707,41 @@ def main() -> None:
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
+    def pick(found, case, dtype="bfloat16"):  # the packed row
+        return next(r for r in found
+                    if (r["case"], r["dtype"], r["layout"]) == (case, dtype, "packed"))
+
+    def attention_entry(direction, found):
+        name = f"attention_{direction}"
+        bf16 = [r for r in found if r["dtype"] == "bfloat16"]
+        return {
+            "name": f"fused_attention_{direction}",
+            "route": "cuda",
+            "source": f"mpreid_tpu_torch/kernels/csrc/attention_{direction}_tc.cu",
+            "replaces": "mpreid_tpu/ops/attention.py:" + ("229" if direction == "fwd" else "250"),
+            "also_replaces": "mpreid_tpu/ops/attention.py:" + ("488" if direction == "fwd"
+                                                               else "514"),
+            "launches": train_counts[name],
+            "launches_by_route": train_res["train"]["launches_by_route"][name],
+            "launches_eval": slice_res["launches"] if direction == "fwd" else 0,
+            "launches_uniprompt": {k: v[name] for k, v in uni_launches.items()},
+            "launches_vehicle": vehicle_res["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in bf16),
+            **timing(pick(found, "vision")),
+            "shape": "B64 L129 12x64 bf16 packed, no mask",
+            "text": timing(pick(found, "text")),
+            "vehicle": timing(pick(found, "vehicle")),
+            "ptxas": ptxas[f"{name}_tc"],
+            "simt_fp32": {"source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
+                          "max_abs_err": max(r["max_abs_err"] for r in found
+                                             if r["dtype"] == "float32"),
+                          **timing(pick(found, "vision", "float32"))},
+        }
+
     train_counts = train_res["train"]["launches"]
     uni_launches = {"stage1a_epoch": uni_res["stage1a"]["launches"],
                     "stage2a_steps": uni_res["stage2a"]["launches"]}
-    kernels = [{
-        "name": "fused_attention_fwd",
-        "route": "cuda",
-        "source": "mpreid_tpu_torch/kernels/csrc/attention_fwd.cu",
-        "replaces": "mpreid_tpu/ops/attention.py:229",
-        "also_replaces": "mpreid_tpu/ops/attention.py:488",
-        "launches": train_counts["attention_fwd"],
-        "launches_eval": slice_res["launches"],
-        "launches_uniprompt": {k: v["attention_fwd"] for k, v in uni_launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
-        **timing(rows[0]),
-        "shape": "B64 L129 12x64 bf16 packed, no mask",
-    }, {
-        "name": "fused_attention_bwd",
-        "route": "cuda",
-        "source": "mpreid_tpu_torch/kernels/csrc/attention_bwd.cu",
-        "replaces": "mpreid_tpu/ops/attention.py:250",
-        "also_replaces": "mpreid_tpu/ops/attention.py:514",
-        "launches": train_counts["attention_bwd"],
-        "launches_uniprompt": {k: v["attention_bwd"] for k, v in uni_launches.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
-        **timing(bwd_rows[0]),
-        "shape": "B64 L129 12x64 bf16 packed, no mask",
-    }, {
+    kernels = [attention_entry("fwd", rows), attention_entry("bwd", bwd_rows), {
         "name": "fused_adam_leaf",
         "route": "cuda",
         "source": "mpreid_tpu_torch/kernels/csrc/adam.cu",

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so``
-(``_build`` is git-ignored), keyed by a hash of the source and the flags, and
-loaded with ``ctypes``. Nothing is compiled when a module is imported, so the
-CPU tests import every module on a machine without ``nvcc``.
+(``_build`` is git-ignored), keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, and loaded with ``ctypes``. Nothing
+is compiled when a module is imported, so the CPU tests import every module
+on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention_fwd", "attention_bwd", "adam", "pairwise_cross", "batch_hard")
+SOURCES = ("attention_fwd", "attention_bwd", "attention_fwd_tc", "attention_bwd_tc", "adam",
+           "pairwise_cross", "batch_hard")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+LOGS: Dict[str, str] = {}  # what nvcc printed for each source built in this process
 
 
 def nvcc() -> str:
@@ -48,7 +51,7 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -57,7 +60,8 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, fl
     """Compile every named source that is not built yet, all at once (one
     ``nvcc`` process each). Returns the seconds each build took (0.0 for a
     library already built). ``verbose`` adds ``-Xptxas -v`` and prints what
-    the assembler reports (registers, shared memory, spills)."""
+    the assembler reports (registers, shared memory, spills); every build
+    keeps nvcc's output in ``LOGS``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     seconds: Dict[str, float] = {}
@@ -76,6 +80,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, fl
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue

@@ -15,15 +15,18 @@ layouts, one kernel:
 * ``"head_major"``: per-head [q_h|k_h|v_h] at column ``h·3dh``, the layout
   the JAX package's ``hm``/``hm_native`` towers emit.
 
-On a CUDA tensor the wrappers launch the hand-written Hopper kernels
-(``kernels/csrc/attention_fwd.cu``, ``kernels/csrc/attention_bwd.cu``) or
-raise; on a CPU tensor they compute ``attention_plain`` and
-``attention_bwd_plain``, the same functions in plain PyTorch. Numerics, as
-in the JAX package: q is scaled in the activation dtype, logits and softmax
-are fp32, probabilities are rounded to the activation dtype before P·V,
-which sums in fp32. ``mask`` is an additive (L, L) mask, constant by
-contract (the causal text mask holds -inf above the diagonal) and given no
-gradient.
+On a CUDA tensor the wrappers launch a hand-written Hopper kernel or
+raise; ``attention_route`` picks it before the launch from the dtype alone:
+bf16 goes to the tensor-core kernels (route ``"tc"``,
+``kernels/csrc/attention_{fwd,bwd}_tc.cu``), fp32 to the CUDA-core kernels
+(route ``"simt"``, ``kernels/csrc/attention_{fwd,bwd}.cu``), which keep fp32
+exact to 1e-5 where TF32 tensor cores could not. On a CPU tensor they
+compute ``attention_plain`` and ``attention_bwd_plain``, the same functions
+in plain PyTorch. Numerics, as in the JAX package: q is scaled in the
+activation dtype, logits and softmax are fp32, probabilities are rounded to
+the activation dtype before P·V, which sums in fp32. ``mask`` is an
+additive (L, L) mask, constant by contract (the causal text mask holds -inf
+above the diagonal) and given no gradient.
 
 When ``qkv`` requires a gradient, ``fused_attention`` goes through
 ``FusedAttention``, a ``torch.autograd.Function`` that saves only ``qkv``
@@ -42,6 +45,8 @@ import torch
 
 LAYOUTS = ("packed", "head_major")
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_WIDTHS = (64, 128)
+ROUTES = ("tc", "simt")
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,31 +152,47 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     return torch.cat(parts, dim=-1).reshape(b, l, dd)
 
 
+def attention_route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel family a CUDA tensor of ``dtype`` at head width ``dh``
+    launches: ``"tc"`` (bf16 on the tensor cores) or ``"simt"`` (fp32 on the
+    CUDA cores). Raises for what neither takes."""
+    if dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"the attention kernels take {SUPPORTED_DTYPES}, got {dtype}")
+    if dh not in HEAD_WIDTHS:
+        raise ValueError(f"the attention kernels take head widths {HEAD_WIDTHS}, got {dh}")
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
 @functools.lru_cache(maxsize=None)
-def _library(direction: str) -> ctypes.CDLL:
-    """The library of ``csrc/attention_<direction>.cu`` (``fwd`` or ``bwd``),
-    built at first use, with its C signatures declared."""
+def _library(direction: str, route: str) -> ctypes.CDLL:
+    """The library of ``csrc/attention_<direction>[_tc].cu`` (``fwd`` or
+    ``bwd``; ``_tc`` on the ``"tc"`` route), built at first use, with its C
+    signatures declared on ``lib.launch``, ``lib.smem_bytes`` and
+    ``lib.max_smem_bytes``."""
     from mpreid_tpu_torch.kernels import build
 
-    lib = build.load(f"attention_{direction}")
-    fn = getattr(lib, f"mpreid_mha_{direction}")
+    suffix = "_tc" if route == "tc" else ""
+    lib = build.load(f"attention_{direction}{suffix}")
+    symbol = f"mpreid_mha_{direction}{suffix}"
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tensors = [p, p, p] if direction == "fwd" else [p, p, p, p]  # bwd adds dout
-    fn.argtypes = tensors + [i, i, i, i, i, ll, i, i, i, i, ctypes.c_float, p]
-    fn.restype = i
-    smem, max_smem = (getattr(lib, f"mpreid_mha_{direction}_{n}")
-                      for n in ("smem_bytes", "max_smem_bytes"))
-    smem.argtypes, smem.restype = [i, i, i], ctypes.c_size_t
-    max_smem.argtypes, max_smem.restype = [], ctypes.c_size_t
+    lib.launch = getattr(lib, symbol)
+    lib.launch.argtypes = tensors + [i, i, i, i, ll, i, i, i, i, ctypes.c_float, p]
+    lib.launch.restype = i
+    lib.smem_bytes = getattr(lib, f"{symbol}_smem_bytes")
+    lib.smem_bytes.argtypes, lib.smem_bytes.restype = [i, i], ctypes.c_size_t
+    lib.max_smem_bytes = getattr(lib, f"{symbol}_max_smem_bytes")
+    lib.max_smem_bytes.argtypes, lib.max_smem_bytes.restype = [], ctypes.c_size_t
     return lib
 
 
 def _check_cuda(direction: str, qkv: torch.Tensor, num_heads: int, mask):
-    """Refuse what the ``direction`` kernel does not take → (lib, is_bf16,
-    dh, mask as a contiguous fp32 (L, L) on the card or None)."""
+    """Refuse what the ``direction`` kernel does not take → (lib, route, dh,
+    mask as a contiguous fp32 (L, L) on the card or None)."""
     what = "fused_attention" if direction == "fwd" else "fused_attention_bwd"
-    if qkv.dtype not in SUPPORTED_DTYPES:
-        raise TypeError(f"{what} takes {SUPPORTED_DTYPES}, got {qkv.dtype}")
+    _, l, dd = qkv.shape
+    dh = dd // 3 // num_heads
+    route = attention_route(qkv.dtype, dh)
     if not qkv.is_contiguous():
         raise ValueError(f"{what} needs a contiguous qkv")
     if qkv.data_ptr() % 16:
@@ -181,48 +202,45 @@ def _check_cuda(direction: str, qkv: torch.Tensor, num_heads: int, mask):
         raise RuntimeError(
             f"the attention kernels are built for sm_90a; device capability is {cap}"
         )
-    _, l, dd = qkv.shape
-    dh = dd // 3 // num_heads
-    if dh not in (64, 128):
-        raise ValueError(f"the attention kernels take head widths 64 and 128, got {dh}")
     if mask is not None:
         if tuple(mask.shape) != (l, l):
             raise ValueError(f"mask must be ({l}, {l}), got {tuple(mask.shape)}")
         mask = mask.to(device=qkv.device, dtype=torch.float32).contiguous()
-    lib = _library(direction)
-    is_bf16 = int(qkv.dtype == torch.bfloat16)
-    smem = getattr(lib, f"mpreid_mha_{direction}_smem_bytes")(is_bf16, l, dh)
-    limit = getattr(lib, f"mpreid_mha_{direction}_max_smem_bytes")()
+    lib = _library(direction, route)
+    smem, limit = lib.smem_bytes(l, dh), lib.max_smem_bytes()
     if smem > limit:
+        longest = max(n for n in range(1, l) if lib.smem_bytes(n, dh) <= limit)
         raise ValueError(
             f"{what}: sequence length {l} at head width {dh} in {qkv.dtype} needs "
-            f"{smem} bytes of shared memory per block, more than the {limit} a block may use"
+            f"{smem} bytes of shared memory per block, more than the {limit} a block may "
+            f"use: L above {longest} needs more shared memory than a block has"
         )
-    return lib, is_bf16, dh, mask
+    return lib, route, dh, mask
 
 
 def _launch_cuda(qkv, num_heads, mask, layout):
-    lib, is_bf16, dh, mask = _check_cuda("fwd", qkv, num_heads, mask)
+    lib, route, dh, mask = _check_cuda("fwd", qkv, num_heads, mask)
     b, l, dd = qkv.shape
     d = dd // 3
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or l == 0:
         return out
     q_base, k_base, v_base, head_stride = _column_offsets(d, dh, layout)
-    rc = lib.mpreid_mha_fwd(
+    rc = lib.launch(
         qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-        out.data_ptr(), is_bf16, b, l, num_heads, dh, dd,
+        out.data_ptr(), b, l, num_heads, dh, dd,
         q_base, k_base, v_base, head_stride, dh ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"attention kernel launch failed with CUDA error {rc}")
     fused_attention.launches += 1
+    fused_attention.launches_by_route[route] += 1
     return out
 
 
 def _launch_bwd_cuda(qkv, do, num_heads, mask, layout):
-    lib, is_bf16, dh, mask = _check_cuda("bwd", qkv, num_heads, mask)
+    lib, route, dh, mask = _check_cuda("bwd", qkv, num_heads, mask)
     b, l, dd = qkv.shape
     d = dd // 3
     if do.dtype != qkv.dtype or tuple(do.shape) != (b, l, d):
@@ -236,15 +254,16 @@ def _launch_bwd_cuda(qkv, do, num_heads, mask, layout):
     if b == 0 or l == 0:
         return dqkv
     q_base, k_base, v_base, head_stride = _column_offsets(d, dh, layout)
-    rc = lib.mpreid_mha_bwd(
+    rc = lib.launch(
         qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-        do.data_ptr(), dqkv.data_ptr(), is_bf16, b, l, num_heads, dh, dd,
+        do.data_ptr(), dqkv.data_ptr(), b, l, num_heads, dh, dd,
         q_base, k_base, v_base, head_stride, dh ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"attention backward kernel launch failed with CUDA error {rc}")
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.launches_by_route[route] += 1
     return dqkv
 
 
@@ -270,9 +289,11 @@ def fused_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                         layout: str = "packed") -> torch.Tensor:
     """``dqkv`` (B, L, 3D) from ``qkv`` and the output's cotangent ``do``.
 
-    CUDA tensors run the Hopper backward kernel (no synchronisation,
-    launched on the current stream) and count one launch in
-    ``fused_attention_bwd.launches``; CPU tensors run ``attention_bwd_plain``.
+    CUDA tensors run the Hopper backward kernel of ``attention_route`` (no
+    synchronisation, launched on the current stream) and count one launch in
+    ``fused_attention_bwd.launches`` and in its route's entry of
+    ``fused_attention_bwd.launches_by_route``; CPU tensors run
+    ``attention_bwd_plain``.
     """
     _check_args(qkv, num_heads, layout)
     if qkv.device.type == "cpu":
@@ -281,6 +302,7 @@ def fused_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -308,9 +330,11 @@ def fused_attention(qkv: torch.Tensor, num_heads: int,
                     layout: str = "packed") -> torch.Tensor:
     """Multi-head self-attention on packed ``(B, L, 3D)`` QKV → ``(B, L, D)``.
 
-    CUDA tensors run the Hopper kernel (no synchronisation, launched on the
-    current stream) and count one launch in ``fused_attention.launches``;
-    CPU tensors run ``attention_plain``. When ``qkv`` requires a gradient
+    CUDA tensors run the Hopper kernel of ``attention_route`` (no
+    synchronisation, launched on the current stream) and count one launch in
+    ``fused_attention.launches`` and in its route's entry of
+    ``fused_attention.launches_by_route``; CPU tensors run
+    ``attention_plain``. When ``qkv`` requires a gradient
     the call goes through ``FusedAttention``, whose backward is
     ``fused_attention_bwd``.
     """
@@ -321,3 +345,4 @@ def fused_attention(qkv: torch.Tensor, num_heads: int,
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -6,7 +6,9 @@ repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-fp32 is held to 1e-5 and bf16 to 2e-2, as in chip_smoke.py.
+fp32 is held to 1e-5 and bf16 to 2e-2, as in chip_smoke.py. bf16 attention
+runs on the tensor-core kernels (route "tc"), fp32 on the CUDA-core ones
+(route "simt").
 """
 
 import numpy as np
@@ -16,6 +18,16 @@ import torch
 from mpreid_tpu_torch.ops import attention as tattn
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ROUTE = {torch.float32: "simt", torch.bfloat16: "tc"}
+# the longest L each attention kernel takes: what one block's shared memory
+# (232,448 bytes) holds
+MAX_LEN = {("fwd", torch.bfloat16, 64): 800, ("fwd", torch.bfloat16, 128): 416,
+           ("fwd", torch.float32, 64): 417, ("fwd", torch.float32, 128): 214,
+           ("bwd", torch.bfloat16, 64): 384, ("bwd", torch.bfloat16, 128): 208,
+           ("bwd", torch.float32, 64): 139, ("bwd", torch.float32, 128): 94}
+# every padding edge of the 16-row blocks, the text and vision lengths, and
+# the 256x256 vehicle configs' L 257
+LENGTHS = [1, 15, 16, 17, 77, 129, 257]
 
 
 @pytest.fixture
@@ -40,17 +52,24 @@ def _causal(card, length):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed", "head_major"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [17, 77, 129])
+@pytest.mark.parametrize("length", LENGTHS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dh", [64, 128])
 def test_kernel_matches_plain(card, layout, dtype, length, masked, dh):
     qkv = _qkv(card, 3, length, 2, dh, dtype)
     mask = _causal(card, length) if masked else None
+    longest = MAX_LEN["fwd", dtype, dh]
+    if length > longest:
+        with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
+            tattn.fused_attention(qkv, 2, mask, layout=layout)
+        return
     before = tattn.fused_attention.launches
+    routed = tattn.fused_attention.launches_by_route[ROUTE[dtype]]
     got = tattn.fused_attention(qkv, 2, mask, layout=layout)
     want = tattn.attention_plain(qkv, 2, mask, layout=layout)
     torch.cuda.synchronize()
     assert tattn.fused_attention.launches == before + 1
+    assert tattn.fused_attention.launches_by_route[ROUTE[dtype]] == routed + 1
     assert got.dtype == dtype and got.shape == (3, length, 2 * dh)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
@@ -60,6 +79,17 @@ def test_kernel_at_the_vision_shape(card):
     qkv = _qkv(card, 64, 129, 12, 64, torch.bfloat16, seed=1)
     got = tattn.fused_attention(qkv, 12)
     want = tattn.attention_plain(qkv, 12)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+def test_kernel_at_the_vehicle_shape(card, layout):
+    """configs/veri/vit_base.yml: 256x256 at stride 16, L 257, 12 x 64."""
+    qkv = _qkv(card, 64, 257, 12, 64, torch.bfloat16, seed=14)
+    got = tattn.fused_attention(qkv, 12, layout=layout)
+    want = tattn.attention_plain(qkv, 12, layout=layout)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
 
@@ -116,28 +146,64 @@ def _bwd_err(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed", "head_major"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [17, 77, 129])
+@pytest.mark.parametrize("length", LENGTHS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dh", [64, 128])
 def test_bwd_kernel_matches_plain(card, layout, dtype, length, masked, dh):
+    """L 257 in bf16 at dh 64 pins the fault of the CUDA-core backward, which
+    held the L x L probabilities in shared memory and refused bf16 above L
+    178; the tensor-core backward's shared memory grows as O(L)."""
     qkv = _qkv(card, 3, length, 2, dh, dtype, seed=3)
     do = _qkv(card, 3, length, 2, dh, dtype, seed=4)[..., :2 * dh].contiguous()
     mask = _causal(card, length) if masked else None
-    if dtype == torch.float32 and dh == 128 and length == 129:
-        with pytest.raises(ValueError, match="shared memory"):
+    longest = MAX_LEN["bwd", dtype, dh]
+    if length > longest:
+        with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
             tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
         return
     before = tattn.fused_attention_bwd.launches
+    routed = tattn.fused_attention_bwd.launches_by_route[ROUTE[dtype]]
     got = tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
     want = tattn.attention_bwd_plain(qkv, do, 2, mask, layout=layout)
     torch.cuda.synchronize()
     assert tattn.fused_attention_bwd.launches == before + 1
+    assert tattn.fused_attention_bwd.launches_by_route[ROUTE[dtype]] == routed + 1
     assert got.dtype == dtype and got.shape == qkv.shape
     assert _bwd_err(got, want) <= BWD_TOL[dtype]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 129, 12, False), (64, 77, 8, True)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_bwd_kernel_is_deterministic(card, masked, dh):
+    """No atomics and every sum in a fixed order: two launches on the same
+    inputs give the same bits."""
+    qkv = _qkv(card, 8, 129, 4, dh, torch.bfloat16, seed=15)
+    do = _qkv(card, 8, 129, 4, dh, torch.bfloat16, seed=16)[..., :4 * dh].contiguous()
+    mask = _causal(card, 129) if masked else None
+    first = tattn.fused_attention_bwd(qkv, do, 4, mask)
+    second = tattn.fused_attention_bwd(qkv, do, 4, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_dtype_takes_its_route(card, dtype):
+    """bf16 launches count on "tc", fp32 on "simt", forward and backward."""
+    qkv = _qkv(card, 2, 77, 2, 64, dtype, seed=17).requires_grad_(True)
+    do = _qkv(card, 2, 77, 2, 64, dtype, seed=18)[..., :128].contiguous()
+    counters = (tattn.fused_attention, tattn.fused_attention_bwd)
+    before = [dict(fn.launches_by_route) for fn in counters]
+    tattn.fused_attention(qkv, 2, _causal(card, 77)).backward(do)
+    torch.cuda.synchronize()
+    for fn, was in zip(counters, before):
+        moved = {r: fn.launches_by_route[r] - was[r] for r in tattn.ROUTES}
+        assert moved == {r: int(r == ROUTE[dtype]) for r in tattn.ROUTES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 129, 12, False), (64, 77, 8, True), (64, 257, 12, False)])
 def test_bwd_kernel_at_the_main_shapes(card, shape):
     b, length, heads, masked = shape
     qkv = _qkv(card, b, length, heads, 64, torch.bfloat16, seed=5)
@@ -174,9 +240,9 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
         tattn.fused_attention_bwd(qkv, do.transpose(0, 1).contiguous().transpose(0, 1), 2)
     with pytest.raises(ValueError, match="head widths"):
         tattn.fused_attention_bwd(_qkv(card, 2, 17, 2, 32, torch.float32), do[..., :64], 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        tattn.fused_attention_bwd(_qkv(card, 1, 200, 1, 64, torch.bfloat16),
-                                  torch.zeros(1, 200, 64, device=card, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="L above 384 needs more shared memory"):
+        tattn.fused_attention_bwd(_qkv(card, 1, 400, 1, 64, torch.bfloat16),
+                                  torch.zeros(1, 400, 64, device=card, dtype=torch.bfloat16), 1)
 
 
 # ---------------------------------------------------------------------------

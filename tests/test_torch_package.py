@@ -63,7 +63,8 @@ def test_chip_smoke_imports_without_jax_and_builds_every_source():
     from mpreid_tpu_torch.kernels import build
 
     sources = sorted(os.path.basename(p)[:-3] for p in glob.glob(str(build.CSRC / "*.cu")))
-    assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_fwd",
+    assert sorted(build.SOURCES) == sources == ["adam", "attention_bwd", "attention_bwd_tc",
+                                                 "attention_fwd", "attention_fwd_tc",
                                                  "batch_hard", "pairwise_cross"]
 
 
@@ -83,6 +84,25 @@ def test_chip_smoke_config_is_vit_base_yml():
             w.pop(key, None)
         assert g == w, section
     assert got.TPU.COMPUTE_DTYPE == "bfloat16" and got.SOLVER.STAGE2.IMS_PER_BATCH == 64
+
+
+def test_chip_smoke_vehicle_config_is_veri_vit_base_yml():
+    """The vehicle training phase of chip_smoke.py runs configs/veri/vit_base.yml's
+    settings (built in code): ViT-B/16 at 256×256, so L 257."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = get_default_cfg()
+    want.merge_from_file(os.path.join(REPO, "configs", "veri", "vit_base.yml"))
+    got = chip_smoke.vit_base_cfg(settings=chip_smoke.VERI)
+    for section in ("MODEL", "INPUT", "DATALOADER", "SOLVER", "TEST", "DATASETS"):
+        g, w = dict(got[section]), dict(want[section])
+        for key in ("DEVICE", "STAGE2"):  # the card on request; the baseline copies IMS_PER_BATCH
+            g.pop(key, None)
+            w.pop(key, None)
+        assert g == w, section
+    h, w = got.INPUT.SIZE_TRAIN
+    assert (h // 16) * (w // 16) + 1 == chip_smoke.VEHICLE["l"] == 257
 
 
 def test_chip_smoke_uniprompt_config_is_cctv_ir_cctv_rgb_yml():
