@@ -12,9 +12,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    bound (the least time the card could take for the same work): the
    attention forward and backward (bf16 on the tensor-core kernels at the
    vision, text and 256×256 vehicle shapes, fp32 on the CUDA-core kernels
-   at the vision shape, both layouts; the ptxas report of the tensor-core
-   sources, which must show no spills at dh 64) and the Adam leaf update (a
-   c_fc leaf, fp32/bf16 moments, Adam/AdamW);
+   at the vision shape and, for the backward that once refused them, at L
+   163 (configs/cross/sysu_rgb2ir.yml) and L 257, both layouts; the ptxas
+   report of the tensor-core sources, which must show no spills at dh 64)
+   and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW);
 4. the baseline eval path (ViT-B/16, 256×128, bf16, batch 64) at full width
    on seeded random weights through ``engine.processor.do_inference``,
    counting the forward kernel's launches in that run;
@@ -50,7 +51,24 @@ Phases, in order; any failure raises and the exit code is not 0:
    stage-2a forward against ``losses/triplet.py``, margin and soft margin;
    then one stage-1b and one stage-2a step at batch 8 in fp32 on the card
    against the CPU (loss, every gradient, parameters after the step), and
-   bf16 against fp32 on text and eval features.
+   bf16 against fp32 on text and eval features;
+9. CLIP weights from a local file and the RN50 backbone, from seeded
+   OpenAI-layout files (fp16, as OpenAI ships them; written to a temporary
+   directory, since the real files are not in the repository): a ViT-B/16
+   file (14×14+1 positions) as a plain state_dict and as a ``torch.jit``
+   archive, each through ``load_pretrained`` into configs/person/vit_base.yml's
+   model, fp32 eval features on the card against the CPU; then an RN50 file
+   (7×7+1 pool grid) through ``MODEL.PRETRAIN_PATH`` into
+   configs/person/cnn_base.yml's model (751 classes, 256×128, bf16, batch
+   64): ``do_inference`` on 256 images and train steps, eval features and a
+   train step's loss and gradients in fp32 on the card against the CPU; into
+   configs/person/cnn_clipreid.yml's Uni-Prompt model: the bank over 1,024
+   images, 8 stage-1a and 8 stage-1b steps (12 + 12 text-tower attention
+   launches a step, on "tc"), the text features of every class, 8 stage-2a
+   steps and ``do_inference``; and one stage-2a step of
+   configs/veri/cnn_prom.yml at 256×256 (the attention pool at L 257). The
+   RN50 rates are printed on lines of their own with the card's name and
+   power limit.
 
 Phase 3 also holds the L1 and min-sum kernels (re-ranking's exact Jaccard
 step) against their plain versions at the path's shapes: the Market-1501
@@ -66,8 +84,8 @@ launch of a path must count on the tensor-core route ("tc"). ``--profile`` adds
 ``torch.profiler`` breakdowns by kernel of three eval batches, of three
 train steps and of one re-ranking compute at each scale, and the device's
 idle share over one traced ``do_inference`` run, over the traced train
-steps, over each traced compute and over three traced stage-1b and three
-stage-2a steps.
+steps, over each traced compute, over three traced stage-1b and three
+stage-2a steps and over three traced RN50 train steps.
 """
 
 from __future__ import annotations
@@ -75,10 +93,12 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +108,7 @@ import torch.nn.functional as F
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data.loader import ImageBatcher, ShuffledLoader, TrainLoader
 from mpreid_tpu_torch.data.sampler import RandomIdentitySampler
+from mpreid_tpu_torch.data.synthetic import make_clip_file
 from mpreid_tpu_torch.engine import (
     R1mAPEvaluator, build_image_bank, do_inference, do_train,
     do_train_stage1, do_train_stage2, initial_state, loss_and_grads, make_eval_step,
@@ -97,7 +118,8 @@ from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.losses.triplet import euclidean_dist, triplet_loss
 from mpreid_tpu_torch.models import (
-    build_model, build_model_uniprompt, make_model, make_model_uniprompt,
+    RN50, VIT_B16, build_model, build_model_uniprompt, load_pretrained, make_model,
+    make_model_uniprompt,
 )
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
@@ -111,6 +133,10 @@ from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 and bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32 instructions other than the FMA (a min, a subtract, an add) issue at
+# one per lane a clock: 132 SMs x 128 lanes x 1.98 GHz (the FMA rate above
+# counts each FMA as two operations)
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # backward: relative to max(1, max |plain|); bf16 outputs may land one bf16
 # step away after fp32 sums in another order
@@ -136,6 +162,8 @@ COSINE_FLOOR = 0.99
 VISION = dict(name="vision", b=BATCH, l=129, heads=12, dh=64, masked=False)
 TEXT = dict(name="text", b=BATCH, l=77, heads=8, dh=64, masked=True)
 VEHICLE = dict(name="vehicle", b=BATCH, l=257, heads=12, dh=64, masked=False)
+# configs/cross/sysu_rgb2ir.yml: 288x144 at stride 16, so L 163 (fp32 backward)
+SYSU = dict(name="sysu", b=BATCH, l=163, heads=12, dh=64, masked=False)
 VEHICLE_HW, VEHICLE_CLASSES, VEHICLE_CAMERAS = (256, 256), 576, 20  # VeRi-776
 VEHICLE_STEPS = 3
 # re-ranking: Market-1501 (dense route) and MSMT17 (sparse-V route) query and
@@ -226,7 +254,11 @@ def attention_bound_ms(b, l, heads, dh, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+CARD_LINE = ""  # the card's name and power limit, as nvidia-smi gives them
+
+
 def header() -> None:
+    global CARD_LINE
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs on the card only")
@@ -237,6 +269,7 @@ def header() -> None:
     line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
         else f"nvidia-smi unavailable (rc {smi.returncode})"
     log(line)
+    CARD_LINE = line
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device {torch.cuda.get_device_name(0)} capability "
@@ -419,10 +452,11 @@ def sparse_rows(rows: int, n: int, nnz: int, gen: torch.Generator) -> torch.Tens
 
 def pairwise_bound_ms(q: int, g: int, n: int) -> tuple:
     """(ms, bound_by): both inputs read once and the (Q, G) output written
-    once over the memory rate, against two fp32 operations per element pair
-    (a subtract and an add, or a min and an add) over the fp32 peak."""
+    once over the memory rate, against two fp32 instructions per element
+    pair (a subtract and an add of the absolute value, or a min and an add)
+    at one instruction per lane a clock."""
     t_bytes = 4 * (q * n + g * n + q * g) / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * q * g * n / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = 2 * q * g * n / FP32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1090,12 +1124,12 @@ UNIPROMPT = {
 }
 
 
-def uniprompt_cfg(dtype: str = "bfloat16", device: str = CARD):
+def uniprompt_cfg(dtype: str = "bfloat16", device: str = CARD, settings: dict = UNIPROMPT):
     """configs/ours/cctv_ir_cctv_rgb.yml's settings (as train_uniprompt takes
-    them), on ``device`` in ``dtype``, writing no files; each stage runs one
-    epoch here."""
+    them), or ``settings``, on ``device`` in ``dtype``, writing no files; each
+    stage runs one epoch here."""
     cfg = get_default_cfg()
-    cfg._merge_dict(UNIPROMPT)
+    cfg._merge_dict(settings)
     cfg.MODEL.DEVICE = device
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.OUTPUT_DIR = ""
@@ -1120,9 +1154,23 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def profile_idle(fn, what: str) -> dict:
+def device_ms_by_op(prof, groups: dict) -> dict:
+    """Self device time of the traced operators, in ms, summed into the
+    first of ``groups`` ({name: substrings}) whose substring the operator's
+    name holds, "other" for the rest (operators only: each kernel's time is
+    its launching operator's)."""
+    out = dict.fromkeys([*groups, "other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.self_device_time_total:
+            continue
+        group = next((g for g, subs in groups.items() if any(x in e.key for x in subs)), "other")
+        out[group] += e.self_device_time_total / 1e3
+    return out
+
+
+def profile_idle(fn, what: str, groups=None) -> dict:
     """The device's idle share over ``fn()`` (traced; tracing adds host time)
-    and its breakdown by kernel."""
+    and its breakdown by kernel, and with ``groups`` by operator group."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1137,6 +1185,8 @@ def profile_idle(fn, what: str) -> dict:
     res = dict(what=what, wall_ms_traced=wall_ms, device_busy_ms=busy,
                device_idle_share=1 - busy / wall_ms, attention_ms=att,
                attention_share=att / busy)
+    if groups:
+        res["device_ms_by_op"] = device_ms_by_op(prof, groups)
     log(f"idle {json.dumps(res)}")
     return res
 
@@ -1430,6 +1480,409 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
     return checks
 
 
+# configs/person/cnn_base.yml, configs/person/cnn_clipreid.yml and
+# configs/veri/cnn_prom.yml, built in code; tests/test_torch_package.py holds
+# each to its file
+CNN_BASE = {**VIT_BASE, "MODEL": {**VIT_BASE["MODEL"], "NAME": "RN50"},
+            "SOLVER": {**VIT_BASE["SOLVER"], "BASE_LR": 0.00035},
+            "OUTPUT_DIR": "output/person_cnn_base"}
+CNN_CLIPREID = {**UNIPROMPT, "MODEL": {**UNIPROMPT["MODEL"], "NAME": "RN50"},
+                "DATASETS": {"NAMES": "market1501", "ROOT_DIR": "../data"},
+                "OUTPUT_DIR": "output/person_cnn_clipreid"}
+CNN_PROM = {**CNN_CLIPREID, "INPUT": VERI["INPUT"],
+            "DATASETS": {"NAMES": "veri", "ROOT_DIR": "../data"},
+            "OUTPUT_DIR": "output/veri_cnn_prom"}
+VIT_FILE_GRID, RN50_FILE_GRID = 14, 7  # the OpenAI files' grids (224 input)
+RN50_EVAL_RUNS = 3
+RN50_TRAIN_STEPS = 3  # timed, after a warm-up step
+RN50_BANK = 1024  # stage-1 bank images of the RN50 Uni-Prompt phase
+RN50_STAGE1_STEPS = 8  # per stage, on the bank's first 8 × 64 rows
+RN50_STAGE2A_STEPS = 8
+# BatchNorm running statistics after one fp32 train step, card vs CPU
+RN50_STATS_RTOL = 1e-3
+# where an RN50 step's device time goes, by operator
+RN50_OP_GROUPS = {"convolution": ["convolution"], "batch_norm": ["batch_norm"],
+                  "casts": ["aten::copy_"], "avg_pool": ["avg_pool"],
+                  "matmul": ["aten::mm", "aten::bmm", "aten::addmm"],
+                  "softmax": ["softmax"]}
+RN50_BF16_LOSS_RTOL = 1e-2  # bf16 vs fp32 train loss (0.2% on the CPU)
+
+
+def rate_line(what: str, res: dict) -> None:
+    """A rate of this run, marked with the card it was taken on."""
+    log(f"rate {json.dumps(dict(what=what, card=CARD_LINE, **res))}")
+
+
+def clip_loader_check(tmp: str) -> dict:
+    """A seeded full-width OpenAI-layout ViT-B/16 file (224 input: 14×14+1
+    positions, fp16 as OpenAI ships it) written as a plain state_dict and as a
+    ``torch.jit`` archive, each loaded with ``load_pretrained`` into
+    configs/person/vit_base.yml's model: both give the same weights, the
+    positions are resized to 16×8+1, and fp32 eval features on the card
+    agree with the same load on the CPU to 1e-3; bf16 on the card against
+    fp32 to cosine COSINE_FLOOR, its 12 forward launches on "tc"."""
+    paths = {}
+    t0 = time.perf_counter()
+    for jit in (False, True):
+        paths[jit] = make_clip_file(os.path.join(tmp, f"ViT-B-16{'-jit' * jit}.pt"), VIT_B16,
+                                    VIT_FILE_GRID, seed=21, jit=jit, half=True)
+    write_s = time.perf_counter() - t0
+    images = next(InMemoryBatcher(8, 8, 8, HW, seed=3).iter_sequential())["images"]
+    feats, weights = {}, {}
+    for name, dtype, device, jit in (("fp32_cpu", "float32", "cpu", False),
+                                     ("fp32_card", "float32", CARD, False),
+                                     ("fp32_card_jit", "float32", CARD, True),
+                                     ("bf16_card", "bfloat16", CARD, True)):
+        cfg = vit_base_cfg(dtype, device)
+        cfg.MODEL.PRETRAIN_PATH = paths[jit]
+        model = make_model(cfg, NUM_CLASSES, 6, 1)
+        seeded = model.image_encoder.proj.detach().clone()
+        t0 = time.perf_counter()
+        load_pretrained(model, cfg)
+        load_s = time.perf_counter() - t0
+        if torch.equal(model.image_encoder.proj.detach(), seeded) or \
+                tuple(model.image_encoder.positional_embedding.shape) != (129, model.in_planes):
+            raise AssertionError("the CLIP file did not replace the vision tower")
+        if name.startswith("fp32_card"):
+            weights[name] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        reset_counts()
+        feats[name] = make_eval_step(model, cfg)({"images": images}).float().cpu()
+        if name == "bf16_card":
+            expect_counts("CLIP-loaded bf16 eval batch", read_counts(),
+                          {"attention_fwd": len(model.image_encoder.transformer.resblocks)})
+        del model
+    same = all(torch.equal(v, weights["fp32_card_jit"][k]) for k, v in weights["fp32_card"].items())
+    err = (feats["fp32_card"] - feats["fp32_cpu"]).abs().max().item()
+    cos = F.cosine_similarity(feats["bf16_card"], feats["fp32_card"], dim=1).min().item()
+    res = dict(file="ViT-B-16, 14x14+1 positions, fp16, plain and torch.jit",
+               file_mb=os.path.getsize(paths[False]) / 1e6, write_seconds=write_s,
+               load_seconds=load_s, archive_equals_plain=same, fp32_card_vs_cpu_max_abs=err,
+               fp32_tol=1e-3, bf16_vs_fp32_min_cosine=cos, cosine_floor=COSINE_FLOOR,
+               finite=all(bool(torch.isfinite(f).all()) for f in feats.values()))
+    log(f"CLIP loader {json.dumps(res)}")
+    if not (same and err <= 1e-3 and cos >= COSINE_FLOOR and res["finite"]):
+        raise AssertionError(f"CLIP weights loaded on the card disagree: {res}")
+    return res
+
+
+def rn50_model(settings: dict, path: str, classes: int, uniprompt: bool = False):
+    """(cfg, model) of ``settings`` in bf16 on the card, with the RN50 file
+    at ``path`` grafted through ``MODEL.PRETRAIN_PATH``."""
+    dtype, device = "bfloat16", CARD
+    cfg = (uniprompt_cfg(dtype, device, settings) if uniprompt
+           else vit_base_cfg(dtype, device, settings))
+    cfg.MODEL.PRETRAIN_PATH = path
+    make = make_model_uniprompt if uniprompt else make_model
+    model = load_pretrained(make(cfg, num_class=classes, camera_num=6, view_num=1), cfg)
+    return cfg, model
+
+
+def run_rn50_base(path: str, profile: bool) -> dict:
+    """configs/person/cnn_base.yml at full width (RN50, 751 classes, 256×128,
+    bf16 over fp32, batch 64) from the seeded file: ``do_inference`` on 256
+    images (a warm-up run, then RN50_EVAL_RUNS timed), then a warm-up and
+    RN50_TRAIN_STEPS timed train steps on PK 16 × 4 batches (augmentation
+    on, Adam); no kernel of the port runs on this path."""
+    cfg, model = rn50_model(CNN_BASE, path, NUM_CLASSES)
+    loader = InMemoryBatcher(QUERY, GALLERY, BATCH, HW)
+    do_inference(cfg, model, loader, QUERY)  # warm-up
+    reset_counts()
+    seconds = [timed(lambda: do_inference(cfg, model, loader, QUERY))[1]
+               for _ in range(RN50_EVAL_RUNS)]
+    expect_counts("RN50 do_inference", read_counts(), {})
+    feats = make_eval_step(model, cfg)(next(loader.iter_sequential()))
+    dim = model.in_planes + model.in_planes_proj  # 2048 + 1024
+    if tuple(feats.shape) != (BATCH, dim) or not bool(torch.isfinite(feats.float()).all()):
+        raise AssertionError(f"bad RN50 eval features {tuple(feats.shape)}")
+    res = dict(eval_feats_per_s=(QUERY + GALLERY) / statistics.median(seconds),
+               eval_seconds=seconds, feat_dim=int(feats.shape[1]))
+
+    loss_fn, _ = make_loss(cfg, NUM_CLASSES)
+    optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    lr = make_scheduler(cfg.SOLVER, "multistep")(1)
+    images, pids = train_images(seed=13)
+    batches = pk_batches(images, pids, 1 + RN50_TRAIN_STEPS, seed=14)
+    state = initial_state(model, optimizer)
+    step = make_train_step(model, cfg, loss_fn, optimizer)
+    gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+    state, _ = step(state, batches[0], lr, gen)  # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds, losses = [], []
+    for batch in batches[1:]:
+        (state, metrics), secs = timed(lambda: step(state, batch, lr, gen))
+        seconds.append(secs)
+        losses.append(float(metrics["loss"]))
+    expect_counts("RN50 train steps", read_counts(), {})
+    tracked = int(model.image_encoder.bn1.num_batches_tracked)
+    if not all(np.isfinite(losses)) or tracked != 1 + RN50_TRAIN_STEPS:
+        raise AssertionError(f"RN50 train steps: losses {losses}, BN batches {tracked}")
+    res.update(train_img_per_s=BATCH / statistics.median(seconds), step_seconds=seconds,
+               losses=losses, bn_batches_tracked=tracked,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"RN50 baseline {json.dumps(res)}")
+    if profile:
+        res["train_profile"] = profile_idle(
+            lambda: [step(state, batches[1 + i], lr, gen) for i in range(RN50_TRAIN_STEPS)],
+            f"{RN50_TRAIN_STEPS} RN50 train steps (bf16, batch 64)", RN50_OP_GROUPS)
+        # the attention pool alone, forward and backward at the layer4 map's shape
+        pool = model.image_encoder.attnpool
+        x4 = torch.randn(BATCH, pool.embed_dim, HW[0] // 16, HW[1] // 16, device=CARD,
+                         dtype=torch.bfloat16, requires_grad=True)
+        res["attnpool_fwd_bwd_ms"] = cuda_ms(lambda: pool(x4).float().sum().backward(),
+                                             runs=10, reps=3)
+        step_busy_ms = res["train_profile"]["device_busy_ms"] / RN50_TRAIN_STEPS
+        res["attnpool_share_of_step_busy"] = res["attnpool_fwd_bwd_ms"] / step_busy_ms
+        log(f"RN50 attention pool forward + backward {res['attnpool_fwd_bwd_ms']:.4f} ms, "
+            f"{res['attnpool_share_of_step_busy']:.1%} of a step's busy device time "
+            f"({step_busy_ms:.2f} ms)")
+    return dict(res=res, model=model)
+
+
+def tower_op_inputs(tower, x) -> dict:
+    """{name: input} of every convolution, BatchNorm and the attention pool
+    of an RN50 tower, from one forward on running statistics."""
+    from mpreid_tpu_torch.models.resnet import AttentionPool2d, BatchNorm2d, Conv2d
+
+    inputs = {}
+    hooks = [mod.register_forward_pre_hook(
+        lambda _, args, name=name: inputs.setdefault(name, args[0].detach().cpu()))
+        for name, mod in tower.named_modules()
+        if isinstance(mod, (Conv2d, BatchNorm2d, AttentionPool2d))]
+    with torch.no_grad():
+        tower(x, None, train=False)
+    for hook in hooks:
+        hook.remove()
+    return inputs
+
+
+def tower_op_grads(tower, inputs: dict, device) -> dict:
+    """{(name, mode): [gradient of the input, then of each parameter]} of
+    each of ``tower``'s operators alone on ``inputs`` (the same on every
+    device), for a seeded normal cotangent on its output; BatchNorms once on
+    running statistics ("eval") and once on batch statistics ("train")."""
+    from mpreid_tpu_torch.models.resnet import BatchNorm2d
+
+    modules = dict(tower.named_modules())
+    gen = torch.Generator().manual_seed(18)
+    grads = {}
+    for name, x in inputs.items():
+        mod = modules[name]
+        for mode in (("eval", "train") if isinstance(mod, BatchNorm2d) else ("",)):
+            x_in = x.to(device).requires_grad_(True)
+            y = mod(x_in, mode == "train") if mode else mod(x_in)
+            cot = torch.randn(y.shape, generator=gen).to(device)
+            leaves = [x_in] + list(mod.parameters())
+            grads[name, mode] = [g.float().cpu() for g in
+                                 torch.autograd.grad((y.float() * cot).sum(), leaves)]
+    return grads
+
+
+def rn50_cross_checks(model) -> dict:
+    """configs/person/cnn_base.yml from the slice's weights, batch 2 × 4,
+    augmentation off, fp32 on the card against fp32 on the CPU:
+
+    * eval features to 1e-3;
+    * one train step (BatchNorms on batch statistics, the real loss): the
+      loss to LOSS_RTOL, the running statistics it leaves in every
+      BatchNorm to RN50_STATS_RTOL × max(1, max|cpu|), and the gradients of
+      the leaves after the tower (classifiers, BNNecks) to GRAD_RTOL
+      norm-relative, floored at 1e-3 of the largest, as the ViT's;
+    * every operator of the tower alone (55 convolutions, 55 BatchNorms on
+      running and on batch statistics, the attention pool) on its input
+      from the CPU's forward, with a seeded cotangent: the gradients of its
+      input and parameters to GRAD_RTOL, floored at 1e-3 of the operator's
+      largest.
+
+    The tower's leaves are not held on the train step's gradients: through
+    16 bottlenecks those of a random-weight RN50 are ill-conditioned (two
+    CPU runs that only sum in another order differ by percents on batch
+    statistics, and by a good part of GRAD_RTOL on running statistics,
+    where cuDNN's fp32 algorithms round differently again), so no
+    tolerance there could tell a wrong backward from rounding; one
+    operator alone is well-conditioned. bf16
+    against fp32 is held on the eval features (cosine) and on the train
+    loss (RN50_BF16_LOSS_RTOL), not on gradients, for the same reason."""
+    from mpreid_tpu_torch.engine.steps import augment_args
+    from mpreid_tpu_torch.ops.augment import train_augment
+
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    images, pids = train_images(seed=15)
+    batch = pk_batches(images, pids, 1, ids=CHECK_BATCH // K_INST, seed=16)[0]
+    out, op_inputs = {}, None
+    for name, dtype, device in (("fp32_cpu", "float32", "cpu"), ("fp32_cuda", "float32", CARD),
+                                ("bf16_cuda", "bfloat16", CARD)):
+        c = vit_base_cfg(dtype, device, CNN_BASE)
+        c.INPUT.PROB, c.INPUT.PADDING, c.INPUT.RE_PROB = 0.0, 0, 0.0
+        m = build_model(c, NUM_CLASSES, 6, 1)
+        m.load_state_dict(weights, strict=True)
+        m = m.to(device).eval()
+        feats = make_eval_step(m, c)({"images": batch["images"].cpu().numpy()}).float().cpu()
+        loss_fn, _ = make_loss(c, NUM_CLASSES)
+        opt = make_optimizer(c.SOLVER, m, stage="baseline")
+        x = train_augment(batch["images"].to(device), torch.Generator(device=device),
+                          **augment_args(c))
+        loss, _, grads, _ = loss_and_grads(m, c, loss_fn, opt, x, batch["pids"].to(device).long())
+        heads = {k: g.float().cpu() for k, g in grads.items() if not k.startswith("image_encoder")}
+        stats = {k: v.float().cpu().clone() for k, v in m.state_dict().items() if ".running_" in k}
+        op_grads = None
+        if dtype == "float32":
+            m.load_state_dict(weights, strict=True)  # the running statistics before the step
+            if op_inputs is None:
+                op_inputs = tower_op_inputs(m.image_encoder, x)
+            op_grads = tower_op_grads(m.image_encoder, op_inputs, device)
+        out[name] = (feats, float(loss), stats, heads, op_grads)
+        del m
+    (f_cpu, l_cpu, s_cpu, h_cpu, o_cpu), (f_gpu, l_gpu, s_gpu, h_gpu, o_gpu), \
+        (f16, l16, *_) = out["fp32_cpu"], out["fp32_cuda"], out["bf16_cuda"]
+    floor = 1e-3 * max(g.norm().item() for g in h_cpu.values())
+    head_err = {k: _rel_err(h_gpu[k], g, floor) for k, g in h_cpu.items()}
+    op_err = {}
+    for key, gs in o_cpu.items():
+        op_floor = 1e-3 * max(g.norm().item() for g in gs)
+        op_err[" ".join(key).strip()] = max(_rel_err(o_gpu[key][i], g, op_floor)
+                                            for i, g in enumerate(gs))
+    stats_err = {k: (s_gpu[k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+                 for k, v in s_cpu.items()}
+    res = dict(eval_fp32_card_vs_cpu_max_abs=(f_gpu - f_cpu).abs().max().item(), eval_tol=1e-3,
+               eval_bf16_vs_fp32_min_cosine=F.cosine_similarity(f16, f_gpu, dim=1).min().item(),
+               loss_fp32_card_vs_cpu_rel=abs(l_gpu - l_cpu) / abs(l_cpu), loss_rtol=LOSS_RTOL,
+               worst_running_stat_err=max(stats_err.values()),
+               worst_running_stat=max(stats_err, key=stats_err.get),
+               running_stat_rtol=RN50_STATS_RTOL, running_stat_buffers=len(stats_err),
+               worst_head_grad_rel=max(head_err.values()),
+               worst_head_leaf=max(head_err, key=head_err.get), head_leaves=len(head_err),
+               worst_op_grad_rel=max(op_err.values()), worst_op=max(op_err, key=op_err.get),
+               op_checks=len(op_err), grad_rtol=GRAD_RTOL, cosine_floor=COSINE_FLOOR,
+               loss_bf16_vs_fp32_rel=abs(l16 - l_gpu) / abs(l_gpu),
+               loss_bf16_rtol=RN50_BF16_LOSS_RTOL)
+    log(f"RN50 cross-checks {json.dumps(res)}")
+    if not (res["eval_fp32_card_vs_cpu_max_abs"] <= 1e-3
+            and res["loss_fp32_card_vs_cpu_rel"] <= LOSS_RTOL
+            and res["worst_running_stat_err"] <= RN50_STATS_RTOL
+            and res["worst_head_grad_rel"] <= GRAD_RTOL
+            and res["worst_op_grad_rel"] <= GRAD_RTOL
+            and res["eval_bf16_vs_fp32_min_cosine"] >= COSINE_FLOOR
+            and res["loss_bf16_vs_fp32_rel"] <= RN50_BF16_LOSS_RTOL):
+        raise AssertionError(f"RN50 on the card disagrees with the CPU or with fp32: {res}")
+    return res
+
+
+def run_rn50_uniprompt(path: str) -> dict:
+    """configs/person/cnn_clipreid.yml at full width (RN50 + the 12 × 512
+    text tower, 751 classes, bf16 over fp32) from the seeded file: the
+    stage-1 bank over RN50_BANK images, RN50_STAGE1_STEPS stage-1a and 1b
+    steps through ``do_train_stage1`` (12 + 12 attention launches a step,
+    on "tc"), the stage-2 text features of every class, RN50_STAGE2A_STEPS
+    timed stage-2a steps and ``do_inference``; each with its launches."""
+    cfg, model = rn50_model(CNN_CLIPREID, path, NUM_CLASSES, uniprompt=True)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    rng = np.random.default_rng(17)
+    images = rng.integers(0, 256, (RN50_BANK, *HW, 3), dtype=np.uint8)
+    pids = (np.arange(RN50_BANK) % 128).astype(np.int32)  # 8 images of 128 ids: PK batches
+    views = np.zeros(RN50_BANK, np.int32)
+    loader1 = ShuffledLoader(MemoryBatcher(images, pids, BATCH, views), int(cfg.SOLVER.SEED))
+    res, launches = {}, {}
+    build_image_bank(cfg, model, ShuffledLoader(
+        MemoryBatcher(images[:BATCH], pids[:BATCH], BATCH, views[:BATCH]), 0))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    bank, secs = timed(lambda: build_image_bank(cfg, model, loader1))
+    expect_counts("RN50 image bank", read_counts(), {})
+    if tuple(bank[0].shape) != (RN50_BANK, model.in_planes_proj) or \
+            not bool(torch.isfinite(bank[0].float()).all()):
+        raise AssertionError(f"bad RN50 image bank {tuple(bank[0].shape)}")
+    res["bank"] = dict(images=RN50_BANK, seconds=secs, feats_per_s=RN50_BANK / secs)
+
+    rows = RN50_STAGE1_STEPS * BATCH
+    sub = tuple(b[:rows] for b in bank)
+    for stage in ("1a", "1b"):
+        stage_cfg = cfg.SOLVER[f"STAGE{stage.upper()}"].clone()
+        stage_cfg.MAX_EPOCHS = 1
+        opt = make_optimizer(stage_cfg, model, stage=f"stage{stage}")
+        reset_counts()
+        (state, hist), secs = timed(lambda: do_train_stage1(
+            cfg, model, loader1, opt, make_scheduler(stage_cfg, "cosine"),
+            is_stage1b=stage == "1b", bank=sub, stage_cfg=stage_cfg))
+        launches[f"stage{stage}_steps"] = read_counts()
+        expect_counts(f"RN50 stage {stage}", launches[f"stage{stage}_steps"],
+                      {"attention_fwd": tdepth * RN50_STAGE1_STEPS,
+                       "attention_bwd": tdepth * RN50_STAGE1_STEPS})
+        if state.opt_state.step != RN50_STAGE1_STEPS or not np.isfinite(hist[0]["loss"]):
+            raise AssertionError(f"RN50 stage {stage}: {state.opt_state.step} steps, {hist}")
+        res[f"stage{stage}"] = dict(steps=RN50_STAGE1_STEPS, seconds=secs,
+                                    bank_rows_per_s=rows / secs, loss=hist[0]["loss"])
+
+    reset_counts()
+    text, secs = timed(lambda: precompute_text_features(cfg, model, NUM_CLASSES))
+    launches["text_features"] = read_counts()
+    n_text = -(-NUM_CLASSES // BATCH)
+    expect_counts("RN50 text features", launches["text_features"],
+                  {"attention_fwd": tdepth * n_text})
+    if tuple(text.shape) != (NUM_CLASSES, model.in_planes_proj) or \
+            not bool(torch.isfinite(text.float()).all()):
+        raise AssertionError(f"bad RN50 text features {tuple(text.shape)}")
+    res["text_features"] = dict(classes=NUM_CLASSES, seconds=secs)
+
+    loss_fn, _ = make_loss(cfg, NUM_CLASSES)
+    opt_2a = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    lr = make_scheduler(cfg.SOLVER.STAGE2, "multistep")(1)
+    batches = pk_batches(images, pids, 4, seed=18)
+    state = initial_state(model, opt_2a)
+    step = make_train_step(model, cfg, loss_fn, opt_2a, uniprompt=True, text_features=text)
+    gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+    reset_counts()
+    seconds, losses = [], []
+    for i in range(RN50_STAGE2A_STEPS):
+        (state, metrics), secs = timed(lambda: step(state, batches[i % len(batches)], lr, gen))
+        seconds.append(secs)
+        losses.append(float(metrics["loss"]))
+    launches["stage2a_steps"] = read_counts()
+    expect_counts("RN50 stage 2a steps", launches["stage2a_steps"], {})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite RN50 stage-2a loss: {losses}")
+    res["stage2a"] = dict(steps=RN50_STAGE2A_STEPS, losses=losses, step_seconds=seconds,
+                          train_img_per_s=BATCH / statistics.median(seconds[1:]))
+
+    reset_counts()
+    (r1, r5), secs = timed(lambda: do_inference(cfg, model, InMemoryBatcher(
+        QUERY, GALLERY, BATCH, HW), QUERY))
+    launches["inference"] = read_counts()
+    expect_counts("RN50 Uni-Prompt do_inference", launches["inference"], {})
+    res["inference"] = dict(images=QUERY + GALLERY, seconds=secs, rank1=float(r1),
+                            rank5=float(r5))
+    log(f"RN50 Uni-Prompt {json.dumps(res)}")
+    return dict(res=res, launches=launches)
+
+
+def run_rn50_vehicle(path: str) -> dict:
+    """One stage-2a step of configs/veri/cnn_prom.yml at full width (RN50 at
+    256×256: the attention pool at L 257 from the file's 7×7+1 grid; 576
+    classes) after the stage-2 text features of every class."""
+    cfg, model = rn50_model(CNN_PROM, path, VEHICLE_CLASSES, uniprompt=True)
+    pool_len = model.image_encoder.attnpool.positional_embedding.shape[0]
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    reset_counts()
+    text = precompute_text_features(cfg, model, VEHICLE_CLASSES)
+    loss_fn, _ = make_loss(cfg, VEHICLE_CLASSES)
+    opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    images, pids = train_images(seed=19, hw=VEHICLE_HW)
+    batch = pk_batches(images, pids, 1, seed=20)[0]
+    step = make_train_step(model, cfg, loss_fn, opt, uniprompt=True, text_features=text)
+    gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+    (_, metrics), secs = timed(lambda: step(initial_state(model, opt), batch, 1e-5, gen))
+    counts = read_counts()
+    expect_counts("RN50 vehicle step", counts,
+                  {"attention_fwd": tdepth * -(-VEHICLE_CLASSES // BATCH)})
+    res = dict(config="configs/veri/cnn_prom.yml", hw=list(VEHICLE_HW), pool_len=pool_len,
+               loss=float(metrics["loss"]), seconds=secs, launches=counts)
+    log(f"RN50 vehicle step {json.dumps(res)}")
+    if pool_len != VEHICLE["l"] or not np.isfinite(res["loss"]):
+        raise AssertionError(f"RN50 vehicle step: {res}")
+    return res
+
+
 def neighbour_flips(feats: torch.Tensor, k: int) -> int:
     """Rows whose k-NN sets (re-ranking's first step) differ between the
     card's and the CPU's fp32 distances of the same features."""
@@ -1649,7 +2102,7 @@ def main() -> None:
     log("kernels against their plain versions on the card:")
     rows, bwd_rows = [], []
     cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
-             (VEHICLE, torch.bfloat16)]
+             (VEHICLE, torch.bfloat16), (SYSU, torch.float32), (VEHICLE, torch.float32)]
     for case, dtype in cases:
         for layout in attn.LAYOUTS:
             timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
@@ -1703,6 +2156,28 @@ def main() -> None:
     uniprompt_cross_checks(uni.pop("model"), uni.pop("text"))
     log(f"  Uni-Prompt phase seconds {time.perf_counter() - t0:.1f}")
     uni_res = uni["res"]
+    del uni
+    torch.cuda.empty_cache()
+
+    log("CLIP weights from a local file, and the RN50 backbone, full width:")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_loader_check(tmp)
+        rn50_path = make_clip_file(os.path.join(tmp, "RN50.pt"), RN50, RN50_FILE_GRID, seed=22,
+                                   jit=True, half=True)
+        rn50 = run_rn50_base(rn50_path, args.profile)
+        rn50_cross_checks(rn50.pop("model"))
+        rn50_uni = run_rn50_uniprompt(rn50_path)
+        run_rn50_vehicle(rn50_path)
+    rn50_res = rn50["res"]
+    rate_line("RN50 eval feats/s (configs/person/cnn_base.yml, do_inference, 256 images)",
+              dict(feats_per_s=rn50_res["eval_feats_per_s"]))
+    rate_line("RN50 train img/s (configs/person/cnn_base.yml, batch 64, median step)",
+              dict(img_per_s=rn50_res["train_img_per_s"]))
+    rate_line("RN50 stage-1 rows/s (configs/person/cnn_clipreid.yml, bank and stage 1b)",
+              dict(bank_feats_per_s=rn50_uni["res"]["bank"]["feats_per_s"],
+                   stage1b_rows_per_s=rn50_uni["res"]["stage1b"]["bank_rows_per_s"]))
+    log(f"  CLIP loader and RN50 phase seconds {time.perf_counter() - t0:.1f}")
 
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -1726,6 +2201,7 @@ def main() -> None:
             "launches_eval": slice_res["launches"] if direction == "fwd" else 0,
             "launches_uniprompt": {k: v[name] for k, v in uni_launches.items()},
             "launches_vehicle": vehicle_res["launches"][name],
+            "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             **timing(pick(found, "vision")),
             "shape": "B64 L129 12x64 bf16 packed, no mask",
@@ -1735,7 +2211,9 @@ def main() -> None:
             "simt_fp32": {"source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
                           "max_abs_err": max(r["max_abs_err"] for r in found
                                              if r["dtype"] == "float32"),
-                          **timing(pick(found, "vision", "float32"))},
+                          **timing(pick(found, "vision", "float32")),
+                          "sysu": timing(pick(found, "sysu", "float32")),
+                          "vehicle": timing(pick(found, "vehicle", "float32"))},
         }
 
     train_counts = train_res["train"]["launches"]

@@ -1,8 +1,15 @@
-"""Synthetic Market-1501 and MMMP fixtures for tests and smoke runs.
+"""Synthetic Market-1501 and MMMP fixtures, and seeded CLIP files, for tests
+and smoke runs.
 
 ref mpreid_tpu/data/synthetic.py::make_market1501, ::make_mmmp. The same
 files, byte for byte, from the same seeds, so both packages read one tree.
 Pillow is imported only when a file is written.
+
+``make_clip_file`` writes what an OpenAI CLIP ``.pt`` holds (the OpenAI key
+layout, square position grids, ``logit_scale`` and the archive's meta
+entries) with seeded random weights, as a plain state_dict or as a
+TorchScript archive: the real files are not in the repository and nothing
+is downloaded.
 """
 
 from __future__ import annotations
@@ -78,3 +85,63 @@ def make_mmmp(root: str, exp_settings=("exp_cctv_ir_cctv_rgb", "exp_rgb"),
             with open(osp.join(exp_dir, fname), "w") as f:
                 f.write(",".join(str(i) for i in ids) + "\n")
     return root
+
+
+def _scripted_state(sd):
+    """A TorchScript module whose ``state_dict()`` is ``sd`` (dotted keys
+    become nested submodules holding buffers)."""
+    import torch
+
+    root = torch.nn.Module()
+    for key, value in sd.items():
+        *path, leaf = key.split(".")
+        node = root
+        for part in path:
+            if not hasattr(node, part):
+                node.add_module(part, torch.nn.Module())
+            node = getattr(node, part)
+        node.register_buffer(leaf, value)
+    return torch.jit.script(root)
+
+
+def make_clip_file(path: str, clip_config, grid: int, seed: int = 0, jit: bool = False,
+                   half: bool = False) -> str:
+    """Write a seeded OpenAI-layout CLIP file for ``clip_config``'s towers
+    with a ``grid`` × ``grid`` position grid (ViT-B/16 at 224: 14; RN50's
+    attention pool: 7) → ``path``. Weights follow the port's init from
+    ``seed``; RN50 BatchNorms get random running statistics (variance in
+    [0.5, 1.5]) and modest scales (in [0.5, 1]), so eval mode depends on
+    them and activations stay finite through the full-width tower. ``half``
+    stores the floating tensors in fp16, as OpenAI's archives do."""
+    import dataclasses
+
+    import torch
+
+    from mpreid_tpu_torch.models.clip_model import make_text_tower, make_visual_tower
+
+    cfg = dataclasses.replace(clip_config, h_resolution=grid, w_resolution=grid)
+    gen = torch.Generator().manual_seed(seed)
+    visual, text = make_visual_tower(cfg), make_text_tower(cfg)
+    visual.init_(gen)
+    text.init_(gen)
+    sd = {f"visual.{k}": v for k, v in visual.state_dict().items()}
+    sd.update(text.state_dict())  # the text keys sit at the root
+    sd = {k: v.detach().clone() for k, v in sd.items()}
+    sd.update(logit_scale=torch.tensor(float(np.log(1 / 0.07))),
+              input_resolution=torch.tensor(grid * (clip_config.vision_patch_size or 32)),
+              context_length=torch.tensor(cfg.context_length),
+              vocab_size=torch.tensor(cfg.vocab_size))
+    draws = {"weight": (torch.Tensor.uniform_, 0.5, 1.0), "bias": (torch.Tensor.normal_, 0.0, 0.1),
+             "running_mean": (torch.Tensor.normal_, 0.0, 0.1),
+             "running_var": (torch.Tensor.uniform_, 0.5, 1.5)}
+    with torch.no_grad():
+        for bn in sorted(k[:-len(".running_var")] for k in sd if k.endswith(".running_var")):
+            for name, (draw, a, b) in draws.items():
+                draw(sd[f"{bn}.{name}"], a, b, generator=gen)
+    if half:
+        sd = {k: v.half() if v.is_floating_point() else v for k, v in sd.items()}
+    if jit:
+        torch.jit.save(_scripted_state(sd), path)
+    else:
+        torch.save(sd, path)
+    return path

@@ -9,10 +9,12 @@ points, samples/s with the reference's definition (batch size / time per
 batch), checkpoints and validation at their periods. ``run_validation``
 extracts features batch by batch, then runs the evaluator. The JAX
 package's eval-step cache keyed on ``id(model)`` is not carried over:
-building the step is cheap in eager PyTorch. Not ported here:
-gallery-sharded eval (``TPU.EVAL_SHARDED``), the mesh, ZeRO and TP branches
-of ``do_train`` (the parallel slice), the whole-epoch device-resident
-dataset (``TPU.DEVICE_DATASET``) and ``TPU.PROFILE_DIR`` tracing.
+building the step is cheap in eager PyTorch. ``TPU.EVAL_SHARDED``,
+``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` act in the JAX package only over
+a mesh of more than one device, so on one card they do nothing here either
+(``check_tpu_keys`` logs so). Not ported: the mesh itself (the parallel
+slice), the whole-epoch device-resident dataset (``TPU.DEVICE_DATASET``) and
+``TPU.PROFILE_DIR`` tracing, which raise.
 """
 
 from __future__ import annotations
@@ -33,14 +35,29 @@ from .evaluator import R1mAPEvaluator
 from .steps import make_eval_step, make_train_step
 from .train_state import initial_state
 
+# TPU keys the JAX package acts on only over a mesh of more than one device
+# (ref processor.py:69, :187; uniprompt.py:192): no-ops on one card
+SINGLE_DEVICE_NOOPS = ("EVAL_SHARDED", "ZERO_OPT_STATE", "TP_TOWERS")
+# the keys a training loop reads: the no-ops above and two that are not ported
+TRAIN_TPU_KEYS = ("DEVICE_DATASET", "TP_TOWERS", "ZERO_OPT_STATE", "PROFILE_DIR")
+
+
+def check_tpu_keys(cfg, keys, logger) -> None:
+    """Log each set key of ``SINGLE_DEVICE_NOOPS`` as doing nothing on one
+    device; raise for any other set key (not ported yet)."""
+    for key in keys:
+        if not cfg.TPU[key]:
+            continue
+        if key not in SINGLE_DEVICE_NOOPS:
+            raise NotImplementedError(f"TPU.{key} is not ported yet (ROADMAP.md, A.4)")
+        logger.info(f"TPU.{key} does nothing on one device (the JAX package acts on it "
+                    "only over a mesh of more than one)")
+
 
 def run_validation(cfg, model, val_loader, num_query, logger=None,
                    epoch: Optional[int] = None):
     """Shared eval loop (ref processor.py:117-158 / 187-208) → (cmc, mAP)."""
-    if cfg.TPU.EVAL_SHARDED:
-        raise NotImplementedError(
-            "TPU.EVAL_SHARDED is not ported yet (ROADMAP.md, A11 parallel modes)"
-        )
+    check_tpu_keys(cfg, ("EVAL_SHARDED",), logger or logging.getLogger("mpreid_tpu_torch"))
     evaluator = R1mAPEvaluator(
         num_query,
         max_rank=50,
@@ -144,10 +161,8 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
     ``train_loader.epoch(e)`` yields numpy batches."""
     solver = cfg.SOLVER
     epochs = max_epochs or solver.MAX_EPOCHS
-    for key in ("DEVICE_DATASET", "TP_TOWERS", "ZERO_OPT_STATE", "PROFILE_DIR"):
-        if cfg.TPU[key]:
-            raise NotImplementedError(f"TPU.{key} is not ported yet (ROADMAP.md)")
     logger = logging.getLogger("mpreid_tpu_torch.train")
+    check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
     logger.info("start training")
 
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE

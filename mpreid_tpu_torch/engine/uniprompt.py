@@ -18,7 +18,9 @@ The four freeze regimes are four optimizers over one model
 (``solver.optim.stage_trainable``). Checkpoints are full-state ``.pth``
 files: ``{NAME}_stage{1a,1b}_{epoch}.pth`` under ``OUTPUT_DIR`` and
 ``{NAME}_{epoch}.pth`` under ``OUTPUT_DIR/EXP_SETTING``. Not ported: the
-mesh branch of stage 2 (ROADMAP A11) and ``TPU.DEVICE_DATASET``.
+mesh branch of stage 2 (ROADMAP A11, so ``TPU.ZERO_OPT_STATE`` and
+``TPU.TP_TOWERS`` do nothing on one card), ``TPU.DEVICE_DATASET`` and
+``TPU.PROFILE_DIR``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 from mpreid_tpu_torch.utils.checkpoint import save_checkpoint
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
-from .processor import do_inference, train_epochs
+from .processor import TRAIN_TPU_KEYS, check_tpu_keys, do_inference, train_epochs
 from .steps import make_image_bank_step, make_stage1_step, make_text_step, make_train_step
 from .train_state import initial_state
 
@@ -138,8 +140,7 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
                     checkpoint_period: Optional[int] = None, eval_period: Optional[int] = None):
     """Stage-2 fine-tune (ref processor_uniprompt_stage2.py:14-223) →
     (state, history)."""
-    if cfg.TPU.DEVICE_DATASET:
-        raise NotImplementedError("TPU.DEVICE_DATASET is not ported yet (ROADMAP.md, Open items)")
+    check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
     s2 = cfg.SOLVER.STAGE2
     logger.info("start training")
     all_start = time.monotonic()

@@ -1,7 +1,15 @@
-"""CLIP architecture configuration and the tower factories.
+"""CLIP architecture configuration, the tower factories and the CLIP file reader.
 
 ref mpreid_tpu/models/clip_model.py::CLIPConfig, ::VIT_B16, ::RN50,
-::make_visual_tower, ::make_text_tower.
+::make_visual_tower, ::make_text_tower, ::config_from_state_dict,
+::load_torch_clip.
+
+``load_torch_clip`` reads an OpenAI CLIP ``.pt`` (a TorchScript archive, or
+else a plain state_dict) from a local path; nothing is downloaded. The port
+stores the torch layout, so OpenAI's keys carry over one to one
+(``visual.*`` → ``image_encoder.*``, the text keys → ``text_encoder.*``);
+only the positional embeddings are resized to the model's grid (the ViT's,
+and the RN50 attention pool's).
 
 ``vision_layout``/``text_layout`` name how the JAX package STORES its
 in_proj columns ('' resolves to its default, "hm_native", which stores them
@@ -13,15 +21,16 @@ the fields matter only when a JAX variable tree is carried across
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from mpreid_tpu_torch.ops.attention import head_major_perm_inverse
 
+from .resnet import ModifiedResNet
 from .text import TextTransformer
-from .vit import VisionTransformer
+from .vit import VisionTransformer, resize_pos_embed
 
 # the JAX package's default storage layout for both towers
 # (ref mpreid_tpu/ops/attention.py::MODEL_LAYOUT, ::TEXT_LAYOUT)
@@ -95,9 +104,17 @@ RN50 = CLIPConfig(
 )
 
 
-def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32) -> VisionTransformer:
+def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32
+                      ) -> Union[VisionTransformer, ModifiedResNet]:
     if not cfg.is_vit:
-        raise NotImplementedError("the RN50 backbone is not ported yet (ROADMAP.md, A8)")
+        return ModifiedResNet(
+            layers=tuple(cfg.vision_layers),
+            output_dim=cfg.embed_dim,
+            heads=cfg.vision_width * 32 // 64,
+            input_resolution=cfg.h_resolution * cfg.w_resolution,
+            width=cfg.vision_width,
+            dtype=dtype,
+        )
     if cfg.use_moe:
         raise NotImplementedError("the MoE vision tower is not ported yet (ROADMAP.md, A7)")
     return VisionTransformer(
@@ -127,3 +144,82 @@ def make_text_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32) -> Text
         lora_rank=cfg.lora_rank,
         lora_alpha=cfg.lora_alpha,
     )
+
+
+# ---------------------------------------------------------------------------
+# OpenAI CLIP files
+# ---------------------------------------------------------------------------
+
+# keys of an OpenAI archive that are not weights
+_META_KEYS = ("input_resolution", "context_length", "vocab_size")
+# the text tower's keys at the root of an OpenAI state_dict
+_TEXT_ROOTS = ("token_embedding", "positional_embedding", "transformer", "ln_final",
+               "text_projection")
+
+
+def config_from_state_dict(sd: Dict[str, Any], h_resolution: int, w_resolution: int,
+                           vision_stride_size: int) -> CLIPConfig:
+    """The architecture of an OpenAI CLIP state_dict, from its shapes (ref
+    ``config_from_state_dict``; the reference's model.py:678-702)."""
+    vit = "visual.proj" in sd
+    if vit:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len([k for k in sd if k.startswith("visual.")
+                             and k.endswith(".attn.in_proj_weight")])
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+    else:
+        vision_layers = tuple(len({k.split(".")[2] for k in sd
+                                   if k.startswith(f"visual.layer{b}")}) for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        vision_patch_size = None
+    transformer_width = sd["ln_final.weight"].shape[0]
+    return CLIPConfig(
+        embed_dim=sd["text_projection"].shape[1],
+        vision_layers=vision_layers,
+        vision_width=vision_width,
+        vision_patch_size=vision_patch_size,
+        vision_stride_size=vision_stride_size,
+        h_resolution=h_resolution,
+        w_resolution=w_resolution,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=transformer_width,
+        transformer_heads=transformer_width // 64,
+        transformer_layers=len({k.split(".")[2] for k in sd
+                                if k.startswith("transformer.resblocks")}),
+    )
+
+
+def read_clip_file(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of an OpenAI CLIP file on the CPU: a TorchScript
+    archive's, or else (``torch.jit.load`` raises ``RuntimeError`` on a plain
+    file) the pickled state_dict; the archive's meta entries dropped and
+    every floating tensor cast to fp32 (OpenAI's archives hold fp16)."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").eval().state_dict()
+    except RuntimeError:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in sd.items() if k not in _META_KEYS}
+
+
+def _port_key(key: str) -> Optional[str]:
+    if key.startswith("visual."):
+        return "image_encoder." + key[len("visual."):]
+    if key.split(".")[0] in _TEXT_ROOTS:
+        return "text_encoder." + key
+    return None  # logit_scale: the models have none (the JAX graft drops it too)
+
+
+def load_torch_clip(path: str, h_resolution: int, w_resolution: int, vision_stride_size: int
+                    ) -> Tuple[CLIPConfig, Dict[str, torch.Tensor]]:
+    """An OpenAI CLIP ``.pt`` from disk → (its config at the given grid, the
+    towers' weights under the port's names, fp32, positional embeddings
+    resized to ``h_resolution`` × ``w_resolution``). ref ``load_torch_clip``
+    (the reference's make_model.py:137-150 less the download)."""
+    sd = read_clip_file(path)
+    cfg = config_from_state_dict(sd, h_resolution, w_resolution, vision_stride_size)
+    grid = ("visual.positional_embedding" if cfg.is_vit
+            else "visual.attnpool.positional_embedding")
+    sd[grid] = resize_pos_embed(sd[grid], h_resolution, w_resolution)
+    return cfg, {_port_key(k): v for k, v in sd.items() if _port_key(k) is not None}

@@ -6,9 +6,12 @@ ref mpreid_tpu/models/convert.py::export_reid_state_dict, ::load_param.
 tree of a baseline ReID or a Uni-Prompt model (as numpy arrays) into the
 port's state_dict, which is the reference torch layout: it undoes the
 head-major column order of ``hm_native`` storage (per tower), transposes
-Dense kernels to (out, in), reorders the patchify kernel (p, p, 3, w) →
-(w, 3, p, p), maps LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var``
-→ ``running_*``, and renames the Uni-Prompt subtrees (``text`` →
+Dense kernels to (out, in), reorders conv kernels (the patchify kernel and
+the RN50 tower's) from flax's (kh, kw, in, out) to (out, in, kh, kw), maps
+LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var`` → ``running_*``
+(the RN50 BatchNorms' from ``batch_stats``), renames the RN50 blocks
+(``layer1_0`` → ``layer1.0``, ``downsample_conv``/``downsample_bn`` →
+``downsample.0``/``.1``), and renames the Uni-Prompt subtrees (``text`` →
 ``text_encoder``, ``fusion_fc*`` → ``image_fusion_net.fc*``,
 ``ve_linear*`` → ``prompt_learner.visual_enhanced_net.linear*``). LoRA
 adapters are folded into in_proj (the reference layout, which has no
@@ -101,6 +104,48 @@ def _text(tp, clip_config: CLIPConfig, out: Dict[str, torch.Tensor], keep_lora: 
     out[f"{pre}.text_projection"] = _t(tp["text_projection"])
 
 
+def _conv(sub, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(sub["kernel"], np.float32), (3, 2, 0, 1)))
+
+
+def _vit(vp, clip_config: CLIPConfig, out: Dict[str, torch.Tensor], keep_lora: bool) -> None:
+    pre = "image_encoder"
+    _conv(vp["conv1"], f"{pre}.conv1", out)
+    out[f"{pre}.class_embedding"] = _t(vp["class_embedding"])
+    out[f"{pre}.positional_embedding"] = _t(vp["positional_embedding"])
+    _norm(vp["ln_pre"], f"{pre}.ln_pre", out)
+    inv_perm = clip_config.jax_perm_inverse("vision")
+    for i in range(clip_config.vision_layers):
+        _block(vp[f"resblocks_{i}"], f"{pre}.transformer.resblocks.{i}", out,
+               clip_config.lora_alpha, inv_perm, keep_lora)
+    _norm(vp["ln_post"], f"{pre}.ln_post", out)
+    out[f"{pre}.proj"] = _t(vp["proj"])
+
+
+def _resnet(vp, vs, clip_config: CLIPConfig, out: Dict[str, torch.Tensor]) -> None:
+    """The JAX package's ModifiedResNet params and batch_stats → the
+    reference (OpenAI) RN50 keys under ``image_encoder``."""
+    pre = "image_encoder"
+    for i in (1, 2, 3):
+        _conv(vp[f"conv{i}"], f"{pre}.conv{i}", out)
+        _bn(vp[f"bn{i}"]["bn"], vs[f"bn{i}"]["bn"], f"{pre}.bn{i}", out)
+    for s, blocks in enumerate(clip_config.vision_layers, start=1):
+        for b in range(blocks):
+            name, dst = f"layer{s}_{b}", f"{pre}.layer{s}.{b}"
+            bp, bs = vp[name], vs[name]
+            for c in (1, 2, 3):
+                _conv(bp[f"conv{c}"], f"{dst}.conv{c}", out)
+                _bn(bp[f"bn{c}"]["bn"], bs[f"bn{c}"]["bn"], f"{dst}.bn{c}", out)
+            if "downsample_conv" in bp:
+                _conv(bp["downsample_conv"], f"{dst}.downsample.0", out)
+                _bn(bp["downsample_bn"]["bn"], bs["downsample_bn"]["bn"],
+                    f"{dst}.downsample.1", out)
+    ap = vp["attnpool"]
+    out[f"{pre}.attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(ap[proj], f"{pre}.attnpool.{proj}", out)
+
+
 def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig,
                        keep_lora: bool = False) -> Dict[str, torch.Tensor]:
     """The JAX package's baseline ReID or Uni-Prompt variable tree → the
@@ -111,23 +156,13 @@ def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig,
     unknown = sorted(set(params) - set(_REID_KEYS) - set(_UNIPROMPT_KEYS))
     if unknown:
         raise ValueError(f"not a baseline or Uni-Prompt variable tree; unported keys {unknown}")
-    if not clip_config.is_vit or clip_config.use_moe:
-        raise NotImplementedError("only the dense ViT tower is ported (ROADMAP.md, A7/A8)")
+    if clip_config.use_moe:
+        raise NotImplementedError("the MoE vision tower is not ported yet (ROADMAP.md, A7)")
     out: Dict[str, torch.Tensor] = {}
-    vp = params["visual"]
-    pre = "image_encoder"
-    out[f"{pre}.conv1.weight"] = _t(
-        np.transpose(np.asarray(vp["conv1"]["kernel"], np.float32), (3, 2, 0, 1))
-    )
-    out[f"{pre}.class_embedding"] = _t(vp["class_embedding"])
-    out[f"{pre}.positional_embedding"] = _t(vp["positional_embedding"])
-    _norm(vp["ln_pre"], f"{pre}.ln_pre", out)
-    inv_perm = clip_config.jax_perm_inverse("vision")
-    for i in range(clip_config.vision_layers):
-        _block(vp[f"resblocks_{i}"], f"{pre}.transformer.resblocks.{i}", out,
-               clip_config.lora_alpha, inv_perm, keep_lora)
-    _norm(vp["ln_post"], f"{pre}.ln_post", out)
-    out[f"{pre}.proj"] = _t(vp["proj"])
+    if clip_config.is_vit:
+        _vit(params["visual"], clip_config, out, keep_lora)
+    else:
+        _resnet(params["visual"], stats["visual"], clip_config, out)
     for name in ("bottleneck", "bottleneck_proj"):
         _bn(params[name], stats[name], name, out)
     for name in ("classifier", "classifier_proj"):

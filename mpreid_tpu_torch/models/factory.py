@@ -1,25 +1,28 @@
-"""Model factory — the ``make_model`` and ``make_model_uniprompt`` entry points.
+"""Model factory — the ``make_model`` and ``make_model_uniprompt`` entry points,
+and OpenAI CLIP weights grafted into a model.
 
 ref mpreid_tpu/models/factory.py::clip_config_from_cfg, ::make_model,
-::make_model_uniprompt, ::init_variables.
+::make_model_uniprompt, ::init_variables, ::graft_clip_variables,
+::load_pretrained.
 
 The (h, w) token grid follows ref ``make_model.py:60-62``:
 ``h_res = (SIZE_TRAIN[0] - 16) // STRIDE[0] + 1`` (and likewise for w).
 Weights start random from a ``torch.Generator`` seeded with
-``SOLVER.SEED``; ``models/convert.py::load_param`` overwrites them from a
-reference ``.pth``.
+``SOLVER.SEED``; ``load_pretrained`` replaces the towers with OpenAI CLIP
+weights from ``MODEL.PRETRAIN_PATH``, and ``models/convert.py::load_param``
+overwrites everything from a reference ``.pth``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from mpreid_tpu_torch.utils.device import device_from_cfg
 
-from .clip_model import CLIPConfig, RN50, VIT_B16
+from .clip_model import RN50, VIT_B16, CLIPConfig, load_torch_clip
 from .reid import ReIDModel
 from .uniprompt import UniPromptReID
 
@@ -112,3 +115,67 @@ def make_model_uniprompt(cfg, num_class: int, camera_num: int, view_num: int,
     (the JAX package's init distributions), in eval mode on ``device``."""
     return _initialised(cfg, build_model_uniprompt(cfg, num_class, camera_num, view_num),
                         device)
+
+
+def graft_clip_weights(model: torch.nn.Module, clip_sd: Dict[str, torch.Tensor]
+                       ) -> torch.nn.Module:
+    """Replace the CLIP towers of ``model`` with ``clip_sd`` (``load_torch_clip``'s
+    second value), in place (ref ``graft_clip_variables``): the visual tower,
+    BatchNorm running statistics included, and the text tower where the model
+    has one. The BNNecks, classifiers, prompt learner and the rest keep their
+    values. Every key of a replaced tower must be in the file with its shape,
+    apart from BatchNorm's batch counters."""
+    own = model.state_dict()
+    towers = ["image_encoder"] + (["text_encoder"] if hasattr(model, "text_encoder") else [])
+    for tower in towers:
+        want = {k for k in own if k.split(".")[0] == tower}
+        have = {k for k in clip_sd if k.split(".")[0] == tower}
+        missing = sorted(k for k in want - have if not k.endswith("num_batches_tracked"))
+        unexpected = sorted(have - want)
+        if missing or unexpected:
+            raise ValueError(f"the CLIP file does not fit the model's {tower}: missing "
+                             f"{missing[:5]}, unexpected {unexpected[:5]}")
+        with torch.no_grad():
+            for key in sorted(want & have):
+                if own[key].shape != clip_sd[key].shape:
+                    raise ValueError(f"{key}: the CLIP file holds {tuple(clip_sd[key].shape)}, "
+                                     f"the model {tuple(own[key].shape)}")
+                own[key].copy_(clip_sd[key])
+    return model
+
+
+def pretrain_path(cfg) -> str:
+    """``MODEL.PRETRAIN_PATH``, or '' when no CLIP weights are asked for.
+    ``MODEL.PRETRAIN_AUTO`` alone raises: its only purpose is a download."""
+    if cfg.MODEL.PRETRAIN_AUTO and not cfg.MODEL.PRETRAIN_PATH:
+        raise NotImplementedError(
+            "MODEL.PRETRAIN_AUTO downloads the OpenAI CLIP file, which the port does not do: "
+            "give the local file as MODEL.PRETRAIN_PATH")
+    return cfg.MODEL.PRETRAIN_PATH
+
+
+# the fields of a CLIPConfig that a CLIP file fixes: the visual tower's, and
+# the text tower's where the model has one
+_VISION_ARCH = ("embed_dim", "vision_layers", "vision_width", "vision_patch_size")
+_TEXT_ARCH = ("context_length", "vocab_size", "transformer_width", "transformer_heads",
+              "transformer_layers")
+
+
+def load_pretrained(model: torch.nn.Module, cfg) -> torch.nn.Module:
+    """OpenAI CLIP weights from ``MODEL.PRETRAIN_PATH`` grafted into ``model``
+    in place, at the model's token grid (ref ``load_pretrained`` for an
+    explicit path; nothing is downloaded). A file of another architecture
+    than the model's is refused, naming the fields that differ."""
+    path = pretrain_path(cfg)
+    if not path:
+        raise ValueError("no CLIP file: set MODEL.PRETRAIN_PATH")
+    own = model.clip_config
+    clip, clip_sd = load_torch_clip(path, own.h_resolution, own.w_resolution,
+                                    own.vision_stride_size)
+    fields = _VISION_ARCH + (_TEXT_ARCH if hasattr(model, "text_encoder") else ())
+    differ = {f: (getattr(clip, f), getattr(own, f)) for f in fields
+              if getattr(clip, f) != getattr(own, f)}
+    if differ:
+        raise ValueError(f"{path} holds another CLIP than the model's {cfg.MODEL.NAME} "
+                         f"(field: (file, model)): {differ}")
+    return graft_clip_weights(model, clip_sd)

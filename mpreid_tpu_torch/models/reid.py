@@ -3,15 +3,20 @@
 ref mpreid_tpu/models/reid.py::ReIDModel (``_sie``, ``backbone_features``,
 ``forward_train``, ``forward_eval``).
 
-* feature dims: ViT-B/16 → (768 tokens, 512 proj),
+* feature dims: ViT-B/16 → (768 tokens, 512 proj); RN50 → (2048, 1024),
+  the spatial means of the layer3/layer4 maps and the attention pool's
+  mean token,
 * SIE camera/view embedding added to the class token, scaled by ``sie_coe``,
 * two BNNecks and two bias-free classifiers,
 * train forward → ``{"scores": [cls_score, cls_score_proj],
   "feats": [feat_last, feat, feat_proj]}``: BNNecks in train mode (batch
   statistics, running statistics updated), fp32 logits on the BN features,
   ``feat_last`` the class token after L-1 blocks (before ``ln_post``),
-* eval forward → the 1280-d concat of post-BN (``neck_feat='after'``) or
-  pre-BN (``'before'``) features, in the compute dtype.
+* eval forward → the 1280-d (ViT-B/16) or 3072-d (RN50) concat of
+  post-BN (``neck_feat='after'``) or pre-BN (``'before'``) features, in the
+  compute dtype. ``train=True`` reaches the RN50 tower's BatchNorms in the
+  train forward only; eval and the Uni-Prompt image features use their
+  running statistics.
 
 Parameter names follow the reference state_dict (``image_encoder.*``,
 ``bottleneck{,_proj}.*``, ``classifier{,_proj}.weight``, ``cv_embed``).
@@ -26,6 +31,7 @@ from torch import nn
 
 from .clip_model import CLIPConfig, make_visual_tower
 from .layers import BNNeck, classifier_scores, make_classifier
+from .resnet import spatial_mean
 
 
 class ReIDModel(nn.Module):
@@ -42,7 +48,7 @@ class ReIDModel(nn.Module):
         self.sie_coe = sie_coe
         self.neck_feat = neck_feat
         self.dtype = dtype
-        self.in_planes = clip_config.vision_width
+        self.in_planes = clip_config.vision_width * (1 if clip_config.is_vit else 32)
         self.in_planes_proj = clip_config.embed_dim
         self.image_encoder = make_visual_tower(clip_config, dtype)
         self.bottleneck = BNNeck(self.in_planes)
@@ -86,16 +92,26 @@ class ReIDModel(nn.Module):
             return None
         return self.sie_coe * self.cv_embed[idx.long()]
 
-    def backbone_features(self, x, cam_label=None, view_label=None):
-        """→ (feat_last, feat, feat_proj, raw_proj_tokens): class-token vectors."""
+    def backbone_features(self, x, cam_label=None, view_label=None, train: bool = False):
+        """→ (feat_last, feat, feat_proj, raw_proj_tokens): class-token (ViT)
+        or pooled (RN50) vectors; the RN50 tokens are (L, B, out)."""
         cv = self._sie(cam_label, view_label)
-        x11, x12, xproj = self.image_encoder(x, cv)
-        return x11[:, 0], x12[:, 0], xproj[:, 0], xproj
+        if self.clip_config.is_vit:
+            x11, x12, xproj = self.image_encoder(x, cv)
+            return x11[:, 0], x12[:, 0], xproj[:, 0], xproj
+        x3, x4, xproj = self.image_encoder(x, cv, train=train)
+        return spatial_mean(x3), spatial_mean(x4), xproj[0], xproj
+
+    def token(self, xproj: torch.Tensor, i: int) -> torch.Tensor:
+        """Projected token ``i`` of every image: (B, L, out) for the ViT,
+        (L, B, out) for RN50."""
+        return xproj[:, i] if self.clip_config.is_vit else xproj[i]
 
     def forward_train(self, x, label=None, cam_label=None, view_label=None) -> dict:
         """``label`` is unused by the plain classifiers (margin heads, which
         take it, are not ported); it keeps the JAX package's signature."""
-        feat_last, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label)
+        feat_last, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label,
+                                                               train=True)
         feat_bn = self.bottleneck(feat, train=True)
         feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
         return {

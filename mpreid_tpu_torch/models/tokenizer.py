@@ -14,13 +14,12 @@ may lack:
   ``\\d`` for ``\\p{N}`` and ``(?:[^\\s\\w]|_)+`` for
   ``[^\\s\\p{L}\\p{N}]+``.
 
-The ids equal the JAX ``tokenize``'s on the prompt template, on ASCII text
-and on letters, decimal digits, punctuation and combining marks of any
-script. They differ on one class of strings: numbers that are not decimal
-digits (Unicode categories No and Nl, such as ``²``, ``½``, ``Ⅻ``), which
-``\\p{N}`` splits off one character at a time and the stdlib's ``\\w`` takes
-as part of a word (``"x²"`` is one piece here, two there). Pinned by
-``tests/test_torch_tokenizer.py``.
+``\\p{N}`` also takes numbers that are not decimal digits (Unicode
+categories No and Nl, such as ``²``, ``½``, ``Ⅻ``), one character at a
+time, where the stdlib's ``\\w`` would keep them in a word (``"x²"`` is two
+pieces there); so ``encode`` cuts the text around each such character before
+the pattern runs, and no other alternative of the JAX pattern spans one. The
+ids equal the JAX ``tokenize``'s (``tests/test_torch_tokenizer.py``).
 """
 
 from __future__ import annotations
@@ -142,8 +141,10 @@ class ClipTokenizer:
 
     def encode(self, text: str) -> List[int]:
         bpe_tokens: List[int] = []
-        text = _clean_text(text)
-        for token in re.findall(self.pat, text):
+        tokens = []
+        for piece in _split_non_decimal(_clean_text(text)):
+            tokens.extend([piece] if _is_non_decimal(piece) else self.pat.findall(piece))
+        for token in tokens:
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             bpe_tokens.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return bpe_tokens
@@ -155,6 +156,23 @@ class ClipTokenizer:
             .decode("utf-8", errors="replace")
             .replace("</w>", " ")
         )
+
+
+def _is_non_decimal(piece: str) -> bool:
+    return len(piece) == 1 and unicodedata.category(piece) in ("No", "Nl")
+
+
+def _split_non_decimal(text: str) -> List[str]:
+    """``text`` cut before and after every No/Nl character, which ``\\p{N}``
+    takes alone."""
+    pieces, start = [], 0
+    for i, ch in enumerate(text):
+        if _is_non_decimal(ch):
+            pieces.extend(p for p in (text[start:i], ch) if p)
+            start = i + 1
+    if start < len(text):
+        pieces.append(text[start:])
+    return pieces
 
 
 @functools.lru_cache()

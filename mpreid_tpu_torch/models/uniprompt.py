@@ -160,18 +160,19 @@ class UniPromptReID(ReIDModel):
         return self.image_encoder(x)[2]
 
     def get_image(self, x: torch.Tensor) -> torch.Tensor:
-        """Projected class-token feature of the image encoder."""
-        return self._projected(x)[:, 0]
+        """Projected class-token (ViT) or mean-token (RN50) feature of the
+        image encoder, BatchNorms on their running statistics."""
+        return self.token(self._projected(x), 0)
 
     def get_image_vp(self, x: torch.Tensor) -> torch.Tensor:
         """``get_image`` with the learned visual prompt added."""
         xproj = self._projected(x)
-        return (xproj + self.visual_prompt.to(xproj.dtype))[:, 0]
+        return self.token(xproj + self.visual_prompt.to(xproj.dtype), 0)
 
     def get_more_image(self, x: torch.Tensor):
         """Low, mid and high projected tokens."""
         xproj = self._projected(x)
-        return xproj[:, 0], xproj[:, 1], xproj[:, -1]
+        return self.token(xproj, 0), self.token(xproj, 1), self.token(xproj, -1)
 
     def get_image_update(self, image_feature: torch.Tensor, text_feature: torch.Tensor
                          ) -> torch.Tensor:
@@ -181,9 +182,10 @@ class UniPromptReID(ReIDModel):
     # ------------------------------------------------------------------ main
     def forward_train(self, x, label=None, cam_label=None, view_label=None) -> dict:
         """The baseline's train outputs plus ``img_feature_proj`` (the
-        projected class token) and ``image_features_proj_raw`` (all
-        projected tokens)."""
-        feat_last, feat, feat_proj, raw_proj = self.backbone_features(x, cam_label, view_label)
+        projected class or mean token) and ``image_features_proj_raw`` (all
+        projected tokens, in the tower's own layout)."""
+        feat_last, feat, feat_proj, raw_proj = self.backbone_features(x, cam_label, view_label,
+                                                                       train=True)
         feat_bn = self.bottleneck(feat, train=True)
         feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
         return {

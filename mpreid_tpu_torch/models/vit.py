@@ -8,11 +8,13 @@ to the patch is a space-to-depth reshape plus one fp32-accumulated matmul
 multiply in the activation dtype, as the JAX package's conv does. The
 tower returns ``(x11, x12, xproj)``: tokens after L-1 blocks, tokens after
 all L blocks through ``ln_post``, and ``x12 @ proj``. The MoE path belongs
-to a later slice.
+to a later slice. ``resize_pos_embed`` carries a CLIP file's square grid of
+positions to the model's (h, w) grid.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -110,3 +112,19 @@ class VisionTransformer(nn.Module):
         x12 = self.ln_post(blocks[-1](x11))
         xproj = linear_f32acc(x12, self.proj.t(), None, self.dtype)
         return x11, x12, xproj
+
+
+def resize_pos_embed(posemb: torch.Tensor, gs_new_h: int, gs_new_w: int) -> torch.Tensor:
+    """Bilinearly resize a (1 + gs_old², D) positional embedding to a
+    (1 + gs_new_h·gs_new_w, D) one, in fp32 (ref ``resize_pos_embed``:
+    ``F.interpolate`` bilinear, align_corners=False, no antialias — what
+    ``jax.image.resize`` 'linear' with antialias off computes). The first
+    row (the class or mean token) is kept as it is."""
+    posemb = posemb.float()
+    token, grid = posemb[:1], posemb[1:]
+    gs_old = int(math.sqrt(grid.shape[0]))
+    d = grid.shape[-1]
+    grid = grid.reshape(1, gs_old, gs_old, d).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(gs_new_h, gs_new_w), mode="bilinear",
+                         align_corners=False, antialias=False)
+    return torch.cat([token, grid.permute(0, 2, 3, 1).reshape(gs_new_h * gs_new_w, d)])

@@ -175,7 +175,9 @@ def _library(direction: str, route: str) -> ctypes.CDLL:
     lib = build.load(f"attention_{direction}{suffix}")
     symbol = f"mpreid_mha_{direction}{suffix}"
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    tensors = [p, p, p] if direction == "fwd" else [p, p, p, p]  # bwd adds dout
+    # qkv, mask, out; the backward adds dout, and the CUDA-core backward a
+    # scratch array for its row statistics
+    tensors = [p] * ({"fwd": 3, "bwd": 4}[direction] + (direction == "bwd" and route == "simt"))
     lib.launch = getattr(lib, symbol)
     lib.launch.argtypes = tensors + [i, i, i, i, ll, i, i, i, i, ctypes.c_float, p]
     lib.launch.restype = i
@@ -254,9 +256,13 @@ def _launch_bwd_cuda(qkv, do, num_heads, mask, layout):
     if b == 0 or l == 0:
         return dqkv
     q_base, k_base, v_base, head_stride = _column_offsets(d, dh, layout)
+    scratch = []
+    if route == "simt":  # m, 1/l and delta of every row, from phase 1 to phase 2
+        scratch = [torch.empty(3 * b * num_heads * l, dtype=torch.float32,
+                               device=qkv.device).data_ptr()]
     rc = lib.launch(
         qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-        do.data_ptr(), dqkv.data_ptr(), b, l, num_heads, dh, dd,
+        do.data_ptr(), dqkv.data_ptr(), *scratch, b, l, num_heads, dh, dd,
         q_base, k_base, v_base, head_stride, dh ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )

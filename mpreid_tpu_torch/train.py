@@ -6,8 +6,10 @@ ref train.py (the JAX package's entry script): the same CLI,
         DATASETS.ROOT_DIR ../data
 
 It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
-weights start random from ``SOLVER.SEED``: loading the OpenAI CLIP weights
-(``MODEL.PRETRAIN_PATH``, ``MODEL.PRETRAIN_AUTO``) is not ported yet.
+weights start random from ``SOLVER.SEED``; ``MODEL.PRETRAIN_PATH <file>``
+replaces the towers with the OpenAI CLIP weights of a local file
+(``ViT-B-16.pt``, ``RN50.pt``). Nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
+without a path raises.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import make_dataloader
 from mpreid_tpu_torch.engine import do_train
 from mpreid_tpu_torch.losses import make_loss
-from mpreid_tpu_torch.models import make_model
+from mpreid_tpu_torch.models import load_pretrained, make_model, pretrain_path
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
 
@@ -50,11 +52,7 @@ def main(argv=None):
     cfg.freeze()
 
     device = device_from_cfg(cfg)
-    if cfg.MODEL.PRETRAIN_PATH or cfg.MODEL.PRETRAIN_AUTO:
-        raise NotImplementedError(
-            "loading CLIP weights (MODEL.PRETRAIN_PATH / PRETRAIN_AUTO) is not ported yet "
-            "(ROADMAP.md, A2 load_torch_clip)"
-        )
+    clip_file = pretrain_path(cfg)
     set_seed(cfg.SOLVER.SEED)
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
@@ -69,6 +67,9 @@ def main(argv=None):
      camera_num, view_num) = make_dataloader(cfg)
     model = make_model(cfg, num_class=num_classes, camera_num=camera_num,
                        view_num=view_num, device=device)
+    if clip_file:
+        load_pretrained(model, cfg)
+        logger.info(f"Loaded CLIP weights from {clip_file}")
 
     loss_fn, (center_init, _) = make_loss(cfg, num_classes=num_classes)
     centers = None

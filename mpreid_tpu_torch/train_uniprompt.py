@@ -7,10 +7,11 @@ the same four phases, stage 1a → 1b → 2a → 2b, then inference,
         --config_file configs/ours/cctv_ir_cctv_rgb.yml DATASETS.ROOT_DIR ../data
 
 It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
-weights start random from ``SOLVER.SEED``: loading the OpenAI CLIP weights
-(``MODEL.PRETRAIN_PATH``, ``MODEL.PRETRAIN_AUTO``) is not ported yet, and
-neither is the dense → MoE switch after stage 1b (``MODEL.MOE.ENABLED``
-raises there, ROADMAP A7).
+weights start random from ``SOLVER.SEED``; ``MODEL.PRETRAIN_PATH <file>``
+replaces both towers with the OpenAI CLIP weights of a local file, loaded
+through the dense stage-1 config (nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
+without a path raises). The dense → MoE switch after stage 1b is not ported
+yet (``MODEL.MOE.ENABLED`` raises there, ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from mpreid_tpu_torch.engine import (
     build_image_bank, do_inference, do_train_stage1, do_train_stage2,
 )
 from mpreid_tpu_torch.losses import make_loss
-from mpreid_tpu_torch.models import make_model_uniprompt
+from mpreid_tpu_torch.models import load_pretrained, make_model_uniprompt, pretrain_path
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 from mpreid_tpu_torch.train import set_seed
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
@@ -45,11 +46,7 @@ def main(argv=None):
     cfg.freeze()
 
     device = device_from_cfg(cfg)
-    if cfg.MODEL.PRETRAIN_PATH or cfg.MODEL.PRETRAIN_AUTO:
-        raise NotImplementedError(
-            "loading CLIP weights (MODEL.PRETRAIN_PATH / PRETRAIN_AUTO) is not ported yet "
-            "(ROADMAP.md, A2 load_torch_clip)"
-        )
+    clip_file = pretrain_path(cfg)
     set_seed(cfg.SOLVER.SEED)
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
@@ -68,6 +65,10 @@ def main(argv=None):
     stage1_cfg.freeze()
     model = make_model_uniprompt(stage1_cfg, num_class=num_classes, camera_num=camera_num,
                                  view_num=view_num, device=device)
+    if clip_file:
+        # the dense stage-1 config: the model grafted is the dense one
+        load_pretrained(model, stage1_cfg)
+        logger.info(f"Loaded CLIP weights from {clip_file}")
 
     loss_fn, (center_init, _) = make_loss(cfg, num_classes=num_classes)
     centers = None

@@ -33,4 +33,12 @@ def resolve_device(name) -> torch.device:
 
 
 def device_from_cfg(cfg) -> torch.device:
-    return resolve_device(cfg.MODEL.DEVICE)
+    """``MODEL.DEVICE`` of ``cfg``. With ``TPU.COMPUTE_DTYPE float32`` on the
+    card it also turns off cuDNN's TF32 (``torch.backends.cudnn.allow_tf32``,
+    which PyTorch leaves on for convolutions though not for matrix
+    products), so the RN50 tower's fp32 convolutions stay fp32; bf16 runs
+    are not affected."""
+    device = resolve_device(cfg.MODEL.DEVICE)
+    if device.type == "cuda" and cfg.TPU.COMPUTE_DTYPE == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+    return device

@@ -24,7 +24,7 @@ ROUTE = {torch.float32: "simt", torch.bfloat16: "tc"}
 MAX_LEN = {("fwd", torch.bfloat16, 64): 800, ("fwd", torch.bfloat16, 128): 416,
            ("fwd", torch.float32, 64): 417, ("fwd", torch.float32, 128): 214,
            ("bwd", torch.bfloat16, 64): 384, ("bwd", torch.bfloat16, 128): 208,
-           ("bwd", torch.float32, 64): 139, ("bwd", torch.float32, 128): 94}
+           ("bwd", torch.float32, 64): 417, ("bwd", torch.float32, 128): 214}
 # every padding edge of the 16-row blocks, the text and vision lengths, and
 # the 256x256 vehicle configs' L 257
 LENGTHS = [1, 15, 16, 17, 77, 129, 257]
@@ -216,6 +216,26 @@ def test_bwd_kernel_at_the_main_shapes(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "head_major"])
+@pytest.mark.parametrize("length", [163, 257])
+def test_fp32_bwd_kernel_at_the_long_shapes(card, length, layout):
+    """The CUDA-core backward at the lengths it refused while it held L x L
+    in shared memory: 163 (configs/cross/sysu_rgb2ir.yml, 288x144) and 257
+    (the 256x256 vehicle configs), B 64 x 12 heads x 64, held to its plain
+    version at 1e-5 x max(1, max |plain|), and deterministic."""
+    qkv = _qkv(card, 64, length, 12, 64, torch.float32, seed=length)
+    do = _qkv(card, 64, length, 12, 64, torch.float32, seed=length + 1)[..., :768].contiguous()
+    routed = tattn.fused_attention_bwd.launches_by_route["simt"]
+    got = tattn.fused_attention_bwd(qkv, do, 12, layout=layout)
+    again = tattn.fused_attention_bwd(qkv, do, 12, layout=layout)
+    want = tattn.attention_bwd_plain(qkv, do, 12, layout=layout)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches_by_route["simt"] == routed + 2
+    assert _bwd_err(got, want) <= BWD_TOL[torch.float32]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_launches_both_kernels(card, dtype):
     qkv = _qkv(card, 2, 129, 2, 64, dtype, seed=7).requires_grad_(True)
@@ -243,6 +263,9 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="L above 384 needs more shared memory"):
         tattn.fused_attention_bwd(_qkv(card, 1, 400, 1, 64, torch.bfloat16),
                                   torch.zeros(1, 400, 64, device=card, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="L above 417 needs more shared memory"):
+        tattn.fused_attention_bwd(_qkv(card, 1, 418, 1, 64, torch.float32),
+                                  torch.zeros(1, 418, 64, device=card), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +348,32 @@ def test_linear_bf16_backward_on_the_card(card):
     assert wc.grad.dtype == torch.float32
     for got, want in ((xc.grad.float(), dx), (wc.grad, dw)):
         assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_bmm_f32_on_the_card_matches_the_cpu(card, out_dtype):
+    """The RN50 attention pool's products (``ops/matmul.py::bmm_f32``) at
+    its shape (64 × 32 heads, L 129, dh 64): bf16 operands summed in fp32 on
+    the card, forward and both gradients, against the same function on the
+    CPU (bf16 values, fp32 math), each to TOL of its dtype × max(1, max|cpu|)."""
+    from mpreid_tpu_torch.ops.matmul import bmm_f32
+
+    rng = np.random.default_rng(12)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+            for s in ((64, 32, 129, 64), (64, 32, 64, 129)))
+    g = torch.from_numpy(rng.standard_normal((64, 32, 129, 129)).astype(np.float32))
+    g = g.to(out_dtype)
+    results = []
+    for device in ("cpu", card):
+        ad, bd = (t.to(device).detach().requires_grad_(True) for t in (a, b))
+        out = bmm_f32(ad, bd, out_dtype)
+        out.backward(g.to(device))
+        results.append([t.detach().cpu() for t in (out, ad.grad, bd.grad)])
+    for want, got in zip(*results):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= TOL[got.dtype] * scale
 
 
 @pytest.mark.cuda

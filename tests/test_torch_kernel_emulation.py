@@ -11,6 +11,12 @@ layouts, padding, masks and rounding order here; whether nvcc takes the
 source and what the card's tensor cores sum in which order is for
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on the card. B 2, 2
 heads, lengths at every padding edge of the 16-row blocks.
+
+The CUDA-core fp32 backward (``kernels/csrc/attention_bwd.cu``, two phases
+with no L × L buffer) runs the same way, at the lengths its earlier design
+refused (163, the cross-modality configs' 288×144; 257, the vehicle
+configs'; the fp32 forward's longest, 417 at dh 64 and 214 at dh 128), and
+is held to ``attention_bwd_plain`` at 1e-5 · max(1, max |plain|).
 """
 
 import ctypes
@@ -112,3 +118,72 @@ def test_emulated_bwd_kernel_at_the_vehicle_length(kernels):
     assert (out.float() - tattn.attention_plain(qkv, 2).float()).abs().max().item() <= 2e-2
     want = tattn.attention_bwd_plain(qkv, do, 2).float()
     assert (dqkv.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())
+
+
+def _compile(out, src: str, name: str) -> ctypes.CDLL:
+    src, n = re.subn(r"(\w+<DH>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
+                     r"emu::launch(\2, \3, \1, ", src)
+    assert n == 1
+    (out / f"{name}.cpp").write_text(src)
+    lib = out / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
+                    "-o", str(lib), str(out / f"{name}.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def simt_bwd(tmp_path_factory):
+    """The emulated CUDA-core backward's C entry point and its scratch size."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host emulation")
+    src = ('#include "cuda_runtime.h"\n'
+           "namespace { float smem[232448 / 4]; }\n"
+           + (build.CSRC / "attention_bwd.cu").read_text())
+    lib = _compile(tmp_path_factory.mktemp("emulated_simt"), src, "bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.mpreid_mha_bwd
+    fn.argtypes = [p] * 5 + [i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float, p]
+    fn.restype = i
+    lib.mpreid_mha_bwd_scratch_floats.argtypes = [i, i, i]
+    lib.mpreid_mha_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.mpreid_mha_bwd_smem_bytes.argtypes = [i, i]
+    lib.mpreid_mha_bwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+SIMT_CASES = [(1, 64, False, "packed"), (33, 64, True, "head_major"), (77, 64, True, "packed"),
+              (163, 64, False, "packed"), (163, 64, True, "head_major"),
+              (257, 64, False, "packed"), (257, 64, False, "head_major"),
+              (417, 64, False, "packed"), (163, 128, False, "packed"),
+              (214, 128, True, "head_major")]
+
+
+@pytest.mark.parametrize("length,dh,masked,layout", SIMT_CASES)
+def test_emulated_fp32_bwd_kernel_matches_plain(simt_bwd, length, dh, masked, layout):
+    heads, b = 2, 1
+    d = heads * dh
+    rng = np.random.default_rng(length + dh)
+    qkv = torch.from_numpy(rng.standard_normal((b, length, 3 * d)).astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, length, d)).astype(np.float32))
+    mask = torch.full((length, length), float("-inf")).triu(1) if masked else None
+    dqkv = torch.full_like(qkv, float("nan"))
+    stats = torch.empty(simt_bwd.mpreid_mha_bwd_scratch_floats(b, length, heads))
+    offsets = tattn._column_offsets(d, dh, layout)
+    rc = simt_bwd.mpreid_mha_bwd(qkv.data_ptr(), mask.data_ptr() if masked else None,
+                                 do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, length,
+                                 heads, dh, 3 * d, *offsets, dh ** -0.5, None)
+    assert rc == 0
+    want = tattn.attention_bwd_plain(qkv, do, heads, mask, layout)
+    err = (dqkv - want).abs().max().item()
+    assert err <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_emulated_fp32_bwd_takes_every_length_the_fp32_forward_takes(simt_bwd):
+    """Shared memory: the backward's limits are the forward's (417 at dh 64,
+    214 at dh 128); the kernel it replaces stopped at 139 and 94."""
+    limit = 232448
+    for dh, longest in ((64, 417), (128, 214)):
+        assert simt_bwd.mpreid_mha_bwd_smem_bytes(longest, dh) <= limit
+        assert simt_bwd.mpreid_mha_bwd_smem_bytes(longest + 1, dh) > limit

@@ -122,6 +122,47 @@ def test_chip_smoke_uniprompt_config_is_cctv_ir_cctv_rgb_yml():
     assert got.TPU.COMPUTE_DTYPE == "bfloat16" and not got.MODEL.MOE.ENABLED
 
 
+@pytest.mark.parametrize("attr,path,build", [
+    ("CNN_BASE", ("person", "cnn_base.yml"), "vit_base_cfg"),
+    ("CNN_CLIPREID", ("person", "cnn_clipreid.yml"), "uniprompt_cfg"),
+    ("CNN_PROM", ("veri", "cnn_prom.yml"), "uniprompt_cfg"),
+])
+def test_chip_smoke_rn50_configs_are_their_files(attr, path, build):
+    """The RN50 phases of chip_smoke.py run configs/person/cnn_base.yml,
+    configs/person/cnn_clipreid.yml and configs/veri/cnn_prom.yml's settings
+    (built in code), at the full RN50 width."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = get_default_cfg()
+    want.merge_from_file(os.path.join(REPO, "configs", *path))
+    got = getattr(chip_smoke, build)(settings=getattr(chip_smoke, attr))
+    for section in ("MODEL", "INPUT", "DATALOADER", "SOLVER", "TEST", "DATASETS"):
+        g, w = dict(got[section]), dict(want[section])
+        for key in ("DEVICE", "STAGE2") if build == "vit_base_cfg" else ("DEVICE",):
+            g.pop(key, None)
+            w.pop(key, None)
+        assert g == w, section
+    assert got.MODEL.NAME == "RN50" and got.TPU.COMPUTE_DTYPE == "bfloat16"
+    assert got.OUTPUT_DIR == "" and not got.MODEL.PRETRAIN_PATH
+
+
+def test_chip_smoke_pairwise_bound_counts_instructions_not_flops():
+    """B4's and B5's operations bound: two fp32 instructions an element pair
+    at one a lane a clock (132 SMs × 128 lanes × 1.98 GHz ≈ 33.5 T/s), not at
+    the FMA rate of 67 TFLOP/s: ≈ 61.7 ms at the Market-1501 dense shape and
+    ≈ 47.0 ms at one MSMT17 block."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    n_market = chip_smoke.MARKET["q"] + chip_smoke.MARKET["g"]
+    ms, by = chip_smoke.pairwise_bound_ms(chip_smoke.MARKET["q"], chip_smoke.MARKET["g"], n_market)
+    assert by == "operations" and abs(ms - 61.7) < 0.1
+    n_msmt = chip_smoke.MSMT["q"] + chip_smoke.MSMT["g"]
+    ms, by = chip_smoke.pairwise_bound_ms(*chip_smoke.MSMT_BLOCK, n_msmt)
+    assert by == "operations" and abs(ms - 47.0) < 0.1
+
+
 @pytest.mark.parametrize("name", ["tpu", "gpu", "cuda", "TPU", "cuda:0"])
 def test_card_devices_raise_without_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

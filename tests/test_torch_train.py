@@ -755,7 +755,10 @@ def test_train_cli_one_epoch_on_the_cpu(market, tmp_path):
 
 
 def test_train_cli_refuses_pretrained_weights():
+    """CLIP weights come from a local file only: ``MODEL.PRETRAIN_AUTO``
+    without ``MODEL.PRETRAIN_PATH`` (a download) raises and names the path
+    key, before any data is read."""
     from mpreid_tpu_torch import train as entry
 
-    with pytest.raises(NotImplementedError, match="PRETRAIN"):
-        entry.main(["MODEL.DEVICE", "cpu", "MODEL.PRETRAIN_PATH", "ViT-B-16.pt"])
+    with pytest.raises(NotImplementedError, match="MODEL.PRETRAIN_PATH"):
+        entry.main(["MODEL.DEVICE", "cpu", "MODEL.PRETRAIN_AUTO", "True"])
