@@ -68,7 +68,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    steps and ``do_inference``; and one stage-2a step of
    configs/veri/cnn_prom.yml at 256×256 (the attention pool at L 257). The
    RN50 rates are printed on lines of their own with the card's name and
-   power limit.
+   power limit;
+10. the MoE Uni-Prompt pipeline, as ``train_uniprompt`` runs
+   configs/ours/cctv_ir_cctv_rgb.yml under configs/tpu/uniprompt_tuned.yml
+   with bench.py's MoE (4 experts, top-2, 2 MoE layers): phase 8's model
+   after stage 1b upcycled by ``switch_to_moe``, its eval features against
+   the dense model's (fp32 max abs, bf16 cosine), the all-tie routing at
+   step 0 (experts 0 and 1 for every token), one stage-2a and one stage-2b
+   epoch through ``do_train_stage2`` over the device-resident train set
+   (the aux loss finite, the gates moved, the experts not), 12 + 12
+   attention launches a step, and ``do_inference``; then one stage-2b step
+   at batch 8 of an MoE model with distinct random experts and gates, fp32
+   on the card against the CPU;
+11. the device-resident epoch (``TPU.DEVICE_DATASET``) with
+   configs/person/vit_base.yml at Market-1501's train size (12,936 seeded
+   images, 751 ids, 1.27 GB of uint8 on the card): ``do_train`` for two
+   epochs with ``TPU.PROFILE_DIR`` (the second epoch traced; the trace's
+   size and the device's idle share in it), 24 steps of the device epoch
+   against 24 of the step loop over the same batches from one state and one
+   generator state, and both modes' img/s in turns.
 
 Phase 3 also holds the L1 and min-sum kernels (re-ranking's exact Jaccard
 step) against their plain versions at the path's shapes: the Market-1501
@@ -91,8 +109,11 @@ stage-2a steps and over three traced RN50 train steps.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import functools
 import json
+import logging
 import os
 import re
 import statistics
@@ -110,16 +131,18 @@ from mpreid_tpu_torch.data.loader import ImageBatcher, ShuffledLoader, TrainLoad
 from mpreid_tpu_torch.data.sampler import RandomIdentitySampler
 from mpreid_tpu_torch.data.synthetic import make_clip_file
 from mpreid_tpu_torch.engine import (
-    R1mAPEvaluator, build_image_bank, do_inference, do_train,
-    do_train_stage1, do_train_stage2, initial_state, loss_and_grads, make_eval_step,
-    make_stage1_step, make_train_step, precompute_text_features, stage1_loss_and_grads,
+    R1mAPEvaluator, build_device_dataset, build_image_bank, do_inference, do_train,
+    do_train_stage1, do_train_stage2, epoch_perm, initial_state, loss_and_grads,
+    make_eval_step, make_stage1_step, make_train_epoch, make_train_step,
+    precompute_text_features, stage1_loss_and_grads,
 )
+from mpreid_tpu_torch.engine.processor import TRACE_FILE
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.losses.triplet import euclidean_dist, triplet_loss
 from mpreid_tpu_torch.models import (
-    RN50, VIT_B16, build_model, build_model_uniprompt, load_pretrained, make_model,
-    make_model_uniprompt,
+    RN50, VIT_B16, build_model, build_model_uniprompt, load_balancing_loss, load_pretrained,
+    make_model, make_model_uniprompt, switch_to_moe, topk_routing,
 )
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
@@ -195,6 +218,15 @@ BANK_IMAGES = 4096  # stage-1 bank: 64 steps of 64 per stage-1 epoch
 UNI_VIEWS = 15  # MMMP view labels 0-14: both platforms and both modalities
 STAGE2A_STEPS = 24  # timed
 STAGE2B_IDS = 192  # do_train_stage2's epoch of stage 2b: 192 ids × 4 = 12 batches
+# the device-resident epoch (TPU.DEVICE_DATASET) at Market-1501's train size
+MARKET_TRAIN = dict(images=12936, ids=751, cams=6)
+EPOCH_CHECK_STEPS = 24  # device epoch against the step loop; and each timed turn
+EPOCH_TURNS = 2  # rounds of (epoch, steps, steps, epoch)
+# the MoE Uni-Prompt pipeline: bench.py's MoE (4 experts, top-2, 2 MoE layers)
+MOE_BENCH = {"ENABLED": True, "NUM_EXPERTS": 4, "TOP_K": 2, "MOE_LAYERS": 2}
+MOE_IDS = 384  # the stage-2a and 2b epochs: 384 ids × 4 = 24 batches
+MOE_CHECK_CLASSES = 16  # the fp32 card-vs-CPU stage-2b step's classes
+UPCYCLE_TOL = 1e-5  # fp32 eval features, upcycled MoE against dense, max abs
 
 
 def log(msg: str) -> None:
@@ -1124,6 +1156,20 @@ UNIPROMPT = {
 }
 
 
+# configs/tpu/uniprompt_tuned.yml, built in code; it names the blocks to lay
+# over a task config (its header), here cctv_ir_cctv_rgb.yml's;
+# tests/test_torch_package.py holds it to the file
+UNIPROMPT_TUNED = {
+    "MODEL": {"NAME": "ViT-B-16"},
+    "TPU": {"DEVICE_DATASET": True, "EVAL_SHARDED": True, "ZERO_OPT_STATE": True,
+            "COMPILE_CACHE_DIR": "/tmp/mpreid_xla_cache"},
+    "SOLVER": {"MOMENT_DTYPE": "bfloat16",
+               **{k: {"MOMENT_DTYPE": "bfloat16"}
+                  for k in ("STAGE1", "STAGE1A", "STAGE1B", "STAGE2")}},
+    "TEST": {"IMS_PER_BATCH": 128},
+}
+
+
 def uniprompt_cfg(dtype: str = "bfloat16", device: str = CARD, settings: dict = UNIPROMPT):
     """configs/ours/cctv_ir_cctv_rgb.yml's settings (as train_uniprompt takes
     them), or ``settings``, on ``device`` in ``dtype``, writing no files; each
@@ -1133,6 +1179,17 @@ def uniprompt_cfg(dtype: str = "bfloat16", device: str = CARD, settings: dict = 
     cfg.MODEL.DEVICE = device
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def tuned_cfg(dtype: str = "bfloat16", device: str = CARD, moe: bool = True):
+    """configs/ours/cctv_ir_cctv_rgb.yml under configs/tpu/uniprompt_tuned.yml,
+    as ``train_uniprompt --config_file`` of both takes them, with bench.py's
+    MoE settings (``moe``), on ``device`` in ``dtype``, writing no files."""
+    cfg = uniprompt_cfg(dtype, device)
+    cfg._merge_dict(UNIPROMPT_TUNED)
+    if moe:
+        cfg._merge_dict({"MODEL": {"MOE": MOE_BENCH}})
     return cfg
 
 
@@ -1253,6 +1310,9 @@ def run_uniprompt(profile: bool) -> dict:
                 lambda: [step(state, bank[0][sel], lab, vw, 1e-4) for _ in range(3)],
                 "3 stage-1b steps (bf16, batch 64)")
 
+    # the weights after stage 1b: the MoE phase upcycles them
+    after_1b = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
     # the stage-2 text features of every class
     reset_counts()
     text, secs = timed(lambda: precompute_text_features(cfg, model, UNI_CLASSES))
@@ -1331,7 +1391,8 @@ def run_uniprompt(profile: bool) -> dict:
                             feats_per_s=(QUERY + GALLERY) / secs, rank1=float(r1),
                             rank5=float(r5), launches=counts)
     log(f"uniprompt {json.dumps(res)}")
-    return dict(res=res, model=model, feats=feats, labels=batches[1]["pids"], text=text)
+    return dict(res=res, model=model, feats=feats, labels=batches[1]["pids"], text=text,
+                after_1b=after_1b, data=(images, pids, views))
 
 
 def uniprompt_triplet_check(feats: torch.Tensor, labels: torch.Tensor) -> dict:
@@ -1478,6 +1539,371 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
            checks["eval_bf16_vs_fp32_min_cosine"]) < COSINE_FLOOR:
         raise AssertionError(f"bf16 vs fp32 cosine below {COSINE_FLOOR}: {checks}")
     return checks
+
+
+# ---------------------------------------------------------------------------
+# the device-resident epoch (TPU.DEVICE_DATASET) and the trace (TPU.PROFILE_DIR)
+# ---------------------------------------------------------------------------
+
+def market_train_set(seed: int = 31):
+    """Seeded uint8 images at Market-1501's train size (12,936 × 256×128,
+    751 identities of 17 or 18 images, cameras 0-5): a per-identity pattern
+    plus per-image noise, drawn on the card in chunks and held on the host,
+    as a loader holds decoded images."""
+    n, ids = MARKET_TRAIN["images"], MARKET_TRAIN["ids"]
+    rng = np.random.default_rng(seed)
+    pids = np.sort(np.arange(n) % ids).astype(np.int32)
+    cams = rng.integers(0, MARKET_TRAIN["cams"], n).astype(np.int32)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    base = torch.randint(40, 215, (ids, *HW, 3), generator=gen, device=CARD, dtype=torch.int16)
+    images = np.empty((n, *HW, 3), np.uint8)
+    pid_t = torch.from_numpy(pids).to(CARD).long()
+    for lo in range(0, n, 1024):
+        sel = pid_t[lo:lo + 1024]
+        noise = torch.randint(-60, 61, (len(sel), *HW, 3), generator=gen, device=CARD,
+                              dtype=torch.int16)
+        images[lo:lo + len(sel)] = (base[sel] + noise).clamp_(0, 255).to(torch.uint8).cpu().numpy()
+    return images, pids, cams
+
+
+def trace_idle_share(path: str) -> dict:
+    """The device's busy time and idle share over a Chrome trace that
+    ``torch.profiler`` wrote: the union of its kernel, copy and memset spans
+    against the span of every event in it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in device:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    window = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return dict(trace_bytes=os.path.getsize(path), events=len(events), device_spans=len(device),
+                window_ms=window / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1 - busy / window)
+
+
+def run_device_epoch() -> dict:
+    """configs/person/vit_base.yml with TPU.DEVICE_DATASET on at Market-1501's
+    train size: do_train for 2 epochs with TPU.PROFILE_DIR (the second epoch
+    traced), counting the attention launches; then EPOCH_CHECK_STEPS steps
+    of the device epoch and of the step loop over the same perm rows from
+    one state and one generator state, and both modes' img/s in turns."""
+    cfg = vit_base_cfg(device=CARD)
+    cfg.TPU.DEVICE_DATASET = True
+    t0 = time.perf_counter()
+    images, pids, cams = market_train_set()
+    seed = int(cfg.SOLVER.SEED)
+    batcher = MemoryBatcher(images, pids, BATCH, cams)
+    loader = TrainLoader(batcher, RandomIdentitySampler(batcher.records, BATCH, K_INST, seed=seed))
+    n_epoch = [len(epoch_perm(loader, e, seed)) for e in (1, 2)]
+    if n_epoch[0] != n_epoch[1]:
+        raise AssertionError(f"device epochs of {n_epoch} batches: the count must be epoch 0's")
+    model = make_model(cfg, num_class=MARKET_TRAIN["ids"], camera_num=MARKET_TRAIN["cams"],
+                       view_num=1)
+    depth = len(model.image_encoder.transformer.resblocks)
+    loss_fn, _ = make_loss(cfg, MARKET_TRAIN["ids"])
+    optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    lr = make_scheduler(cfg.SOLVER, "multistep")(1)
+    resident = images.nbytes + 3 * 4 * len(pids)
+    log(f"device epoch: {len(pids)} images of {HW[0]}×{HW[1]}, {MARKET_TRAIN['ids']} ids, "
+        f"{resident} resident bytes, {n_epoch[0]} batches an epoch, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, train_log() as records:
+        cfg.TPU.PROFILE_DIR = tmp
+        reset_counts()
+        (state, history), secs = timed(lambda: do_train(
+            cfg, model, loader, None, optimizer, lambda e: lr, loss_fn, QUERY, max_epochs=2))
+        counts = read_counts()
+        t0 = time.perf_counter()
+        trace = trace_idle_share(os.path.join(tmp, TRACE_FILE))
+        trace["parse_seconds"] = time.perf_counter() - t0
+    # the traced epoch's Speed counts the trace's stop and export too
+    speeds = [float(re.search(r"Speed: ([0-9.]+)", r.getMessage()).group(1))
+              for r in records if "done." in r.getMessage()]
+    expect_counts("device-epoch do_train", counts, {"attention_fwd": depth * 2 * n_epoch[0],
+                                                    "attention_bwd": depth * 2 * n_epoch[0]})
+    if state.opt_state.step != 2 * n_epoch[0] or not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"device-epoch do_train: {state.opt_state.step} steps, {history}")
+    if trace["trace_bytes"] <= 0 or trace["device_spans"] <= 0:
+        raise AssertionError(f"empty trace of the second epoch: {trace}")
+    res = dict(config="configs/person/vit_base.yml + TPU.DEVICE_DATASET", images=len(pids),
+               ids=MARKET_TRAIN["ids"], resident_bytes=resident, batches_per_epoch=n_epoch,
+               do_train_seconds_2_epochs=secs, epoch_img_per_s_log=speeds, history=history,
+               launches=counts,
+               launches_by_route=read_routes(), traced_epoch_2=trace,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"device epoch do_train {json.dumps(res)}")
+
+    # the device epoch against the step loop, from one state and one generator state
+    data = build_device_dataset(loader, next(model.parameters()).device)
+    runs = {}
+    for mode in ("epoch", "steps"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(cfg.SOLVER, m, stage="baseline")
+        runs[mode] = dict(model=m, opt=opt, state=initial_state(m, opt),
+                          gen=torch.Generator(device=CARD).manual_seed(seed + 5),
+                          epoch=make_train_epoch(m, cfg, loss_fn, opt),
+                          step=make_train_step(m, cfg, loss_fn, opt))
+
+    def turn(mode, rows):
+        r = runs[mode]
+        if mode == "epoch":
+            r["state"], (losses, _) = r["epoch"](r["state"], *data, rows, lr, r["gen"])
+            return losses
+        out = []
+        for batch in batcher.iter_indices(rows.reshape(-1), drop_last=True):
+            r["state"], metrics = r["step"](r["state"], batch, lr, r["gen"])
+            out.append(metrics["loss"])
+        return torch.stack(out)
+
+    rows = epoch_perm(loader, 3, seed)[:EPOCH_CHECK_STEPS]
+    losses = {mode: turn(mode, rows).float().cpu() for mode in runs}
+    (pa, pb) = (dict(runs[m]["model"].named_parameters()) for m in ("epoch", "steps"))
+    mult = runs["epoch"]["opt"].lr_mult
+    param_err = max(((pa[k] - pb[k]).abs().max() / (lr * mult[k])).item() for k in mult)
+    bit_equal = torch.equal(losses["epoch"], losses["steps"]) and \
+        all(torch.equal(pa[k], pb[k]) for k in pa)
+    loss_rel = ((losses["epoch"] - losses["steps"]).abs() / losses["steps"].abs()).max().item()
+    check = dict(steps=EPOCH_CHECK_STEPS, bit_equal=bit_equal, max_loss_rel=loss_rel,
+                 max_param_err_lr_units=param_err, loss_rtol=1e-3,
+                 param_tol_lr_units=2 * EPOCH_CHECK_STEPS)
+    log(f"device epoch against the step loop {json.dumps(check)}")
+    if not (loss_rel <= 1e-3 and param_err <= 2 * EPOCH_CHECK_STEPS):
+        raise AssertionError(f"the device epoch differs from the step loop: {check}")
+
+    # both modes' rates, in turns: (epoch, steps, steps, epoch) per round
+    rates = {"epoch": [], "steps": []}
+    for rnd in range(EPOCH_TURNS):
+        for i, mode in enumerate(("epoch", "steps", "steps", "epoch")):
+            rows = epoch_perm(loader, 10 + 4 * rnd + i, seed)[:EPOCH_CHECK_STEPS]
+            _, secs = timed(lambda: turn(mode, rows))
+            rates[mode].append(EPOCH_CHECK_STEPS * BATCH / secs)
+    res_rates = dict(steps_per_turn=EPOCH_CHECK_STEPS, batch=BATCH, order="epoch steps steps "
+                     "epoch, twice", img_per_s=rates,
+                     median_img_per_s={k: float(np.median(v)) for k, v in rates.items()},
+                     card=CARD_LINE)
+    log(f"device epoch against the step loop, img/s in turns {json.dumps(res_rates)}")
+    rate_line("device-epoch vs step-loop train img/s (configs/person/vit_base.yml, batch 64, "
+              "medians of 4 turns of 24 steps)", res_rates["median_img_per_s"])
+    del runs, data
+    return dict(res=res, check=check, rates=res_rates)
+
+
+# ---------------------------------------------------------------------------
+# the MoE Uni-Prompt pipeline (configs/tpu/uniprompt_tuned.yml, MoE 4/2/2)
+# ---------------------------------------------------------------------------
+
+def dense_model(cfg, weights: dict):
+    """The dense Uni-Prompt model of ``cfg`` (MoE off) with ``weights``."""
+    dense = cfg.clone()
+    dense.MODEL.MOE.ENABLED = False
+    m = build_model_uniprompt(dense, UNI_CLASSES, 14, UNI_VIEWS)
+    m.load_state_dict(weights, strict=True)
+    return m.to(dense.MODEL.DEVICE).eval()
+
+
+def upcycle_check(weights: dict, images: np.ndarray) -> dict:
+    """The upcycled MoE model's eval features against the dense model's on
+    the same weights: fp32 to UPCYCLE_TOL max abs, bf16 cosine ≥ COSINE_FLOOR."""
+    x = torch.from_numpy(images[:BATCH]).to(CARD)
+    feats = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tuned_cfg(dtype)
+        dense = dense_model(cfg, weights)
+        moe = switch_to_moe(cfg, dense)
+        step_d, step_m = make_eval_step(dense, cfg), make_eval_step(moe, cfg)
+        feats[dtype] = (step_d({"images": x}).float(), step_m({"images": x}).float())
+        del dense, moe
+    (d32, m32), (d16, m16) = feats["float32"], feats["bfloat16"]
+    res = dict(fp32_max_abs=(m32 - d32).abs().max().item(), fp32_feature_max=d32.abs().max().item(),
+               bf16_min_cosine=F.cosine_similarity(m16, d16, dim=1).min().item(),
+               fp32_tol=UPCYCLE_TOL, cosine_floor=COSINE_FLOOR)
+    log(f"upcycled against dense {json.dumps(res)}")
+    if not (res["fp32_max_abs"] <= UPCYCLE_TOL and res["bf16_min_cosine"] >= COSINE_FLOOR):
+        raise AssertionError(f"the upcycled model differs from the dense one: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def train_log():
+    """The training loops' log records at INFO while the block runs (the
+    "Epoch N done" lines carry each epoch's Speed)."""
+    logger = logging.getLogger("mpreid_tpu_torch.train")
+    records, level = [], logger.level
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def speed_from_log(records: list) -> float:
+    """The samples/s of the last "Epoch N done" line among log records."""
+    lines = [r.getMessage() for r in records if "done." in r.getMessage()]
+    return float(re.search(r"Speed: ([0-9.]+)", lines[-1]).group(1))
+
+
+def block_ms(model) -> dict:
+    """Device time of one MoE block and of one dense block of the tower,
+    forward and backward with every weight gradient (bf16, B 64, L 129)."""
+    blocks = model.image_encoder.transformer.resblocks
+    gen = torch.Generator(device=CARD).manual_seed(13)
+    x = torch.randn(BATCH, VISION["l"], model.image_encoder.width, device=CARD,
+                    dtype=model.dtype, generator=gen).requires_grad_(True)
+
+    for p in blocks.parameters():
+        p.requires_grad_(True)
+
+    def fwd_bwd(block):
+        out = block(x)
+        out = out[0] if isinstance(out, tuple) else out  # an MoE block's (x, logits, combine)
+        torch.autograd.grad(out.float().square().mean(), [x, *block.parameters()])
+
+    return dict(moe=cuda_ms(lambda: fwd_bwd(blocks[0]), runs=10, reps=3),
+                dense=cuda_ms(lambda: fwd_bwd(blocks[-1]), runs=10, reps=3))
+
+
+def run_uniprompt_moe(after_1b: dict, images, pids, views, profile: bool) -> dict:
+    """Phase 8's model after stage 1b, upcycled (``switch_to_moe``) under
+    configs/tpu/uniprompt_tuned.yml with MoE 4/2/2: features against the
+    dense model, the all-tie routing at step 0, one stage-2a and one
+    stage-2b epoch through do_train_stage2 over the device-resident train
+    set, and do_inference; each with its attention launches. Then the
+    device time of an MoE block against a dense one and, with ``profile``,
+    the device's busy time and idle share over three traced stage-2b steps."""
+    cfg = tuned_cfg()
+    res = dict(config="configs/ours/cctv_ir_cctv_rgb.yml + configs/tpu/uniprompt_tuned.yml, "
+                      "MODEL.MOE 4 experts top-2 2 layers")
+    res["upcycle"] = upcycle_check(after_1b, images)
+    model = switch_to_moe(cfg, dense_model(cfg, after_1b))
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    blocks = model.image_encoder.transformer.resblocks[:MOE_BENCH["MOE_LAYERS"]]
+    gates = [f"image_encoder.transformer.resblocks.{i}.gate.weight" for i in range(len(blocks))]
+
+    # the upcycled model at step 0: zero gates, every token ties, experts 0 and 1
+    x = eval_preprocess(torch.from_numpy(images[:BATCH]).to(CARD), mean=cfg.INPUT.PIXEL_MEAN,
+                        std=cfg.INPUT.PIXEL_STD)
+    with torch.no_grad():
+        logits = model.image_encoder(x)[3]
+    _, selected = topk_routing(logits[0], MOE_BENCH["TOP_K"])
+    ties = dict(tokens=int(selected.shape[0]), gating_blocks=int(logits.shape[0]),
+                zero_logits=not bool(logits.any()),
+                all_experts_0_1=bool((selected == torch.tensor([0, 1], device=CARD)).all()))
+    log(f"all-tie routing at step 0 {json.dumps(ties)}")
+    if not (ties["zero_logits"] and ties["all_experts_0_1"]):
+        raise AssertionError(f"upcycled routing does not pick experts 0 and 1: {ties}")
+    res["tie_routing"] = ties
+
+    # stage 2a and 2b: one epoch each over the device-resident train set
+    sub = np.flatnonzero(pids < MOE_IDS)
+    batcher = MemoryBatcher(images[sub], pids[sub], BATCH, views[sub])
+    loader = TrainLoader(batcher, RandomIdentitySampler(batcher.records, BATCH, K_INST,
+                                                        seed=int(cfg.SOLVER.SEED)))
+    n = len(epoch_perm(loader, 1, int(cfg.SOLVER.SEED)))
+    n_text = -(-UNI_CLASSES // cfg.SOLVER.STAGE2.IMS_PER_BATCH)
+    loss_fn, _ = make_loss(cfg, UNI_CLASSES)
+    for stage in ("stage2a", "stage2b"):
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage=stage)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with train_log() as records:
+            (state, hist), secs = timed(lambda: do_train_stage2(
+                cfg, model, loader, None, opt, make_scheduler(cfg.SOLVER.STAGE2, "multistep"),
+                loss_fn, QUERY, UNI_CLASSES, max_epochs=1))
+        counts = read_counts()
+        expect_counts(f"MoE {stage} epoch", counts, {
+            "attention_fwd": tdepth * n_text + vdepth * n, "attention_bwd": vdepth * n})
+        with torch.no_grad():
+            aux = load_balancing_loss(model.image_encoder(x)[3][0], MOE_BENCH["TOP_K"]).item()
+        moved = {k: not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters()}
+        experts = [k for k in moved if ".experts." in k]
+        if state.opt_state.step != n or not np.isfinite(hist[0]["loss"]) or not np.isfinite(aux):
+            raise AssertionError(f"MoE {stage}: {state.opt_state.step} steps, {hist}, aux {aux}")
+        if not all(moved[g] for g in gates[:1]) or any(moved[k] for k in experts):
+            raise AssertionError(f"MoE {stage}: gates moved {[moved[g] for g in gates]}, "
+                                 f"experts moved {[k for k in experts if moved[k]]}")
+        res[stage] = dict(steps=n, batch=BATCH, seconds_with_text_and_data=secs,
+                          img_per_s_epoch_log=speed_from_log(records), loss=hist[0]["loss"],
+                          acc=hist[0]["acc"], aux_loss=aux, gates_moved=[moved[g] for g in gates],
+                          experts_moved=any(moved[k] for k in experts), launches=counts,
+                          attention_per_step={"fwd": vdepth, "bwd": vdepth},
+                          launches_by_route=read_routes(),
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"MoE {stage} {json.dumps(res[stage])}")
+
+    res["block_ms"] = block_ms(model)
+    log(f"MoE block against dense block, forward and backward {json.dumps(res['block_ms'])}")
+    if profile:
+        step = make_train_step(model, cfg, loss_fn, opt, uniprompt=True,
+                               text_features=precompute_text_features(cfg, model, UNI_CLASSES))
+        batches = pk_batches(images[sub], pids[sub], 3, seed=14)
+        gen = torch.Generator(device=CARD).manual_seed(15)
+        step(state, batches[0], 1e-6, gen)  # warm-up
+        res["stage2b_profile"] = profile_idle(
+            lambda: [step(state, b, 1e-6, gen) for b in batches],
+            "3 MoE stage-2b steps (bf16, batch 64)")
+
+    loader_eval = InMemoryBatcher(QUERY, GALLERY, cfg.TEST.IMS_PER_BATCH, HW)
+    reset_counts()
+    (r1, r5), secs = timed(lambda: do_inference(cfg, model, loader_eval, QUERY))
+    counts = read_counts()
+    expect_counts("MoE do_inference", counts, {
+        "attention_fwd": vdepth * -(-(QUERY + GALLERY) // cfg.TEST.IMS_PER_BATCH)})
+    res["inference"] = dict(images=QUERY + GALLERY, batch=cfg.TEST.IMS_PER_BATCH, seconds=secs,
+                            feats_per_s=(QUERY + GALLERY) / secs, rank1=float(r1),
+                            rank5=float(r5), launches=counts)
+    log(f"MoE uniprompt {json.dumps(res)}")
+    rate_line("MoE stage-2a / 2b train img/s (uniprompt_tuned.yml, MoE 4/2/2, device epoch, "
+              "batch 64, the epoch's own Speed)",
+              {s: res[s]["img_per_s_epoch_log"] for s in ("stage2a", "stage2b")})
+    return res
+
+
+def moe_cross_checks(images: np.ndarray) -> dict:
+    """One stage-2b step at batch 8 (augmentation off) of an MoE model with
+    distinct random experts and gates, fp32 on the card against fp32 on the
+    CPU: the loss (with the load-balancing term) to LOSS_RTOL, every
+    gradient, the gates' included, to GRAD_RTOL norm-relative (floored at
+    1e-3 of the largest leaf)."""
+    c_cpu = tuned_cfg("float32", device="cpu")
+    cpu_model = make_model_uniprompt(c_cpu, MOE_CHECK_CLASSES, 14, UNI_VIEWS, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(CARD)
+    text = precompute_text_features(c_cpu, cpu_model, MOE_CHECK_CLASSES)
+    target = torch.arange(CHECK_BATCH) // K_INST
+    x = eval_preprocess(torch.from_numpy(images[:CHECK_BATCH]), mean=c_cpu.INPUT.PIXEL_MEAN,
+                        std=c_cpu.INPUT.PIXEL_STD)
+    loss_fn, _ = make_loss(c_cpu, MOE_CHECK_CLASSES)
+    out = {}
+    for name, m, dev in (("cpu", cpu_model, "cpu"), ("card", card_model, CARD)):
+        opt = make_optimizer(c_cpu.SOLVER.STAGE2, m, stage="stage2b")
+        loss, _, grads, _ = loss_and_grads(m, c_cpu, loss_fn, opt, x.to(dev), target.to(dev),
+                                           text_features=text.to(dev))
+        out[name] = (float(loss), {k: g.float().cpu() for k, g in grads.items()})
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
+    floor = 1e-3 * max(g.norm().item() for g in g_cpu.values())
+    gates = [k for k in g_cpu if k.endswith("gate.weight")]
+    res = dict(loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+               worst_grad_rel=max(_rel_err(g_card[k], g, floor) for k, g in g_cpu.items()),
+               worst_gate_grad_rel=max(_rel_err(g_card[k], g_cpu[k], floor) for k in gates),
+               gate_grad_norms=[g_cpu[k].norm().item() for k in gates], leaves=len(g_cpu),
+               loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL)
+    log(f"MoE stage-2b step cross-check {json.dumps(res)}")
+    if not (res["loss_rel"] <= LOSS_RTOL and res["worst_grad_rel"] <= GRAD_RTOL
+            and len(gates) == MOE_BENCH["MOE_LAYERS"] and res["gate_grad_norms"][0] > 0):
+        raise AssertionError(f"the MoE stage-2b step on the card differs from the CPU's: {res}")
+    return res
 
 
 # configs/person/cnn_base.yml, configs/person/cnn_clipreid.yml and
@@ -2156,8 +2582,23 @@ def main() -> None:
     uniprompt_cross_checks(uni.pop("model"), uni.pop("text"))
     log(f"  Uni-Prompt phase seconds {time.perf_counter() - t0:.1f}")
     uni_res = uni["res"]
+    after_1b, uni_data = uni.pop("after_1b"), uni.pop("data")
     del uni
     torch.cuda.empty_cache()
+
+    log("MoE Uni-Prompt (configs/tpu/uniprompt_tuned.yml, MoE 4/2/2) after stage 1b, full width:")
+    t0 = time.perf_counter()
+    moe_res = run_uniprompt_moe(after_1b, *uni_data, args.profile)
+    moe_cross_checks(uni_data[0])
+    del after_1b, uni_data
+    torch.cuda.empty_cache()
+    log(f"  MoE phase seconds {time.perf_counter() - t0:.1f}")
+
+    log("device-resident epoch (TPU.DEVICE_DATASET), ViT-B/16 at Market-1501's train size:")
+    t0 = time.perf_counter()
+    epoch_res = run_device_epoch()
+    torch.cuda.empty_cache()
+    log(f"  device-epoch phase seconds {time.perf_counter() - t0:.1f}")
 
     log("CLIP weights from a local file, and the RN50 backbone, full width:")
     t0 = time.perf_counter()
@@ -2201,6 +2642,9 @@ def main() -> None:
             "launches_eval": slice_res["launches"] if direction == "fwd" else 0,
             "launches_uniprompt": {k: v[name] for k, v in uni_launches.items()},
             "launches_vehicle": vehicle_res["launches"][name],
+            "launches_device_epoch_do_train": epoch_res["res"]["launches"][name],
+            "launches_moe": {k: moe_res[k]["launches"][name]
+                             for k in ("stage2a", "stage2b", "inference")},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             **timing(pick(found, "vision")),

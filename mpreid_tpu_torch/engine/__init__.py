@@ -1,8 +1,10 @@
 from .evaluator import R1mAPEvaluator
-from .processor import do_inference, do_train, run_validation, train_epochs
+from .processor import (
+    build_device_dataset, do_inference, do_train, epoch_perm, run_validation, train_epochs,
+)
 from .steps import (
     loss_and_grads, make_eval_step, make_image_bank_step, make_stage1_step, make_text_step,
-    make_train_step, stage1_loss_and_grads, trainable_params,
+    make_train_epoch, make_train_step, stage1_loss_and_grads, trainable_params,
 )
 from .train_state import TrainState, initial_state
 from .uniprompt import (
@@ -10,9 +12,10 @@ from .uniprompt import (
 )
 
 __all__ = [
-    "R1mAPEvaluator", "TrainState", "build_image_bank", "do_inference", "do_train",
-    "do_train_stage1", "do_train_stage2",
+    "R1mAPEvaluator", "TrainState", "build_device_dataset", "build_image_bank",
+    "do_inference", "do_train", "do_train_stage1", "do_train_stage2", "epoch_perm",
     "initial_state", "loss_and_grads", "make_eval_step", "make_image_bank_step",
-    "make_stage1_step", "make_text_step", "make_train_step", "precompute_text_features",
+    "make_stage1_step", "make_text_step", "make_train_epoch", "make_train_step",
+    "precompute_text_features",
     "run_validation", "stage1_loss_and_grads", "train_epochs", "trainable_params",
 ]

@@ -1,20 +1,28 @@
 """Baseline train and eval loops.
 
 ref mpreid_tpu/engine/processor.py::run_validation, ::do_inference,
-::do_train. ``do_train`` builds the step and the state (``SOLVER.RESUME``
-included) and runs ``train_epochs``, the epoch loop it shares with the
-Uni-Prompt stage 2 (``engine/uniprompt.py``): the lr of each epoch from the
-schedule, the train steps, metrics drained from the device only at log
-points, samples/s with the reference's definition (batch size / time per
-batch), checkpoints and validation at their periods. ``run_validation``
-extracts features batch by batch, then runs the evaluator. The JAX
-package's eval-step cache keyed on ``id(model)`` is not carried over:
-building the step is cheap in eager PyTorch. ``TPU.EVAL_SHARDED``,
-``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` act in the JAX package only over
-a mesh of more than one device, so on one card they do nothing here either
-(``check_tpu_keys`` logs so). Not ported: the mesh itself (the parallel
-slice), the whole-epoch device-resident dataset (``TPU.DEVICE_DATASET``) and
-``TPU.PROFILE_DIR`` tracing, which raise.
+::build_device_dataset, ::epoch_perm, ::do_train. ``do_train`` builds the
+step and the state (``SOLVER.RESUME`` included) and runs ``train_epochs``,
+the epoch loop it shares with the Uni-Prompt stage 2
+(``engine/uniprompt.py``): the lr of each epoch from the schedule, the train
+steps, metrics drained from the device only at log points, samples/s with
+the reference's definition (batch size / time per batch), checkpoints and
+validation at their periods. ``run_validation`` extracts features batch by
+batch, then runs the evaluator. The JAX package's eval-step cache keyed on
+``id(model)`` is not carried over: building the step is cheap in eager
+PyTorch.
+
+``TPU.DEVICE_DATASET``: every train record is decoded once and the uint8
+images and labels live on the model's device (``build_device_dataset``);
+each epoch is one ``steps.make_train_epoch`` call over ``epoch_perm``'s
+index matrix, with no upload or host decode inside it. ``TPU.PROFILE_DIR``
+writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
+steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
+the whole second epoch, into that directory. ``TPU.EVAL_SHARDED``,
+``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` act in the JAX package only
+over a mesh of more than one device, so on one card they do nothing here
+either (``check_tpu_keys`` logs so). Not ported: the mesh itself (the
+parallel slice).
 """
 
 from __future__ import annotations
@@ -32,26 +40,77 @@ from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state, sa
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
 from .evaluator import R1mAPEvaluator
-from .steps import make_eval_step, make_train_step
+from .steps import make_eval_step, make_train_epoch, make_train_step
 from .train_state import initial_state
 
 # TPU keys the JAX package acts on only over a mesh of more than one device
-# (ref processor.py:69, :187; uniprompt.py:192): no-ops on one card
-SINGLE_DEVICE_NOOPS = ("EVAL_SHARDED", "ZERO_OPT_STATE", "TP_TOWERS")
-# the keys a training loop reads: the no-ops above and two that are not ported
-TRAIN_TPU_KEYS = ("DEVICE_DATASET", "TP_TOWERS", "ZERO_OPT_STATE", "PROFILE_DIR")
+# (ref processor.py:69, :187; uniprompt.py:192), so no-ops on one card: the
+# ones a training loop reads (run_validation reads EVAL_SHARDED)
+TRAIN_TPU_KEYS = ("TP_TOWERS", "ZERO_OPT_STATE")
+TRACE_FILE = "trace.json"  # the profiler trace's name in TPU.PROFILE_DIR
 
 
 def check_tpu_keys(cfg, keys, logger) -> None:
-    """Log each set key of ``SINGLE_DEVICE_NOOPS`` as doing nothing on one
-    device; raise for any other set key (not ported yet)."""
+    """Log each set key of ``keys`` (mesh keys) as doing nothing on one device."""
     for key in keys:
-        if not cfg.TPU[key]:
-            continue
-        if key not in SINGLE_DEVICE_NOOPS:
-            raise NotImplementedError(f"TPU.{key} is not ported yet (ROADMAP.md, A.4)")
-        logger.info(f"TPU.{key} does nothing on one device (the JAX package acts on it "
-                    "only over a mesh of more than one)")
+        if cfg.TPU[key]:
+            logger.info(f"TPU.{key} does nothing on one device (the JAX package acts on it "
+                        "only over a mesh of more than one)")
+
+
+def build_device_dataset(train_loader, device: torch.device):
+    """Every train record decoded once, stacked, on ``device``: (uint8
+    images (N, H, W, 3), int32 pids, camids, trackids) (ref
+    ``build_device_dataset``)."""
+    records = train_loader.batcher.records
+    images = torch.from_numpy(np.stack(train_loader.batcher.decode_records(records)))
+
+    def labels(i):
+        return torch.tensor([r[i] for r in records], dtype=torch.int32, device=device)
+
+    return images.to(device), labels(1), labels(2), labels(3)
+
+
+def epoch_perm(train_loader, epoch: int, seed: int) -> np.ndarray:
+    """(n_batches, batch) index matrix of one epoch, full batches only (ref
+    ``epoch_perm``): the PK sampler's order, or without a sampler the
+    ``default_rng(seed + epoch)`` permutation. The batch count is epoch 0's
+    in every epoch: a short epoch wraps around, a long one is truncated."""
+    batcher = train_loader.batcher
+    bs = batcher.batch_size
+    if hasattr(train_loader, "sampler"):
+        idxs = np.asarray(train_loader.sampler.epoch_indices(epoch))
+        n0 = len(train_loader.sampler.epoch_indices(0))
+    else:
+        rng = np.random.default_rng(seed + epoch)
+        idxs = rng.permutation(len(batcher.records))
+        n0 = len(idxs)
+    n_fixed = n0 - n0 % bs
+    if len(idxs) < n_fixed and len(idxs):
+        idxs = np.tile(idxs, -(-n_fixed // len(idxs)))
+    return idxs[:n_fixed].reshape(-1, bs)
+
+
+def start_trace(device: torch.device):
+    """A started ``torch.profiler`` profile: CPU activity, and CUDA's on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof, directory: str, logger) -> None:
+    """Stop ``prof`` (which waits for the device) and write its Chrome trace
+    to ``directory``/``TRACE_FILE``."""
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    logger.info(f"Wrote profiler trace to {path}")
 
 
 def run_validation(cfg, model, val_loader, num_query, logger=None,
@@ -98,51 +157,93 @@ def do_inference(cfg, model, val_loader, num_query: int):
 def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_step, state,
                  scheduler: Callable[[int], float], start_epoch: int, epochs: int,
                  log_period: int, checkpoint_period: int, eval_period: int,
-                 checkpoint_path: Callable[[int], str], logger):
+                 checkpoint_path: Callable[[int], str], logger, train_epoch=None,
+                 profile_dir: str = ""):
     """The epoch loop shared by ``do_train`` and the Uni-Prompt stage 2:
     the lr of each epoch from the schedule, the train steps, metrics drained
     from the device only at log points, samples/s with the reference's
     definition (batch size / time per batch), checkpoints (to
     ``checkpoint_path(epoch)`` when it is not empty) and validation at their
     periods → (state, history). The augmentation draws come from a
-    ``torch.Generator`` on the model's device seeded with ``SOLVER.SEED``."""
+    ``torch.Generator`` on the model's device seeded with ``SOLVER.SEED``.
+
+    With ``train_epoch`` (``steps.make_train_epoch``) the train set is
+    placed on the model's device once and each epoch is one call of it over
+    ``epoch_perm``'s batches; the loss and accuracy come back once, at the
+    epoch's end. ``profile_dir`` traces steps 1..``TPU.PROFILE_STEPS`` of
+    epoch 1, or with ``train_epoch`` the whole second epoch."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(int(cfg.SOLVER.SEED))
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     batch_size = train_loader.batcher.batch_size
     history = []
+    data = None
+    if train_epoch is not None:
+        data = build_device_dataset(train_loader, device)
+        logger.info(f"Device-resident dataset: {data[0].shape[0]} images, "
+                    f"{sum(t.nbytes for t in data)} bytes on {device}")
 
     for epoch in range(start_epoch, epochs + 1):
         start_time = time.time()
         loss_meter.reset()
         acc_meter.reset()
         lr = scheduler(epoch)
-        pending = []  # device scalars, fetched only at log points
 
-        def drain():
-            for m in pending:
-                loss_meter.update(float(m["loss"]), batch_size)
-                acc_meter.update(float(m["acc"]), 1)
-            pending.clear()
+        if data is not None:
+            perm = epoch_perm(train_loader, epoch, cfg.SOLVER.SEED)
+            if not len(perm):
+                raise RuntimeError("empty training epoch — dataset smaller than one batch")
+            # the second epoch: the first carries the warm-up
+            prof = start_trace(device) if profile_dir and epoch == start_epoch + 1 else None
+            state, (losses, accs) = train_epoch(state, *data, perm, lr, gen)
+            if prof is not None:
+                stop_trace(prof, profile_dir, logger)
+            for loss, acc in zip(losses.tolist(), accs.tolist()):
+                loss_meter.update(loss, batch_size)
+                acc_meter.update(acc, 1)
+            n_batches = len(perm)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            time_per_batch = (time.time() - start_time) / max(n_batches, 1)
+            logger.info(
+                "Epoch {} done. Loss: {:.3f}, Acc: {:.3f}, Time per batch: {:.3f}[s] "
+                "Speed: {:.1f}[samples/s]".format(epoch, loss_meter.avg, acc_meter.avg,
+                                                   time_per_batch, batch_size / time_per_batch))
+        else:
+            pending = []  # device scalars, fetched only at log points
 
-        n_iter = -1
-        for n_iter, batch in enumerate(train_loader.epoch(epoch)):
-            state, metrics = train_step(state, batch, lr, gen)
-            pending.append(metrics)
-            if (n_iter + 1) % log_period == 0:
-                drain()
-                logger.info(
-                    "Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Acc: {:.3f}, Base Lr: {:.2e}".format(
-                        epoch, n_iter + 1, len(train_loader), loss_meter.avg,
-                        acc_meter.avg, lr))
-        drain()
-        if n_iter < 0:
-            raise RuntimeError("empty training epoch — dataset smaller than one batch")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        time_per_batch = (time.time() - start_time) / (n_iter + 1)
-        logger.info("Epoch {} done. Time per batch: {:.3f}[s] Speed: {:.1f}[samples/s]".format(
-            epoch, time_per_batch, batch_size / time_per_batch))
+            def drain():
+                for m in pending:
+                    loss_meter.update(float(m["loss"]), batch_size)
+                    acc_meter.update(float(m["acc"]), 1)
+                pending.clear()
+
+            n_iter = -1
+            prof = None
+            for n_iter, batch in enumerate(train_loader.epoch(epoch)):
+                if profile_dir and epoch == 1 and n_iter == 1:
+                    prof = start_trace(device)
+                state, metrics = train_step(state, batch, lr, gen)
+                pending.append(metrics)
+                if prof is not None and n_iter == cfg.TPU.PROFILE_STEPS:
+                    stop_trace(prof, profile_dir, logger)
+                    prof = None
+                if (n_iter + 1) % log_period == 0:
+                    drain()
+                    logger.info(
+                        "Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Acc: {:.3f}, Base Lr: {:.2e}"
+                        .format(epoch, n_iter + 1, len(train_loader), loss_meter.avg,
+                                acc_meter.avg, lr))
+            if prof is not None:  # the epoch ended inside the traced steps
+                stop_trace(prof, profile_dir, logger)
+            drain()
+            if n_iter < 0:
+                raise RuntimeError("empty training epoch — dataset smaller than one batch")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            time_per_batch = (time.time() - start_time) / (n_iter + 1)
+            logger.info("Epoch {} done. Time per batch: {:.3f}[s] Speed: {:.1f}[samples/s]"
+                        .format(epoch, time_per_batch, batch_size / time_per_batch))
         history.append({"epoch": epoch, "loss": loss_meter.avg, "acc": acc_meter.avg})
 
         path = checkpoint_path(epoch)
@@ -158,7 +259,8 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
              centers: Optional[torch.Tensor] = None, max_epochs: Optional[int] = None):
     """Baseline training loop (ref processor.py:11-164) → (state, history).
 
-    ``train_loader.epoch(e)`` yields numpy batches."""
+    ``train_loader.epoch(e)`` yields numpy batches; with ``TPU.DEVICE_DATASET``
+    its records are decoded once onto the model's device instead."""
     solver = cfg.SOLVER
     epochs = max_epochs or solver.MAX_EPOCHS
     logger = logging.getLogger("mpreid_tpu_torch.train")
@@ -166,9 +268,11 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
     logger.info("start training")
 
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
-    center_weight = solver.CENTER_LOSS_WEIGHT if with_center else None
-    train_step = make_train_step(model, cfg, loss_fn, optimizer, center_weight=center_weight,
-                                 center_lr=solver.CENTER_LR if with_center else None)
+    center = dict(center_weight=solver.CENTER_LOSS_WEIGHT if with_center else None,
+                  center_lr=solver.CENTER_LR if with_center else None)
+    train_step = make_train_step(model, cfg, loss_fn, optimizer, **center)
+    train_epoch = make_train_epoch(model, cfg, loss_fn, optimizer, **center) \
+        if cfg.TPU.DEVICE_DATASET else None
     state = initial_state(model, optimizer, centers=centers if with_center else None)
     start_epoch = 1
     if solver.RESUME:
@@ -180,6 +284,6 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
         cfg, model, train_loader, val_loader, num_query, train_step, state, scheduler,
         start_epoch, epochs, solver.LOG_PERIOD, solver.CHECKPOINT_PERIOD, solver.EVAL_PERIOD,
         lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
-        logger)
+        logger, train_epoch, cfg.TPU.PROFILE_DIR)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history

@@ -1,7 +1,7 @@
 """Train and eval steps.
 
 ref mpreid_tpu/engine/steps.py::make_train_step, ::_train_step_impl,
-::make_eval_step, ::make_image_bank_step, ::make_text_step,
+::make_train_epoch, ::make_eval_step, ::make_image_bank_step, ::make_text_step,
 ::make_stage1_step, ::_stage1_step_impl. The JAX package compiles one
 program per step; PyTorch runs eagerly, so each step is a closure. The train
 step moves the uint8 batch to the model's device, augments it there
@@ -15,10 +15,10 @@ and the trainable ones ``True`` (``trainable_params``), so autograd computes
 no weight gradient for a frozen tower (the JAX package differentiates with
 respect to the trainable partition only). A trainable parameter that the
 loss does not reach gets a zero gradient, as under ``jax.value_and_grad``,
-so the optimizer's coupled L2 still moves it. The whole-epoch scans of
+so the optimizer's coupled L2 still moves it (an MoE tower's unused gates
+under shared routing, for one). The whole-epoch scans of
 ``TPU.DEVICE_DATASET`` (``make_train_epoch``) and of stage 1
-(``make_stage1_epoch``) are Python loops of the steps here
-(``engine/uniprompt.py``); the former is not ported.
+(``make_stage1_epoch``) are Python loops over the steps here.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from mpreid_tpu_torch.losses import center_loss, supcon_loss
+from mpreid_tpu_torch.models.moe import load_balancing_loss
 from mpreid_tpu_torch.ops.augment import eval_preprocess, train_augment
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
 
@@ -74,6 +75,7 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
                    centers: Optional[torch.Tensor] = None,
                    center_weight: Optional[float] = None,
                    text_features: Optional[torch.Tensor] = None,
+                   gen: Optional[torch.Generator] = None,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor],
                               Optional[torch.Tensor]]:
     """Loss, accuracy, ``{name: gradient}`` over the trainable parameters and
@@ -83,16 +85,25 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
     With ``text_features`` (Uni-Prompt stage 2, one row per class) the loss
     takes score head 0, feature head 1 and the fp32 image-to-text logits
     ``img_feature_proj · text_featuresᵀ``, and the accuracy comes from those
-    logits (ref processor_uniprompt_stage2.py:110-143)."""
+    logits (ref processor_uniprompt_stage2.py:110-143). Under
+    ``MODEL.MOE.ENABLED`` an MoE tower's router logits add
+    ``MODEL.MOE.AUX_LOSS_COEFF`` × the mean over gating blocks of
+    ``load_balancing_loss`` (ref mpreid_tpu/engine/steps.py:70-75). ``gen`` draws the MoE
+    experts' dropout."""
     train = trainable_params(model, optimizer)
+    aux_coeff = cfg.MODEL.MOE.AUX_LOSS_COEFF if cfg.MODEL.MOE.ENABLED else 0.0
     with torch.enable_grad():
-        out = model.forward_train(x, target, cam, view)
+        out = model.forward_train(x, target, cam, view, gen=gen)
         if text_features is not None:
             logits = torch.matmul(out["img_feature_proj"].float(), text_features.float().t())
             loss = loss_fn(out["scores"][0], out["feats"][1], target, cam, logits)
         else:
             logits = out["scores"][0]
             loss = loss_fn(out["scores"], out["feats"], target, cam)
+        if aux_coeff and "router_logits" in out:
+            top_k = cfg.MODEL.MOE.TOP_K
+            aux = torch.stack([load_balancing_loss(rl, top_k) for rl in out["router_logits"]])
+            loss = loss + aux_coeff * aux.mean()
         inputs = list(train.values())
         if center_weight is not None:
             centers = centers.detach().requires_grad_(True)
@@ -103,6 +114,31 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
     named = dict(zip(train, grads))
     cgrad = grads[-1] if center_weight is not None else None
     return loss.detach(), acc, named, cgrad
+
+
+def _make_step_body(model, cfg, loss_fn: Callable, optimizer, center_weight, center_lr,
+                    uniprompt: bool, text_features):
+    """The body shared by ``make_train_step`` and ``make_train_epoch`` (ref
+    ``_train_step_impl``): ``body(state, images, target, cam, view, lr, gen)``
+    on device tensors augments the uint8 batch with ``gen``, takes the loss
+    and gradients and updates the state in place → (state, {"loss", "acc"})."""
+    aug = augment_args(cfg)
+    device = _device_of(model)
+    center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None
+    text = text_features.to(device) if uniprompt and text_features is not None else None
+
+    def body(state: TrainState, images, target, cam, view, lr: float, gen: torch.Generator):
+        x = train_augment(images, gen, **aug)
+        loss, acc, grads, cgrad = loss_and_grads(
+            state.model, cfg, loss_fn, optimizer, x, target.long(), cam, view,
+            state.centers, center_weight, text, gen)
+        if center_opt is not None:
+            state.centers = center_opt.update(cgrad, state.centers).detach()
+        train, _ = optimizer.partition(state.model)
+        state.opt_state = optimizer.update(grads, state.opt_state, train, lr)
+        return state, {"loss": loss, "acc": acc}
+
+    return body
 
 
 def make_train_step(model, cfg, loss_fn: Callable, optimizer,
@@ -116,30 +152,59 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
 
     ``batch`` holds uint8 ``images`` (B, H, W, 3) and int ``pids``,
     ``camids``, ``trackids``, as numpy arrays or tensors; ``gen`` is a
-    ``torch.Generator`` on the model's device that draws the augmentation.
-    With ``center_weight`` the center loss joins, and the centers take an
-    SGD step on their gradient rescaled by 1/``center_weight``. With
-    ``uniprompt`` and ``text_features`` the image-to-text term joins
-    (``loss_and_grads``)."""
-    aug = augment_args(cfg)
+    ``torch.Generator`` on the model's device that draws the augmentation
+    (and the MoE experts' dropout). With ``center_weight`` the center loss
+    joins, and the centers take an SGD step on their gradient rescaled by
+    1/``center_weight``. With ``uniprompt`` and ``text_features`` the
+    image-to-text term joins (``loss_and_grads``)."""
     device = _device_of(model)
-    center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None
-    text = text_features.to(device) if uniprompt and text_features is not None else None
+    body = _make_step_body(model, cfg, loss_fn, optimizer, center_weight, center_lr,
+                           uniprompt, text_features)
 
     def step(state: TrainState, batch, lr: float, gen: torch.Generator):
-        x = train_augment(_to(device, batch["images"]), gen, **aug)
-        target = _to(device, batch["pids"]).long()
         cam, view = (_to(device, a) for a in labels_for(cfg, batch))
-        loss, acc, grads, cgrad = loss_and_grads(
-            state.model, cfg, loss_fn, optimizer, x, target, cam, view,
-            state.centers, center_weight, text)
-        if center_opt is not None:
-            state.centers = center_opt.update(cgrad, state.centers).detach()
-        train, _ = optimizer.partition(state.model)
-        state.opt_state = optimizer.update(grads, state.opt_state, train, lr)
-        return state, {"loss": loss, "acc": acc}
+        return body(state, _to(device, batch["images"]), _to(device, batch["pids"]), cam, view,
+                    lr, gen)
 
     return step
+
+
+def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
+                     center_weight: Optional[float] = None,
+                     center_lr: Optional[float] = None,
+                     uniprompt: bool = False,
+                     text_features: Optional[torch.Tensor] = None):
+    """A whole epoch over a device-resident dataset (``TPU.DEVICE_DATASET``,
+    ref ``make_train_epoch``) →
+    ``epoch(state, images, pids, camids, trackids, perm, lr, gen) →
+    (state, (losses, accs))``.
+
+    ``images`` (N, H, W, 3) uint8 and the int label vectors live on the
+    model's device (``processor.build_device_dataset``); ``perm`` is the
+    (n_batches, B) index matrix of the epoch (``processor.epoch_perm``),
+    uploaded once. For each row the batch is gathered on the device by
+    index and goes through the step's own body, so from the same state and
+    generator the epoch equals ``make_train_step`` over the same batches bit
+    for bit. Losses and accuracies stay on the device until the epoch ends:
+    nothing in the epoch waits for it."""
+    device = _device_of(model)
+    body = _make_step_body(model, cfg, loss_fn, optimizer, center_weight, center_lr,
+                           uniprompt, text_features)
+    sie_cam, sie_view = cfg.MODEL.SIE_CAMERA, cfg.MODEL.SIE_VIEW
+
+    def epoch(state: TrainState, images, pids, camids, trackids, perm, lr: float,
+              gen: torch.Generator):
+        losses, accs = [], []
+        for idx in torch.as_tensor(perm).to(device):
+            cam = camids.index_select(0, idx) if sie_cam else None
+            view = trackids.index_select(0, idx) if sie_view else None
+            state, metrics = body(state, images.index_select(0, idx), pids.index_select(0, idx),
+                                  cam, view, lr, gen)
+            losses.append(metrics["loss"])
+            accs.append(metrics["acc"])
+        return state, (torch.stack(losses), torch.stack(accs))
+
+    return epoch
 
 
 def make_eval_step(model, cfg):

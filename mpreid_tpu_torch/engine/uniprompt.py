@@ -12,15 +12,18 @@ full batches and then the trailing partial one, so both packages' epochs see
 the same batches; the views enter in 1b only. The JAX package's scanned epoch
 (``make_stage1_epoch``) is a Python loop of ``make_stage1_step`` here.
 Stage 2 (a/b): text features of every class are computed once, then the
-model fine-tunes with ID + triplet + i2t losses under the stage's freeze
-policy, through the baseline's epoch loop (``processor.train_epochs``).
+model fine-tunes with ID + triplet + i2t losses (and, with the MoE tower,
+the load-balancing loss) under the stage's freeze policy, through the
+baseline's epoch loop (``processor.train_epochs``), over the device-resident
+train set with ``TPU.DEVICE_DATASET``.
 The four freeze regimes are four optimizers over one model
 (``solver.optim.stage_trainable``). Checkpoints are full-state ``.pth``
 files: ``{NAME}_stage{1a,1b}_{epoch}.pth`` under ``OUTPUT_DIR`` and
-``{NAME}_{epoch}.pth`` under ``OUTPUT_DIR/EXP_SETTING``. Not ported: the
-mesh branch of stage 2 (ROADMAP A11, so ``TPU.ZERO_OPT_STATE`` and
-``TPU.TP_TOWERS`` do nothing on one card), ``TPU.DEVICE_DATASET`` and
-``TPU.PROFILE_DIR``.
+``{NAME}_{epoch}.pth`` under ``OUTPUT_DIR/EXP_SETTING``. Stage 2 traces
+nothing: the JAX package's stage 2 never reads ``TPU.PROFILE_DIR``, and
+here it is logged as doing nothing. Not ported: the mesh branch of stage 2
+(ROADMAP A11, so ``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` do nothing on
+one card).
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ from mpreid_tpu_torch.utils.checkpoint import save_checkpoint
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
 from .processor import TRAIN_TPU_KEYS, check_tpu_keys, do_inference, train_epochs
-from .steps import make_image_bank_step, make_stage1_step, make_text_step, make_train_step
+from .steps import (
+    make_image_bank_step, make_stage1_step, make_text_step, make_train_epoch, make_train_step,
+)
 from .train_state import initial_state
 
 __all__ = ["build_image_bank", "do_inference", "do_train_stage1", "do_train_stage2",
@@ -141,22 +146,27 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
     """Stage-2 fine-tune (ref processor_uniprompt_stage2.py:14-223) →
     (state, history)."""
     check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
+    if cfg.TPU.PROFILE_DIR:
+        logger.info("TPU.PROFILE_DIR does nothing in stage 2 (the JAX package traces only "
+                    "the baseline loop)")
     s2 = cfg.SOLVER.STAGE2
     logger.info("start training")
     all_start = time.monotonic()
     text_features = precompute_text_features(cfg, model, num_classes)
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
-    train_step = make_train_step(
-        model, cfg, loss_fn, optimizer,
-        center_weight=s2.CENTER_LOSS_WEIGHT if with_center else None,
-        center_lr=s2.CENTER_LR if with_center else None,
-        uniprompt=True, text_features=text_features)
+    kwargs = dict(center_weight=s2.CENTER_LOSS_WEIGHT if with_center else None,
+                  center_lr=s2.CENTER_LR if with_center else None,
+                  uniprompt=True, text_features=text_features)
+    train_step = make_train_step(model, cfg, loss_fn, optimizer, **kwargs)
+    train_epoch = make_train_epoch(model, cfg, loss_fn, optimizer, **kwargs) \
+        if cfg.TPU.DEVICE_DATASET else None
     state = initial_state(model, optimizer, centers=centers if with_center else None)
     out_dir = cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, cfg.DATASETS.EXP_SETTING)
     state, history = train_epochs(
         cfg, model, train_loader_stage2, val_loader, num_query, train_step, state, scheduler,
         1, max_epochs or s2.MAX_EPOCHS, log_period or s2.LOG_PERIOD,
         checkpoint_period or s2.CHECKPOINT_PERIOD, eval_period or s2.EVAL_PERIOD,
-        lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger)
+        lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger,
+        train_epoch)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history

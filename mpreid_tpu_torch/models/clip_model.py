@@ -115,8 +115,6 @@ def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32
             width=cfg.vision_width,
             dtype=dtype,
         )
-    if cfg.use_moe:
-        raise NotImplementedError("the MoE vision tower is not ported yet (ROADMAP.md, A7)")
     return VisionTransformer(
         h_resolution=cfg.h_resolution,
         w_resolution=cfg.w_resolution,
@@ -129,6 +127,11 @@ def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32
         dtype=dtype,
         lora_rank=cfg.lora_rank,
         lora_alpha=cfg.lora_alpha,
+        num_experts=cfg.num_experts if cfg.use_moe else 0,
+        top_k=cfg.top_k,
+        moe_layers=cfg.moe_layers,
+        dropout=cfg.dropout,
+        shared_routing=cfg.shared_routing,
     )
 
 

@@ -13,7 +13,11 @@ LayerNorm/BN ``scale`` → ``weight`` and ``mean``/``var`` → ``running_*``
 (``layer1_0`` → ``layer1.0``, ``downsample_conv``/``downsample_bn`` →
 ``downsample.0``/``.1``), and renames the Uni-Prompt subtrees (``text`` →
 ``text_encoder``, ``fusion_fc*`` → ``image_fusion_net.fc*``,
-``ve_linear*`` → ``prompt_learner.visual_enhanced_net.linear*``). LoRA
+``ve_linear*`` → ``prompt_learner.visual_enhanced_net.linear*``), and maps
+an MoE block ``moe_resblocks_{i}`` to the reference's
+``…resblocks.{i}.gate.weight`` and ``…experts.{m}.c_{fc,proj}.{weight,bias}``
+(ref ``_export_vit_visual``; the layout ``_convert_vit_moe_trained`` reads,
+and the one ``load_param`` reads strictly into an MoE model). LoRA
 adapters are folded into in_proj (the reference layout, which has no
 adapter keys), or carried as ``attn.lora_a``/``attn.lora_b`` for a port
 model built with adapters (``keep_lora``). ``load_param`` reads a
@@ -81,8 +85,17 @@ def _block(sub, prefix: str, out: Dict[str, torch.Tensor], lora_alpha: float,
     out[f"{prefix}.attn.out_proj.bias"] = _t(attn["out_proj_bias"])
     _norm(sub["ln_1"], f"{prefix}.ln_1", out)
     _norm(sub["ln_2"], f"{prefix}.ln_2", out)
-    _dense(sub["mlp"]["c_fc"], f"{prefix}.mlp.c_fc", out)
-    _dense(sub["mlp"]["c_proj"], f"{prefix}.mlp.c_proj", out)
+    if "mlp" in sub:
+        _dense(sub["mlp"]["c_fc"], f"{prefix}.mlp.c_fc", out)
+        _dense(sub["mlp"]["c_proj"], f"{prefix}.mlp.c_proj", out)
+        return
+    # an MoE block (ref convert.py::_export_vit_visual): the gate and each expert
+    out[f"{prefix}.gate.weight"] = _t(sub["gate_kernel"]).T.contiguous()
+    experts = sub["experts"]
+    for m in range(np.shape(experts["c_fc_kernel"])[0]):
+        for name in ("c_fc", "c_proj"):
+            _dense({"kernel": experts[f"{name}_kernel"][m], "bias": experts[f"{name}_bias"][m]},
+                   f"{prefix}.experts.{m}.{name}", out)
 
 
 def _bn(params, stats, prefix: str, out: Dict[str, torch.Tensor]) -> None:
@@ -116,8 +129,9 @@ def _vit(vp, clip_config: CLIPConfig, out: Dict[str, torch.Tensor], keep_lora: b
     _norm(vp["ln_pre"], f"{pre}.ln_pre", out)
     inv_perm = clip_config.jax_perm_inverse("vision")
     for i in range(clip_config.vision_layers):
-        _block(vp[f"resblocks_{i}"], f"{pre}.transformer.resblocks.{i}", out,
-               clip_config.lora_alpha, inv_perm, keep_lora)
+        _block(vp.get(f"moe_resblocks_{i}") or vp[f"resblocks_{i}"],
+               f"{pre}.transformer.resblocks.{i}", out, clip_config.lora_alpha, inv_perm,
+               keep_lora)
     _norm(vp["ln_post"], f"{pre}.ln_post", out)
     out[f"{pre}.proj"] = _t(vp["proj"])
 
@@ -156,8 +170,6 @@ def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig,
     unknown = sorted(set(params) - set(_REID_KEYS) - set(_UNIPROMPT_KEYS))
     if unknown:
         raise ValueError(f"not a baseline or Uni-Prompt variable tree; unported keys {unknown}")
-    if clip_config.use_moe:
-        raise NotImplementedError("the MoE vision tower is not ported yet (ROADMAP.md, A7)")
     out: Dict[str, torch.Tensor] = {}
     if clip_config.is_vit:
         _vit(params["visual"], clip_config, out, keep_lora)

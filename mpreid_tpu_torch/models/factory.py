@@ -3,14 +3,15 @@ and OpenAI CLIP weights grafted into a model.
 
 ref mpreid_tpu/models/factory.py::clip_config_from_cfg, ::make_model,
 ::make_model_uniprompt, ::init_variables, ::graft_clip_variables,
-::load_pretrained.
+::load_pretrained, ::switch_to_moe.
 
 The (h, w) token grid follows ref ``make_model.py:60-62``:
 ``h_res = (SIZE_TRAIN[0] - 16) // STRIDE[0] + 1`` (and likewise for w).
 Weights start random from a ``torch.Generator`` seeded with
 ``SOLVER.SEED``; ``load_pretrained`` replaces the towers with OpenAI CLIP
 weights from ``MODEL.PRETRAIN_PATH``, and ``models/convert.py::load_param``
-overwrites everything from a reference ``.pth``.
+overwrites everything from a reference ``.pth``. ``switch_to_moe`` upcycles a
+dense model to its MoE variant (the Uni-Prompt pipeline, after stage 1b).
 """
 
 from __future__ import annotations
@@ -115,6 +116,49 @@ def make_model_uniprompt(cfg, num_class: int, camera_num: int, view_num: int,
     (the JAX package's init distributions), in eval mode on ``device``."""
     return _initialised(cfg, build_model_uniprompt(cfg, num_class, camera_num, view_num),
                         device)
+
+
+def switch_to_moe(cfg, model: ReIDModel) -> ReIDModel:
+    """The MoE variant of a trained dense model ("upcycling", ref
+    ``switch_to_moe``): the model rebuilt with ``MODEL.MOE``'s experts, each
+    expert of block i a copy of the dense block i's MLP, the gates zero (so
+    every token ties and routes uniformly at step 0), everything else copied,
+    LoRA adapters and BatchNorm statistics included. On the model's device,
+    in eval mode. A no-op (the same model back) when ``MODEL.MOE.ENABLED`` is
+    off or the model is MoE already."""
+    moe = cfg.MODEL.MOE
+    if not moe.ENABLED or model.clip_config.use_moe:
+        return model
+    clip = dataclasses.replace(
+        model.clip_config,
+        num_experts=moe.NUM_EXPERTS,
+        top_k=moe.TOP_K,
+        moe_layers=moe.MOE_LAYERS,
+        dropout=moe.DROPOUT,
+        shared_routing=moe.SHARED_ROUTING,
+        lora_rank=cfg.SOLVER.LORA.LORA_R if cfg.SOLVER.LORA.ENABLED else 0,
+        lora_alpha=float(cfg.SOLVER.LORA.LORA_ALPHA),
+        vision_layout=cfg.MODEL.ATTN_LAYOUT_VISION,
+        text_layout=cfg.MODEL.ATTN_LAYOUT_TEXT,
+    )
+    device = next(model.parameters()).device
+    new = type(model)(clip, model.classifier.weight.shape[0], model.camera_num, model.view_num,
+                      model.sie_camera, model.sie_view, model.sie_coe, model.neck_feat,
+                      dtype=model.dtype).to(device)
+    old = model.state_dict()
+    sd = {}
+    for key, t in new.state_dict().items():
+        if key in old:
+            sd[key] = old[key]
+        elif ".experts." in key:  # resblocks.{i}.experts.{m}.c_fc.weight ← resblocks.{i}.mlp.c_fc.weight
+            block, leaf = key.split(".experts.")
+            sd[key] = old[f"{block}.mlp.{leaf.split('.', 1)[1]}"]
+        elif key.endswith(".gate.weight"):
+            sd[key] = torch.zeros_like(t)
+        else:
+            raise KeyError(f"switch_to_moe: no source for {key}")
+    new.load_state_dict(sd, strict=True)
+    return new.eval()
 
 
 def graft_clip_weights(model: torch.nn.Module, clip_sd: Dict[str, torch.Tensor]

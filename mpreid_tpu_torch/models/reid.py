@@ -11,7 +11,8 @@ ref mpreid_tpu/models/reid.py::ReIDModel (``_sie``, ``backbone_features``,
 * train forward → ``{"scores": [cls_score, cls_score_proj],
   "feats": [feat_last, feat, feat_proj]}``: BNNecks in train mode (batch
   statistics, running statistics updated), fp32 logits on the BN features,
-  ``feat_last`` the class token after L-1 blocks (before ``ln_post``),
+  ``feat_last`` the class token after L-1 blocks (before ``ln_post``; the
+  MoE tower's after all L), plus ``router_logits`` from the MoE tower,
 * eval forward → the 1280-d (ViT-B/16) or 3072-d (RN50) concat of
   post-BN (``neck_feat='after'``) or pre-BN (``'before'``) features, in the
   compute dtype. ``train=True`` reaches the RN50 tower's BatchNorms in the
@@ -92,36 +93,48 @@ class ReIDModel(nn.Module):
             return None
         return self.sie_coe * self.cv_embed[idx.long()]
 
-    def backbone_features(self, x, cam_label=None, view_label=None, train: bool = False):
-        """→ (feat_last, feat, feat_proj, raw_proj_tokens): class-token (ViT)
-        or pooled (RN50) vectors; the RN50 tokens are (L, B, out)."""
+    def backbone_features(self, x, cam_label=None, view_label=None, train: bool = False,
+                          gen: Optional[torch.Generator] = None):
+        """→ (feat_last, feat, feat_proj, raw_proj_tokens, router_logits):
+        class-token (ViT) or pooled (RN50) vectors; the RN50 tokens are
+        (L, B, out); the MoE tower's (n_gating, N, E) router logits or None.
+        ``gen`` draws the MoE experts' dropout in training."""
         cv = self._sie(cam_label, view_label)
         if self.clip_config.is_vit:
-            x11, x12, xproj = self.image_encoder(x, cv)
-            return x11[:, 0], x12[:, 0], xproj[:, 0], xproj
+            x11, x12, xproj, router_logits = self.image_encoder(x, cv, train=train, gen=gen)
+            return x11[:, 0], x12[:, 0], xproj[:, 0], xproj, router_logits
         x3, x4, xproj = self.image_encoder(x, cv, train=train)
-        return spatial_mean(x3), spatial_mean(x4), xproj[0], xproj
+        return spatial_mean(x3), spatial_mean(x4), xproj[0], xproj, None
 
     def token(self, xproj: torch.Tensor, i: int) -> torch.Tensor:
         """Projected token ``i`` of every image: (B, L, out) for the ViT,
         (L, B, out) for RN50."""
         return xproj[:, i] if self.clip_config.is_vit else xproj[i]
 
-    def forward_train(self, x, label=None, cam_label=None, view_label=None) -> dict:
+    def forward_train(self, x, label=None, cam_label=None, view_label=None,
+                      gen: Optional[torch.Generator] = None) -> dict:
         """``label`` is unused by the plain classifiers (margin heads, which
-        take it, are not ported); it keeps the JAX package's signature."""
-        feat_last, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label,
-                                                               train=True)
+        take it, are not ported); it keeps the JAX package's signature. The
+        MoE tower adds ``router_logits``."""
+        return self._forward_train(x, cam_label, view_label, gen)[0]
+
+    def _forward_train(self, x, cam_label, view_label, gen) -> tuple:
+        """→ (the train outputs, the raw projected tokens)."""
+        feat_last, feat, feat_proj, raw_proj, router_logits = self.backbone_features(
+            x, cam_label, view_label, train=True, gen=gen)
         feat_bn = self.bottleneck(feat, train=True)
         feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
-        return {
+        out = {
             "scores": [classifier_scores(self.classifier, feat_bn),
                        classifier_scores(self.classifier_proj, feat_proj_bn)],
             "feats": [feat_last, feat, feat_proj],
         }
+        if router_logits is not None:
+            out["router_logits"] = router_logits
+        return out, raw_proj
 
     def forward_eval(self, x, cam_label=None, view_label=None) -> torch.Tensor:
-        _, feat, feat_proj, _ = self.backbone_features(x, cam_label, view_label)
+        _, feat, feat_proj, _, _ = self.backbone_features(x, cam_label, view_label)
         if self.neck_feat == "after":
             return torch.cat([self.bottleneck(feat), self.bottleneck_proj(feat_proj)], dim=1)
         return torch.cat([feat, feat_proj], dim=1)

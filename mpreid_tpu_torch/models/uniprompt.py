@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .clip_model import CLIPConfig, make_text_tower
-from .layers import Linear, classifier_scores, init_normal_
+from .layers import Linear, init_normal_
 from .reid import ReIDModel
 from .tokenizer import tokenize
 
@@ -180,18 +180,13 @@ class UniPromptReID(ReIDModel):
         return self.image_fusion_net(torch.cat([image_feature, text_feature], dim=-1))
 
     # ------------------------------------------------------------------ main
-    def forward_train(self, x, label=None, cam_label=None, view_label=None) -> dict:
-        """The baseline's train outputs plus ``img_feature_proj`` (the
-        projected class or mean token) and ``image_features_proj_raw`` (all
-        projected tokens, in the tower's own layout)."""
-        feat_last, feat, feat_proj, raw_proj = self.backbone_features(x, cam_label, view_label,
-                                                                       train=True)
-        feat_bn = self.bottleneck(feat, train=True)
-        feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
-        return {
-            "scores": [classifier_scores(self.classifier, feat_bn),
-                       classifier_scores(self.classifier_proj, feat_proj_bn)],
-            "feats": [feat_last, feat, feat_proj],
-            "img_feature_proj": feat_proj,
-            "image_features_proj_raw": raw_proj,
-        }
+    def forward_train(self, x, label=None, cam_label=None, view_label=None,
+                      gen: Optional[torch.Generator] = None) -> dict:
+        """The baseline's train outputs (``router_logits`` included) plus
+        ``img_feature_proj`` (the projected class or mean token) and
+        ``image_features_proj_raw`` (all projected tokens, in the tower's own
+        layout)."""
+        out, raw_proj = self._forward_train(x, cam_label, view_label, gen)
+        out["img_feature_proj"] = out["feats"][2]
+        out["image_features_proj_raw"] = raw_proj
+        return out

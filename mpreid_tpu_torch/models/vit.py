@@ -6,10 +6,16 @@ The public input is NHWC, as in the JAX package. Patchify with stride equal
 to the patch is a space-to-depth reshape plus one fp32-accumulated matmul
 (no cuDNN, so no TF32); overlapping patches (stride < patch) unfold and
 multiply in the activation dtype, as the JAX package's conv does. The
-tower returns ``(x11, x12, xproj)``: tokens after L-1 blocks, tokens after
-all L blocks through ``ln_post``, and ``x12 @ proj``. The MoE path belongs
-to a later slice. ``resize_pos_embed`` carries a CLIP file's square grid of
-positions to the model's (h, w) grid.
+tower returns ``(x11, x12, xproj, router_logits)``: tokens after L-1
+blocks, tokens after all L blocks through ``ln_post``, ``x12 @ proj``, and
+None. With ``num_experts`` > 0 the first ``moe_layers`` blocks (-1: all)
+are MoE blocks (models/moe.py); with ``shared_routing`` block 0's combine
+weights route every later MoE block and only block 0's logits are kept.
+Then ``router_logits`` is the (n_gating, N, E) fp32 stack and ``x11`` is
+the last block's output (ref model.py:450-454), not the penultimate one's.
+``train`` and ``gen`` reach the experts' dropout only.
+``resize_pos_embed`` carries a CLIP file's square grid of positions to the
+model's (h, w) grid.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import LayerNorm, ResidualAttentionBlock, init_normal_, linear_f32acc
+from .moe import MoEResidualAttentionBlock
 
 
 class PatchEmbed(nn.Module):
@@ -57,12 +64,17 @@ class PatchEmbed(nn.Module):
 
 
 class Transformer(nn.Module):
+    """``resblocks``: ``n_moe`` MoE blocks, then dense ones."""
+
     def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0, n_moe: int = 0,
+                 num_experts: int = 0, top_k: int = 0, dropout: float = 0.0):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads, dtype, lora_rank, lora_alpha)
-             for _ in range(layers)]
+            [MoEResidualAttentionBlock(width, heads, num_experts, top_k, dropout, dtype,
+                                       lora_rank, lora_alpha) for _ in range(n_moe)]
+            + [ResidualAttentionBlock(width, heads, dtype, lora_rank, lora_alpha)
+               for _ in range(layers - n_moe)]
         )
 
 
@@ -70,17 +82,23 @@ class VisionTransformer(nn.Module):
     def __init__(self, h_resolution: int, w_resolution: int, patch_size: int,
                  stride_size: int, width: int, layers: int, heads: int,
                  output_dim: int, dtype: torch.dtype = torch.float32, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, num_experts: int = 0, top_k: int = 0,
+                 moe_layers: int = 0, dropout: float = 0.0, shared_routing: bool = True):
         super().__init__()
         self.width = width
         self.dtype = dtype
+        self.use_moe = num_experts > 0 and top_k > 0
+        self.n_moe = (layers if moe_layers == -1 else min(moe_layers, layers)) \
+            if self.use_moe else 0
+        self.shared_routing = shared_routing
         self.conv1 = PatchEmbed(patch_size, stride_size, width, dtype)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(h_resolution * w_resolution + 1, width)
         )
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, layers, heads, dtype, lora_rank, lora_alpha)
+        self.transformer = Transformer(width, layers, heads, dtype, lora_rank, lora_alpha,
+                                       self.n_moe, num_experts, top_k, dropout)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 
@@ -93,9 +111,10 @@ class VisionTransformer(nn.Module):
             block.init_(gen)
         init_normal_(self.proj, scale, gen)
 
-    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (B, H, W, 3) NHWC. Returns (x11, x12, xproj)."""
+    def forward(self, x: torch.Tensor, cv_emb: Optional[torch.Tensor] = None,
+                train: bool = False, gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """x: (B, H, W, 3) NHWC. Returns (x11, x12, xproj, router_logits)."""
         x = self.conv1(x)
         b = x.shape[0]
         cls = self.class_embedding.to(self.dtype).expand(b, 1, self.width)
@@ -106,12 +125,27 @@ class VisionTransformer(nn.Module):
         x = x + self.positional_embedding.to(self.dtype)
         x = self.ln_pre(x)
         blocks = self.transformer.resblocks
-        for block in blocks[:-1]:
-            x = block(x)
-        x11 = x
-        x12 = self.ln_post(blocks[-1](x11))
+        router_logits = None
+        if self.use_moe:
+            routing, gating = None, []
+            for i, block in enumerate(blocks[:self.n_moe]):
+                x, logits, combine = block(x, routing=routing, train=train, gen=gen)
+                if logits is not None:
+                    gating.append(logits)
+                if i == 0 and self.shared_routing:
+                    routing = combine
+            router_logits = torch.stack(gating) if gating else None
+            for block in blocks[self.n_moe:]:
+                x = block(x)
+            x11 = x12 = x
+        else:
+            for block in blocks[:-1]:
+                x = block(x)
+            x11 = x
+            x12 = blocks[-1](x11)
+        x12 = self.ln_post(x12)
         xproj = linear_f32acc(x12, self.proj.t(), None, self.dtype)
-        return x11, x12, xproj
+        return x11, x12, xproj, router_logits
 
 
 def resize_pos_embed(posemb: torch.Tensor, gs_new_h: int, gs_new_w: int) -> torch.Tensor:

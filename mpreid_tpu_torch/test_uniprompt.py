@@ -11,9 +11,10 @@ plain inference, and the VehicleID 10-trial averaging protocol as
 ``MODEL.DEVICE cpu`` asks for the CPU. ``TEST.WEIGHT`` takes a training
 checkpoint of the port or a reference-layout Uni-Prompt ``.pth``
 (``models/convert.py::load_param``); without one the weights are random
-from ``SOLVER.SEED``. Not ported yet: the TTA / TTPT eval modes
-(``TEST.TTA_ENABLED``, ``TEST.TTPT.ENABLED``, ROADMAP A9) and the MoE model
-(``MODEL.MOE.ENABLED``, A7), which raise.
+from ``SOLVER.SEED``. With ``MODEL.MOE.ENABLED`` the model is the MoE one
+(``switch_to_moe`` before the weights load, as the JAX script does). Not
+ported yet: the TTA / TTPT eval modes (``TEST.TTA_ENABLED``,
+``TEST.TTPT.ENABLED``, ROADMAP A9), which raise.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import os
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import build_dataset, make_dataloader
 from mpreid_tpu_torch.engine import do_inference
-from mpreid_tpu_torch.models import load_param, make_model_uniprompt
+from mpreid_tpu_torch.models import load_param, make_model_uniprompt, switch_to_moe
 from mpreid_tpu_torch.test import is_torch_weight, vehicleid_trials
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
 
@@ -44,9 +45,6 @@ def main(argv=None):
     if cfg.TEST.TTA_ENABLED or cfg.TEST.TTPT.ENABLED:
         raise NotImplementedError(
             "TEST.TTA_ENABLED / TEST.TTPT.ENABLED are not ported yet (ROADMAP.md, A9)")
-    if cfg.MODEL.MOE.ENABLED:
-        raise NotImplementedError("the MoE model (MODEL.MOE.ENABLED) is not ported yet "
-                                  "(ROADMAP.md, A7)")
     device = device_from_cfg(cfg)
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
@@ -67,6 +65,7 @@ def main(argv=None):
 
     model = make_model_uniprompt(cfg, num_class=num_classes, camera_num=camera_num,
                                  view_num=view_num, device=device)
+    model = switch_to_moe(cfg, model)
     if cfg.TEST.WEIGHT:
         load_param(cfg.TEST.WEIGHT, model)
         logger.info(f"Loading pretrained model from {cfg.TEST.WEIGHT}")

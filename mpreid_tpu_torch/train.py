@@ -9,7 +9,8 @@ It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
 weights start random from ``SOLVER.SEED``; ``MODEL.PRETRAIN_PATH <file>``
 replaces the towers with the OpenAI CLIP weights of a local file
 (``ViT-B-16.pt``, ``RN50.pt``). Nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
-without a path raises.
+without a path raises. With ``MODEL.MOE.ENABLED`` the model has the MoE
+vision tower from the start, as the JAX package's ``make_model`` builds it.
 """
 
 from __future__ import annotations

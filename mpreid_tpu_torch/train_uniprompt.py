@@ -10,8 +10,9 @@ It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for the CPU. The
 weights start random from ``SOLVER.SEED``; ``MODEL.PRETRAIN_PATH <file>``
 replaces both towers with the OpenAI CLIP weights of a local file, loaded
 through the dense stage-1 config (nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
-without a path raises). The dense → MoE switch after stage 1b is not ported
-yet (``MODEL.MOE.ENABLED`` raises there, ROADMAP A7).
+without a path raises). Stage 1 trains the dense model; with
+``MODEL.MOE.ENABLED`` it is upcycled to the MoE vision tower after stage 1b
+(``models.switch_to_moe``), and stages 2a and 2b train that.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from mpreid_tpu_torch.engine import (
     build_image_bank, do_inference, do_train_stage1, do_train_stage2,
 )
 from mpreid_tpu_torch.losses import make_loss
-from mpreid_tpu_torch.models import load_pretrained, make_model_uniprompt, pretrain_path
+from mpreid_tpu_torch.models import (
+    load_pretrained, make_model_uniprompt, pretrain_path, switch_to_moe,
+)
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 from mpreid_tpu_torch.train import set_seed
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
@@ -59,7 +62,7 @@ def main(argv=None):
     (train_loader_stage2, train_loader_stage1, val_loader, num_query,
      num_classes, camera_num, view_num) = make_dataloader(cfg)
 
-    # stage 1 trains the dense model; the MoE switch would come after it
+    # stage 1 trains the dense model; the MoE switch comes after it
     stage1_cfg = cfg.clone()
     stage1_cfg.MODEL.MOE.ENABLED = False
     stage1_cfg.freeze()
@@ -90,10 +93,8 @@ def main(argv=None):
     del bank
 
     if cfg.MODEL.MOE.ENABLED:
-        raise NotImplementedError(
-            "MODEL.MOE.ENABLED: the dense → MoE switch after stage 1b is not ported yet "
-            "(ROADMAP.md, A7)"
-        )
+        logger.info("Switching to MoE vision transformer")
+        model = switch_to_moe(cfg, model)
 
     logger.info("2a stage, train parameters marked as trainable...")
     opt_2a = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")

@@ -122,6 +122,28 @@ def test_chip_smoke_uniprompt_config_is_cctv_ir_cctv_rgb_yml():
     assert got.TPU.COMPUTE_DTYPE == "bfloat16" and not got.MODEL.MOE.ENABLED
 
 
+def test_chip_smoke_tuned_config_is_uniprompt_tuned_yml():
+    """The MoE phase of chip_smoke.py runs configs/ours/cctv_ir_cctv_rgb.yml
+    under configs/tpu/uniprompt_tuned.yml (built in code), with bench.py's
+    MoE: 4 experts, top-2, 2 MoE layers."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    want = get_default_cfg()
+    for path in (("ours", "cctv_ir_cctv_rgb.yml"), ("tpu", "uniprompt_tuned.yml")):
+        want.merge_from_file(os.path.join(REPO, "configs", *path))
+    want.merge_from_list(["MODEL.MOE.ENABLED", "True", "MODEL.MOE.NUM_EXPERTS", "4",
+                          "MODEL.MOE.TOP_K", "2", "MODEL.MOE.MOE_LAYERS", "2"])
+    got = chip_smoke.tuned_cfg()
+    for section in ("MODEL", "INPUT", "DATALOADER", "SOLVER", "TEST", "DATASETS", "TPU"):
+        g, w = dict(got[section]), dict(want[section])
+        g.pop("DEVICE", None)  # the card on request
+        w.pop("DEVICE", None)
+        assert g == w, section
+    assert got.TPU.DEVICE_DATASET and got.SOLVER.STAGE2.MOMENT_DTYPE == "bfloat16"
+    assert got.TEST.IMS_PER_BATCH == 128 and got.OUTPUT_DIR == ""
+
+
 @pytest.mark.parametrize("attr,path,build", [
     ("CNN_BASE", ("person", "cnn_base.yml"), "vit_base_cfg"),
     ("CNN_CLIPREID", ("person", "cnn_clipreid.yml"), "uniprompt_cfg"),

@@ -6,8 +6,10 @@ The JAX package acts on ``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and
 one device they are no-ops. The port treats them the same way in
 ``run_validation``, ``do_train`` and ``do_train_stage2``: each key on gives
 the results of it off, and a log line says it does nothing.
-``TPU.DEVICE_DATASET`` and ``TPU.PROFILE_DIR`` are not ported and raise, so
-``configs/tpu/uniprompt_tuned.yml`` fails on ``DEVICE_DATASET`` alone.
+``TPU.DEVICE_DATASET`` (the device-resident epoch) and ``TPU.PROFILE_DIR``
+(a trace; stage 2 ignores it, as the JAX package's does) run, and in stage
+2 each gives the results of it off, so ``configs/tpu/uniprompt_tuned.yml``
+runs to its end, dense and with the MoE tower.
 """
 
 import logging
@@ -120,15 +122,28 @@ def test_do_train_stage2_with_a_single_device_key_equals_it_off(mmmp, key):
 
 
 @pytest.mark.parametrize("key,value", [("DEVICE_DATASET", True), ("PROFILE_DIR", "trace")])
-def test_the_unported_keys_still_raise(mmmp, key, value):
-    cfg = _cfg(mmmp, "mmmp", **{key: value})
-    tl2, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
-    model = make_model_uniprompt(cfg, ncls, ncam, nview)
-    loss_fn, _ = make_loss(cfg, ncls)
-    opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
-    with pytest.raises(NotImplementedError, match=key):
-        do_train_stage2(cfg, model, tl2, None, opt, lambda e: 1e-3, loss_fn, nq, ncls,
-                        max_epochs=1)
+def test_the_unported_keys_still_raise(mmmp, key, value, tmp_path):
+    """The two keys that raised until the device epoch was ported: one
+    stage-2 epoch with each on gives the history and the weights of the run
+    with it off (the sampler's epoch 1 has epoch 0's batch count, so the
+    device epoch sees the step loop's batches); PROFILE_DIR writes nothing."""
+    trace = str(tmp_path / "trace")
+    on_off = (trace, "") if key == "PROFILE_DIR" else (value, False)
+    runs = []
+    for setting in reversed(on_off):
+        cfg = _cfg(mmmp, "mmmp", **{key: setting})
+        cfg.SOLVER.STAGE2.IMS_PER_BATCH = 8
+        tl2, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
+        model = make_model_uniprompt(cfg, ncls, ncam, nview)
+        loss_fn, _ = make_loss(cfg, ncls)
+        opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+        _, history = do_train_stage2(cfg, model, tl2, None, opt, lambda e: 1e-3, loss_fn, nq,
+                                     ncls, max_epochs=1)
+        runs.append((history, _state(model)))
+    (h0, s0), (h1, s1) = runs
+    assert h0 == h1
+    assert all(torch.equal(v, s1[k]) for k, v in s0.items())
+    assert not os.path.exists(trace)
 
 
 TINY_ARGS = ["MODEL.DEVICE", "cpu", "MODEL.DEBUG_TINY", "True",
@@ -140,20 +155,22 @@ TINY_ARGS = ["MODEL.DEVICE", "cpu", "MODEL.DEBUG_TINY", "True",
              "SOLVER.STAGE2.IMS_PER_BATCH", "8"]
 
 
-@pytest.mark.parametrize("device_dataset", [True, False])
-def test_the_tuned_tpu_config_fails_only_on_device_dataset(mmmp, device_dataset):
+@pytest.mark.parametrize("device_dataset,moe", [pytest.param(True, False, id="True"),
+                                                pytest.param(False, False, id="False"),
+                                                pytest.param(True, True, id="True-moe")])
+def test_the_tuned_tpu_config_fails_only_on_device_dataset(mmmp, device_dataset, moe):
     """configs/tpu/uniprompt_tuned.yml sets DEVICE_DATASET, EVAL_SHARDED and
-    ZERO_OPT_STATE: it raises naming DEVICE_DATASET, and with that key off it
-    runs to its end on one device."""
+    ZERO_OPT_STATE: it runs to its end on one device with DEVICE_DATASET on
+    (which raised before it was ported) and off, and with the MoE tower of
+    the JAX package's bench (4 experts, top-2, 2 MoE layers)."""
     from mpreid_tpu_torch import train_uniprompt
 
     args = ["--config_file", os.path.join(REPO, "configs", "tpu", "uniprompt_tuned.yml"),
             *TINY_ARGS, "DATASETS.NAMES", "mmmp", "DATASETS.ROOT_DIR", mmmp,
             "DATASETS.EXP_SETTING", "exp_cctv_ir_cctv_rgb", "OUTPUT_DIR", "",
             "TPU.DEVICE_DATASET", str(device_dataset)]
-    if device_dataset:
-        with pytest.raises(NotImplementedError, match="DEVICE_DATASET"):
-            train_uniprompt.main(args)
-        return
+    if moe:
+        args += ["MODEL.MOE.ENABLED", "True", "MODEL.MOE.NUM_EXPERTS", "4",
+                 "MODEL.MOE.TOP_K", "2", "MODEL.MOE.MOE_LAYERS", "2"]
     rank1, rank5 = train_uniprompt.main(args)
     assert 0.0 <= rank1 <= rank5 <= 1.0

@@ -729,10 +729,22 @@ def test_checkpoint_round_trip_and_resume(market, tmp_path):
 
 
 def test_do_train_refuses_what_is_not_ported(market, tmp_path):
-    cfg = _train_cfg(market, tmp_path, **{"TPU.DEVICE_DATASET": True})
-    model, tl, val, nq, loss_fn, opt = _training_setup(cfg)
-    with pytest.raises(NotImplementedError, match="DEVICE_DATASET"):
-        do_train(cfg, model, tl, None, opt, lambda e: 1e-3, loss_fn, nq, max_epochs=1)
+    """TPU.DEVICE_DATASET raised until the device epoch was ported: one
+    epoch over the resident train set now gives the step loop's history,
+    weights and checkpoint (epoch 1 has epoch 0's batch count, so both see
+    the same batches)."""
+    runs = []
+    for on in (False, True):
+        cfg = _train_cfg(market, tmp_path / str(on), **{"TPU.DEVICE_DATASET": on})
+        model, tl, val, nq, loss_fn, opt = _training_setup(cfg)
+        state, history = do_train(cfg, model, tl, None, opt, lambda e: 1e-3, loss_fn, nq,
+                                  max_epochs=1)
+        runs.append((history, state.opt_state.step, load_checkpoint(
+            str(tmp_path / str(on) / "ViT-B-16_1.pth"))["model"]))
+    (h0, n0, s0), (h1, n1, s1) = runs
+    assert h0 == h1 and n0 == n1 == _batches(tl, 1)
+    for name, t in s0.items():
+        torch.testing.assert_close(s1[name], t, atol=0, rtol=0, msg=name)
 
 
 def test_train_cli_one_epoch_on_the_cpu(market, tmp_path):

@@ -606,11 +606,22 @@ def test_train_and_test_cli_on_the_cpu(mmmp, tmp_path):
 
 
 def test_entry_points_refuse_what_is_not_ported(mmmp, tmp_path):
+    """MODEL.MOE.ENABLED (it raised until the MoE tower was ported) runs the
+    pipeline to its end, upcycling after stage 1b, and test_uniprompt loads
+    the MoE checkpoint strictly; TTA and TTPT still raise (ROADMAP A9)."""
     from mpreid_tpu_torch import test_uniprompt, train_uniprompt
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        train_uniprompt.main([*TINY_ARGS, *STAGE_ARGS, "DATASETS.ROOT_DIR", mmmp,
-                              "OUTPUT_DIR", "", "MODEL.MOE.ENABLED", "True"])
+    moe = ["MODEL.MOE.ENABLED", "True", "MODEL.MOE.NUM_EXPERTS", "4", "MODEL.MOE.TOP_K", "2",
+           "MODEL.MOE.MOE_LAYERS", "2"]
+    rank1, rank5 = train_uniprompt.main([*TINY_ARGS, *STAGE_ARGS, "DATASETS.ROOT_DIR", mmmp,
+                                         "OUTPUT_DIR", str(tmp_path), *moe])
+    assert 0.0 <= rank1 <= rank5 <= 1.0
+    ckpt = tmp_path / "exp_cctv_ir_cctv_rgb" / "ViT-B-16_1.pth"
+    assert any(".experts.3.c_fc.weight" in k for k in torch.load(ckpt)["model"])
+    cfg_file = os.path.join(REPO, "configs", "ours", "cctv_ir_cctv_rgb.yml")
+    assert test_uniprompt.main(["--config_file", cfg_file, *TINY_ARGS, "DATASETS.ROOT_DIR",
+                                mmmp, *moe, "TEST.WEIGHT", str(ckpt),
+                                "OUTPUT_DIR", str(tmp_path / "test")]) == (rank1, rank5)
     for flag in ("TEST.TTA_ENABLED", "TEST.TTPT.ENABLED"):
         with pytest.raises(NotImplementedError, match="A9"):
             test_uniprompt.main([*TINY_ARGS, "DATASETS.ROOT_DIR", mmmp, flag, "True"])
