@@ -86,10 +86,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    epochs with ``TPU.PROFILE_DIR`` (the second epoch traced; the trace's
    size and the device's idle share in it), 24 steps of the device epoch
    against 24 of the step loop over the same batches from one state and one
-   generator state, and both modes' img/s in turns.
+   generator state, and both modes' img/s in turns;
+12. the TTA / TTPT eval modes (``test_uniprompt``'s branches, through
+   ``do_inference_ttpt``) on phase 8's model after stage 2, over 256 + 256
+   seeded images at batch 64: Option A (4 vision forwards a query batch),
+   then Option B with TTA on and 5 tuning steps a query batch over all
+   1,000 classes (the text tower's attention forward and backward at B
+   1,000, L 77, causal), with query images/s, seconds per tuned batch, peak
+   memory and the entropy trace; then the tuner in fp32 on the card
+   against the CPU, on the full-width towers with the classes cut to 64
+   and the queries to 16;
+13. the margin heads (``MODEL.COS_LAYER``, each of arcface, cosface,
+   amsoftmax and circle, the last with ``SOLVER.FUSED_ADAM``) in
+   configs/person/vit_base.yml's training path at full width: 4 steps on
+   one PK batch, augmentation off, the loss falling, and one fp32 step's
+   loss and gradients on the card against the CPU.
 
-Phase 3 also holds the L1 and min-sum kernels (re-ranking's exact Jaccard
-step) against their plain versions at the path's shapes: the Market-1501
+Phase 12 runs after phase 8 (on its model) and phase 13 after phase 6.
+Phase 3 also holds the attention kernels at the TTPT tuner's text batch
+(B 1,000, L 77, 8 × 64, causal, bf16), timed, and the L1 and min-sum
+kernels (re-ranking's exact Jaccard step) against their plain versions at
+the path's shapes: the Market-1501
 dense shape, one MSMT17 query block × gallery chunk, and a ragged dense
 case (the plain versions compared and timed on the first 256 query rows at
 full G and N), and the batch-hard kernel at the PK batch (64 × 768) in fp32
@@ -131,12 +148,13 @@ from mpreid_tpu_torch.data.loader import ImageBatcher, ShuffledLoader, TrainLoad
 from mpreid_tpu_torch.data.sampler import RandomIdentitySampler
 from mpreid_tpu_torch.data.synthetic import make_clip_file
 from mpreid_tpu_torch.engine import (
-    R1mAPEvaluator, build_device_dataset, build_image_bank, do_inference, do_train,
-    do_train_stage1, do_train_stage2, epoch_perm, initial_state, loss_and_grads,
+    R1mAPEvaluator, build_device_dataset, build_image_bank, do_inference, do_inference_ttpt,
+    do_train, do_train_stage1, do_train_stage2, epoch_perm, initial_state, loss_and_grads,
     make_eval_step, make_stage1_step, make_train_epoch, make_train_step,
     precompute_text_features, stage1_loss_and_grads,
 )
 from mpreid_tpu_torch.engine.processor import TRACE_FILE
+from mpreid_tpu_torch.engine.ttpt import make_ttpt_tuner, ttpt_query_input
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.losses.triplet import euclidean_dist, triplet_loss
@@ -227,6 +245,18 @@ MOE_BENCH = {"ENABLED": True, "NUM_EXPERTS": 4, "TOP_K": 2, "MOE_LAYERS": 2}
 MOE_IDS = 384  # the stage-2a and 2b epochs: 384 ids × 4 = 24 batches
 MOE_CHECK_CLASSES = 16  # the fp32 card-vs-CPU stage-2b step's classes
 UPCYCLE_TOL = 1e-5  # fp32 eval features, upcycled MoE against dense, max abs
+# the TTA / TTPT eval modes on the Uni-Prompt model, and the margin heads
+TTPT_QUERY, TTPT_GALLERY = 256, 256
+TTPT_STEPS = 5  # TEST.TTPT.STEPS's default
+# the tuner's text batch: every class at once, causal
+TTPT_TEXT = dict(name="ttpt_text", b=UNI_CLASSES, l=77, heads=8, dh=64, masked=True)
+TTPT_CHECK_CLASSES, TTPT_CHECK_QUERIES = 64, 16  # the fp32 card-vs-CPU tuner check
+TTPT_TRACE_RTOL, TTPT_FEAT_ATOL, TTPT_NEAR_TIE = 1e-4, 1e-3, 1e-3
+# where a tuned batch's device time goes, by operator (attention: attention_ms)
+TTPT_OP_GROUPS = {"matmul": ["aten::mm", "aten::bmm", "aten::addmm"], "casts": ["aten::copy_"],
+                  "softmax": ["softmax"]}
+MARGIN_KINDS = ("arcface", "cosface", "amsoftmax", "circle")
+MARGIN_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -1052,37 +1082,51 @@ def profile_train(step, state, batches, lr, gen) -> None:
     log(f"idle {json.dumps(dict(train_steps_wall_ms_traced=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms, attention_ms=att, attention_share=att / busy))}")
 
 
+def check_batch() -> dict:
+    """The cross-checks' PK batch of 2 × 4 seeded images, on the card."""
+    images, pids = train_images(seed=5)
+    return pk_batches(images, pids, 1, ids=CHECK_BATCH // K_INST, seed=6)[0]
+
+
+def step_loss_and_grads(weights: dict, c, batch: dict, device) -> tuple:
+    """(loss, {name: fp32 gradient on the CPU}) of one baseline train step of
+    the model ``c`` builds, from ``weights``, augmentation off, on ``device``."""
+    from mpreid_tpu_torch.engine.steps import augment_args
+    from mpreid_tpu_torch.ops.augment import train_augment
+
+    c.INPUT.PROB, c.INPUT.PADDING, c.INPUT.RE_PROB = 0.0, 0, 0.0
+    m = build_model(c, NUM_CLASSES, 6, 1)
+    m.load_state_dict(weights, strict=True)
+    m = m.to(device)
+    loss_fn, _ = make_loss(c, NUM_CLASSES)
+    opt = make_optimizer(c.SOLVER, m, stage="baseline")
+    x = train_augment(batch["images"].to(device), torch.Generator(device=device),
+                      **augment_args(c))
+    loss, _, grads, _ = loss_and_grads(m, c, loss_fn, opt, x, batch["pids"].to(device).long())
+    return float(loss), {k: g.float().cpu() for k, g in grads.items()}
+
+
+def worst_grad_rel(got: dict, want: dict) -> float:
+    """The largest per-leaf norm-relative gradient error, each leaf's norm
+    floored at 1e-3 of the largest leaf's."""
+    floor = 1e-3 * max(g.norm().item() for g in want.values())
+    return max((got[k] - g).norm().item() / max(g.norm().item(), floor) for k, g in want.items())
+
+
 def train_cross_checks(model) -> dict:
     """A train step's loss and gradients, augmentation off, batch of 2 × 4,
     from the same weights: fp32 on the card against fp32 on the CPU (each
     leaf norm-relative, floored at 1e-3 of the largest leaf), and bf16
     against fp32 on the card (cosine on every leaf of at least
     MIN_FUSED_SIZE elements)."""
-    from mpreid_tpu_torch.engine.steps import augment_args
-    from mpreid_tpu_torch.ops.augment import train_augment
-
-    images, pids = train_images(seed=5)
-    batch = pk_batches(images, pids, 1, ids=CHECK_BATCH // K_INST, seed=6)[0]
+    batch = check_batch()
     weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    out = {}
-    for name, dtype, device in (("fp32_cpu", "float32", "cpu"), ("fp32_cuda", "float32", CARD),
-                                ("bf16_cuda", "bfloat16", CARD)):
-        c = vit_base_cfg(dtype, device)
-        c.INPUT.PROB, c.INPUT.PADDING, c.INPUT.RE_PROB = 0.0, 0, 0.0
-        m = build_model(c, NUM_CLASSES, 6, 1)
-        m.load_state_dict(weights, strict=True)
-        m = m.to(device)
-        loss_fn, _ = make_loss(c, NUM_CLASSES)
-        opt = make_optimizer(c.SOLVER, m, stage="baseline")
-        x = train_augment(batch["images"].to(device), torch.Generator(device=device),
-                          **augment_args(c))
-        loss, _, grads, _ = loss_and_grads(m, c, loss_fn, opt, x, batch["pids"].to(device).long())
-        out[name] = (float(loss), {k: g.float().cpu() for k, g in grads.items()})
-        del m
+    out = {name: step_loss_and_grads(weights, vit_base_cfg(dtype, device), batch, device)
+           for name, dtype, device in (("fp32_cpu", "float32", "cpu"),
+                                       ("fp32_cuda", "float32", CARD),
+                                       ("bf16_cuda", "bfloat16", CARD))}
     (l_cpu, g_cpu), (l_gpu, g_gpu), (_, g_bf16) = out["fp32_cpu"], out["fp32_cuda"], out["bf16_cuda"]
-    floor = 1e-3 * max(g.norm().item() for g in g_cpu.values())
-    grad_err = max((g_gpu[k] - g).norm().item() / max(g.norm().item(), floor)
-                   for k, g in g_cpu.items())
+    grad_err = worst_grad_rel(g_gpu, g_cpu)
     big = [k for k, g in g_gpu.items() if g.numel() >= adam.MIN_FUSED_SIZE]
     cos = {k: F.cosine_similarity(g_bf16[k].flatten(), g_gpu[k].flatten(), dim=0).item()
            for k in big}
@@ -1539,6 +1583,196 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
            checks["eval_bf16_vs_fp32_min_cosine"]) < COSINE_FLOOR:
         raise AssertionError(f"bf16 vs fp32 cosine below {COSINE_FLOOR}: {checks}")
     return checks
+
+
+# ---------------------------------------------------------------------------
+# the TTA / TTPT eval modes and the margin heads (MODEL.COS_LAYER)
+# ---------------------------------------------------------------------------
+
+def ttpt_cfg(tta: bool, ttpt: bool, dtype: str = "bfloat16", device: str = CARD):
+    """configs/ours/cctv_ir_cctv_rgb.yml's settings with the eval modes set
+    as ``test_uniprompt`` takes them, TEST.TTPT.STEPS TTPT_STEPS."""
+    cfg = uniprompt_cfg(dtype, device)
+    cfg.TEST.TTA_ENABLED, cfg.TEST.TTPT.ENABLED = tta, ttpt
+    cfg.TEST.TTPT.STEPS = TTPT_STEPS
+    return cfg
+
+
+def query_agg(model, cfg, images: np.ndarray, device) -> torch.Tensor:
+    """TTPT's query input for uint8 ``images``, as ``do_inference_ttpt`` builds it."""
+    x = eval_preprocess(torch.from_numpy(images).to(device), mean=cfg.INPUT.PIXEL_MEAN,
+                        std=cfg.INPUT.PIXEL_STD)
+    return ttpt_query_input(model, cfg, x)
+
+
+def run_ttpt(model, profile: bool) -> dict:
+    """The TTA / TTPT eval modes (``test_uniprompt``'s branches) on the
+    Uni-Prompt model after stage 2, over TTPT_QUERY + TTPT_GALLERY seeded
+    images at batch 64, bf16: Option A through ``do_inference_ttpt`` with
+    TTA on and TTPT off (4 vision forwards a query batch), then Option B
+    with TTA on (2 vision forwards a query batch and, for each, TTPT_STEPS
+    + 1 text forwards and TTPT_STEPS backwards over all UNI_CLASSES
+    classes); each with its launches, all on "tc". Then one query batch's
+    tuning alone, timed, and its entropy trace (``profile``: traced, by
+    kernel and operator group, with the device's idle share)."""
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    loader = InMemoryBatcher(TTPT_QUERY, TTPT_GALLERY, BATCH, HW, seed=13)
+    nq, ng = TTPT_QUERY // BATCH, TTPT_GALLERY // BATCH
+    n = TTPT_QUERY + TTPT_GALLERY
+    res = {}
+    cfg = ttpt_cfg(tta=True, ttpt=False)
+    do_inference_ttpt(cfg, model, InMemoryBatcher(BATCH, BATCH, BATCH, HW, seed=14), BATCH)
+    reset_counts()
+    (r1, r5), secs = timed(lambda: do_inference_ttpt(cfg, model, loader, TTPT_QUERY))
+    counts = read_counts()
+    expect_counts("TTA (Option A)", counts, {"attention_fwd": vdepth * (4 * nq + ng)})
+    res["tta"] = dict(images=n, seconds=secs, images_per_s=n / secs,
+                      query_images_per_s=TTPT_QUERY / secs, rank1=r1, rank5=r5,
+                      launches=counts)
+
+    cfg = ttpt_cfg(tta=True, ttpt=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (r1, r5), secs = timed(lambda: do_inference_ttpt(cfg, model, loader, TTPT_QUERY))
+    counts = read_counts()
+    expect_counts("TTPT (Option B)", counts, {
+        "attention_fwd": vdepth * (2 * nq + ng) + tdepth * (TTPT_STEPS + 1) * nq,
+        "attention_bwd": tdepth * TTPT_STEPS * nq})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tuner = make_ttpt_tuner(model, cfg)
+    agg = query_agg(model, cfg, loader.images[:BATCH], CARD)
+    tune_s = []
+    for _ in range(3):
+        (feats, trace, sim), t = timed(lambda: tuner(agg))
+        tune_s.append(t)
+    trace = trace.cpu().tolist()
+    if not (np.isfinite(trace).all() and len(trace) == TTPT_STEPS
+            and bool(torch.isfinite(feats).all()) and tuple(feats.shape) == tuple(agg.shape)
+            and tuple(sim.shape) == (BATCH, UNI_CLASSES)):
+        raise AssertionError(f"TTPT tuner: trace {trace}, features {tuple(feats.shape)}")
+    res["ttpt"] = dict(images=n, seconds=secs, query_images_per_s=TTPT_QUERY / secs,
+                       steps=TTPT_STEPS, classes=UNI_CLASSES, rank1=r1, rank5=r5,
+                       peak_mem_gb=peak, launches=counts,
+                       seconds_per_tuned_batch=statistics.median(tune_s),
+                       tuned_batch_seconds=tune_s, entropy_trace=trace)
+    if profile:
+        res["tuner_profile"] = profile_idle(
+            lambda: tuner(agg), f"one tuned query batch ({TTPT_STEPS} steps, text B "
+                                f"{UNI_CLASSES}, bf16)",
+            TTPT_OP_GROUPS)
+    log(f"TTA / TTPT {json.dumps(res)}")
+    return res
+
+
+def ttpt_cross_check(model) -> dict:
+    """The tuner in fp32 on the card against the CPU, on the full-width
+    towers with the classes cut to TTPT_CHECK_CLASSES and the queries to
+    TTPT_CHECK_QUERIES (so the CPU side ends in seconds): the same query
+    input (the CPU's), entropy trace to TTPT_TRACE_RTOL norm-relative, the
+    chosen classes equal except where the CPU's top-2 similarities lie
+    within TTPT_NEAR_TIE of each other (relative to the row's largest), and
+    the tuned features of the rows whose classes agree to TTPT_FEAT_ATOL."""
+    sliced = ("prompt_learner.ctx_generic", "classifier.weight", "classifier_proj.weight")
+    weights = {k: (v[:TTPT_CHECK_CLASSES] if k in sliced else v).detach().cpu()
+               for k, v in model.state_dict().items()}
+    images = InMemoryBatcher(TTPT_QUERY, TTPT_GALLERY, BATCH, HW, seed=13).images
+    out, agg = {}, None
+    for device in ("cpu", CARD):
+        c = ttpt_cfg(tta=True, ttpt=True, dtype="float32", device=device)
+        m = build_model_uniprompt(c, TTPT_CHECK_CLASSES, 14, UNI_VIEWS)
+        m.load_state_dict(weights, strict=True)
+        m = m.to(device).eval()
+        if agg is None:
+            agg = query_agg(m, c, images[:TTPT_CHECK_QUERIES], "cpu")
+        (feats, trace, sim), secs = timed(lambda: make_ttpt_tuner(m, c)(agg.to(device)))
+        out[device] = (feats.cpu(), trace.cpu(), sim.cpu(), secs)
+        del m
+    (f_cpu, t_cpu, s_cpu, cpu_s), (f_card, t_card, s_card, _) = out["cpu"], out[CARD]
+    top2 = s_cpu.topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) < TTPT_NEAR_TIE * s_cpu.abs().amax(dim=1)
+    same = s_cpu.argmax(1) == s_card.argmax(1)
+    diff = (f_card - f_cpu).abs().amax(dim=1)
+    res = dict(classes=TTPT_CHECK_CLASSES, queries=TTPT_CHECK_QUERIES, steps=TTPT_STEPS,
+               trace_rel=_rel_err(t_card, t_cpu), trace_rtol=TTPT_TRACE_RTOL,
+               classes_differ=int((~same).sum()), near_ties=int(near_tie.sum()),
+               feat_max_abs=diff[same].max().item() if bool(same.any()) else float("inf"),
+               feat_atol=TTPT_FEAT_ATOL, trace_cpu=t_cpu.tolist(), cpu_seconds=cpu_s)
+    log(f"TTPT tuner fp32 card vs CPU {json.dumps(res)}")
+    if not (res["trace_rel"] <= TTPT_TRACE_RTOL and bool((same | near_tie).all())
+            and res["feat_max_abs"] <= TTPT_FEAT_ATOL):
+        raise AssertionError(f"the TTPT tuner on the card differs from the CPU's: {res}")
+    return res
+
+
+def margin_cfg(kind: str, dtype: str = "bfloat16", device: str = CARD, fused: bool = False):
+    """configs/person/vit_base.yml with MODEL.COS_LAYER on, the head ``kind``."""
+    cfg = vit_base_cfg(dtype, device)
+    cfg.MODEL.COS_LAYER, cfg.MODEL.COS_LAYER_TYPE = True, kind
+    cfg.SOLVER.FUSED_ADAM = fused
+    return cfg
+
+
+def run_margin() -> dict:
+    """The margin heads in the baseline training path at full width
+    (configs/person/vit_base.yml, 751 classes, PK 16 × 4, bf16, Adam; the
+    last kind with SOLVER.FUSED_ADAM): per kind, MARGIN_STEPS train steps
+    on one PK batch with augmentation off, so each step's loss is the same
+    batch's before its update and must fall from the first step to the
+    last (with augmentation on, the draws move it by more than a few steps
+    at lr 5e-6 do); 12 + 12 attention launches a step, all on "tc"; then one
+    fp32 step card vs CPU."""
+    images, pids = train_images(seed=15)
+    batch = pk_batches(images, pids, 1, seed=16)[0]
+    check = check_batch()
+    res = {}
+    for kind in MARGIN_KINDS:
+        fused = kind == MARGIN_KINDS[-1]
+        cfg = margin_cfg(kind, fused=fused)
+        cfg.INPUT.PROB, cfg.INPUT.PADDING, cfg.INPUT.RE_PROB = 0.0, 0, 0.0
+        t0 = time.perf_counter()
+        model = make_model(cfg, num_class=NUM_CLASSES, camera_num=6, view_num=1)
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, NUM_CLASSES)
+        opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        train, _ = opt.partition(model)
+        big = sum(p.numel() >= adam.MIN_FUSED_SIZE for p in train.values())
+        lr = cfg.SOLVER.BASE_LR
+        state = initial_state(model, opt)
+        step = make_train_step(model, cfg, loss_fn, opt)
+        gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        losses, seconds = [], []
+        for _ in range(MARGIN_STEPS):
+            (state, metrics), secs = timed(lambda: step(state, batch, lr, gen))
+            losses.append(float(metrics["loss"]))
+            seconds.append(secs)
+        counts = read_counts()
+        expect_counts(f"margin head {kind}", counts, {
+            "attention_fwd": depth * MARGIN_STEPS, "attention_bwd": depth * MARGIN_STEPS,
+            "adam": big * MARGIN_STEPS if fused else 0})
+        res[kind] = dict(fused_adam=fused, lr=lr, steps=MARGIN_STEPS, batch=BATCH, losses=losses,
+                         step_seconds=seconds, setup_seconds=setup_s, launches=counts)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"margin head {kind}: losses {res[kind]}")
+        weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model, state, step, opt, train
+        (l_cpu, g_cpu), (l_card, g_card) = (
+            step_loss_and_grads(weights, margin_cfg(kind, "float32", device), check, device)
+            for device in ("cpu", CARD))
+        res[kind]["fp32_card_vs_cpu"] = dict(loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+                                             worst_grad_rel=worst_grad_rel(g_card, g_cpu),
+                                             loss_rtol=LOSS_RTOL, grad_rtol=GRAD_RTOL)
+        log(f"margin head {kind} {json.dumps(res[kind])}")
+        cross = res[kind]["fp32_card_vs_cpu"]
+        if not (cross["loss_rel"] <= LOSS_RTOL and cross["worst_grad_rel"] <= GRAD_RTOL):
+            raise AssertionError(f"margin head {kind}: fp32 step on the card differs from the "
+                                 f"CPU's: {cross}")
+        torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2528,7 +2762,8 @@ def main() -> None:
     log("kernels against their plain versions on the card:")
     rows, bwd_rows = [], []
     cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
-             (VEHICLE, torch.bfloat16), (SYSU, torch.float32), (VEHICLE, torch.float32)]
+             (VEHICLE, torch.bfloat16), (SYSU, torch.float32), (VEHICLE, torch.float32),
+             (TTPT_TEXT, torch.bfloat16)]
     for case, dtype in cases:
         for layout in attn.LAYOUTS:
             timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
@@ -2558,6 +2793,12 @@ def main() -> None:
     log("cross-checks:")
     cross_checks(model)
     train_cross_checks(train_res.pop("model"))
+    torch.cuda.empty_cache()
+
+    log("margin heads (MODEL.COS_LAYER), configs/person/vit_base.yml at full width:")
+    t0 = time.perf_counter()
+    margin_res = run_margin()
+    log(f"  margin phase seconds {time.perf_counter() - t0:.1f}")
 
     log("re-ranking slice (TEST.RE_RANKING):")
     phase_s = {}
@@ -2579,8 +2820,17 @@ def main() -> None:
     t0 = time.perf_counter()
     uni = run_uniprompt(args.profile)
     triplet_res = uniprompt_triplet_check(uni.pop("feats"), uni.pop("labels"))
-    uniprompt_cross_checks(uni.pop("model"), uni.pop("text"))
+    uni_model = uni.pop("model")
+    uniprompt_cross_checks(uni_model, uni.pop("text"))
     log(f"  Uni-Prompt phase seconds {time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+
+    log("TTA / TTPT eval modes on the Uni-Prompt model after stage 2, full width:")
+    t0 = time.perf_counter()
+    ttpt_res = run_ttpt(uni_model, args.profile)
+    ttpt_res["fp32_card_vs_cpu"] = ttpt_cross_check(uni_model)
+    del uni_model
+    log(f"  TTA / TTPT phase seconds {time.perf_counter() - t0:.1f}")
     uni_res = uni["res"]
     after_1b, uni_data = uni.pop("after_1b"), uni.pop("data")
     del uni
@@ -2646,11 +2896,15 @@ def main() -> None:
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
+            "launches_ttpt": {k: ttpt_res[k]["launches"][name] for k in ("tta", "ttpt")},
+            "launches_margin": {k: margin_res[k]["launches"][name] for k in MARGIN_KINDS},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             **timing(pick(found, "vision")),
             "shape": "B64 L129 12x64 bf16 packed, no mask",
             "text": timing(pick(found, "text")),
             "vehicle": timing(pick(found, "vehicle")),
+            "ttpt_text": {"shape": "B1000 L77 8x64 bf16 packed, causal",
+                          **timing(pick(found, "ttpt_text"))},
             "ptxas": ptxas[f"{name}_tc"],
             "simt_fp32": {"source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
                           "max_abs_err": max(r["max_abs_err"] for r in found
@@ -2669,6 +2923,7 @@ def main() -> None:
         "source": "mpreid_tpu_torch/kernels/csrc/adam.cu",
         "replaces": "mpreid_tpu/ops/adam_kernel.py:60",
         "launches": train_res["fused"]["launches"]["adam"],
+        "launches_margin": margin_res[MARGIN_KINDS[-1]]["launches"]["adam"],
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",

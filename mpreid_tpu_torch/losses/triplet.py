@@ -1,6 +1,6 @@
 """Batch-hard triplet loss.
 
-ref mpreid_tpu/losses/triplet.py::euclidean_dist, ::hard_example_mining,
+ref mpreid_tpu/losses/triplet.py::normalize, ::euclidean_dist, ::hard_example_mining,
 ::triplet_loss.
 
 The hardest positive and negative are taken with ``amax``/``amin`` over
@@ -14,6 +14,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Unit length along ``dim``: x / (‖x‖ + 1e-12)."""
+    return x / (torch.linalg.norm(x, dim=dim, keepdim=True) + 1e-12)
 
 
 def euclidean_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -178,7 +178,9 @@ def from_jax_variables(variables: Dict[str, Any], clip_config: CLIPConfig,
     for name in ("bottleneck", "bottleneck_proj"):
         _bn(params[name], stats[name], name, out)
     for name in ("classifier", "classifier_proj"):
-        out[f"{name}.weight"] = _t(params[name]["kernel"]).T.contiguous()
+        head = params[name]  # a margin head's (C, feat) "weight", or a Dense "kernel"
+        out[f"{name}.weight"] = (_t(head["weight"]) if "weight" in head
+                                 else _t(head["kernel"]).T.contiguous())
     if "cv_embed" in params:
         out["cv_embed"] = _t(params["cv_embed"])
     if "text" in params:

@@ -2,7 +2,7 @@
 
 ref mpreid_tpu/models/layers.py::LayerNorm, ::quick_gelu,
 ::MultiHeadAttention, ::MLP, ::ResidualAttentionBlock, ::BNNeck,
-::make_classifier, ::classifier_scores, ::linear_bias_act, ::_lba_bwd.
+::MarginHead, ::make_classifier, ::classifier_scores, ::linear_bias_act, ::_lba_bwd.
 
 Parameters are fp32 and keep the reference torch state_dict names
 (``nn.MultiheadAttention``'s packed ``in_proj_weight``, ``out_proj``,
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpreid_tpu_torch.losses import margin as M
 from mpreid_tpu_torch.ops.attention import fused_attention
 from mpreid_tpu_torch.ops.matmul import mm_f32
 
@@ -254,19 +255,52 @@ class BNNeck(nn.Module):
         return y.to(x.dtype)
 
 
-def make_classifier(num_classes: int, in_features: int, cos_layer: str = "") -> Linear:
-    """Bias-free classifier (ref make_model.py:48-51). Margin heads
-    (``MODEL.COS_LAYER``, ref ``MarginHead``) are not ported: no config
-    turns them on."""
+class MarginHead(nn.Module):
+    """Margin classifier head, the ``MODEL.COS_LAYER`` classifier (ref
+    ``MarginHead``): one (num_classes, in_features) ``weight``, the plain
+    classifier's name and layout, so checkpoints and reference ``.pth`` keys
+    are the same. With labels it returns the kind's margin logits, without
+    them ``s · cos(θ)``; ``s`` is 30, or 256 for circle, in both."""
+
+    KINDS = ("arcface", "cosface", "amsoftmax", "circle")
+
+    def __init__(self, in_features: int, num_classes: int, kind: str = "arcface"):
+        super().__init__()
+        if kind not in self.KINDS:
+            raise ValueError(f"Unknown MODEL.COS_LAYER_TYPE {kind!r}; expected "
+                             "arcface|cosface|amsoftmax|circle")
+        self.kind = kind
+        self.effective_scale = 256.0 if kind == "circle" else 30.0
+        self.weight = nn.Parameter(torch.empty(num_classes, in_features))
+
+    def init_(self, gen: torch.Generator, std: float = 0.001) -> None:
+        init_normal_(self.weight, std, gen)
+
+    def forward(self, features: torch.Tensor, labels: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        s = self.effective_scale
+        if labels is None:
+            return s * M._cosine_logits(features, self.weight)
+        if self.kind == "amsoftmax":
+            return M.amsoftmax_logits(features, self.weight.t(), labels, s=s)
+        fn = {"arcface": M.arcface_logits, "cosface": M.cosface_logits,
+              "circle": M.circle_logits}[self.kind]
+        return fn(features, self.weight, labels, s=s)
+
+
+def make_classifier(num_classes: int, in_features: int, cos_layer: str = "") -> nn.Module:
+    """Bias-free classifier (ref make_model.py:48-51), or the margin head of
+    kind ``cos_layer`` (``MODEL.COS_LAYER_TYPE`` under ``MODEL.COS_LAYER``)."""
     if cos_layer:
-        raise NotImplementedError(
-            "MODEL.COS_LAYER margin heads are not ported yet (ROADMAP.md, MarginHead)"
-        )
+        return MarginHead(in_features, num_classes, kind=cos_layer)
     return Linear(in_features, num_classes, bias=False)
 
 
-def classifier_scores(classifier: nn.Module, feats: torch.Tensor) -> torch.Tensor:
-    """Train-time logits of a plain classifier, in fp32 on the BN features
-    (ref ``classifier_scores``; margin heads, which also take the labels,
-    are not ported)."""
+def classifier_scores(classifier: nn.Module, feats: torch.Tensor,
+                      labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train-time logits in fp32 on the BN features (ref
+    ``classifier_scores``): a margin head takes the labels, the plain
+    classifier does not."""
+    if isinstance(classifier, MarginHead):
+        return classifier(feats.float(), labels)
     return classifier(feats.float())

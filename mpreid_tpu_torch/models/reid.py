@@ -7,7 +7,8 @@ ref mpreid_tpu/models/reid.py::ReIDModel (``_sie``, ``backbone_features``,
   the spatial means of the layer3/layer4 maps and the attention pool's
   mean token,
 * SIE camera/view embedding added to the class token, scaled by ``sie_coe``,
-* two BNNecks and two bias-free classifiers,
+* two BNNecks and two bias-free classifiers, or two margin heads under
+  ``MODEL.COS_LAYER`` (the train logits then take the labels),
 * train forward → ``{"scores": [cls_score, cls_score_proj],
   "feats": [feat_last, feat, feat_proj]}``: BNNecks in train mode (batch
   statistics, running statistics updated), fp32 logits on the BN features,
@@ -113,20 +114,19 @@ class ReIDModel(nn.Module):
 
     def forward_train(self, x, label=None, cam_label=None, view_label=None,
                       gen: Optional[torch.Generator] = None) -> dict:
-        """``label`` is unused by the plain classifiers (margin heads, which
-        take it, are not ported); it keeps the JAX package's signature. The
-        MoE tower adds ``router_logits``."""
-        return self._forward_train(x, cam_label, view_label, gen)[0]
+        """``label`` reaches the margin heads (``MODEL.COS_LAYER``) only; the
+        plain classifiers ignore it. The MoE tower adds ``router_logits``."""
+        return self._forward_train(x, label, cam_label, view_label, gen)[0]
 
-    def _forward_train(self, x, cam_label, view_label, gen) -> tuple:
+    def _forward_train(self, x, label, cam_label, view_label, gen) -> tuple:
         """→ (the train outputs, the raw projected tokens)."""
         feat_last, feat, feat_proj, raw_proj, router_logits = self.backbone_features(
             x, cam_label, view_label, train=True, gen=gen)
         feat_bn = self.bottleneck(feat, train=True)
         feat_proj_bn = self.bottleneck_proj(feat_proj, train=True)
         out = {
-            "scores": [classifier_scores(self.classifier, feat_bn),
-                       classifier_scores(self.classifier_proj, feat_proj_bn)],
+            "scores": [classifier_scores(self.classifier, feat_bn, label),
+                       classifier_scores(self.classifier_proj, feat_proj_bn, label)],
             "feats": [feat_last, feat, feat_proj],
         }
         if router_logits is not None:

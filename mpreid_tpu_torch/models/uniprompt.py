@@ -102,11 +102,12 @@ class PromptLearner(nn.Module):
     def visual_enhanced(self, image_feature: torch.Tensor) -> torch.Tensor:
         return self.visual_enhanced_net(image_feature)
 
-    def context(self, label: torch.Tensor, view: Optional[torch.Tensor], stage: str
-                ) -> torch.Tensor:
-        """The (B, 16, ctx_dim) fp32 context block."""
+    def context(self, label: torch.Tensor, view: Optional[torch.Tensor], stage: str,
+                ctx_generic: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The (B, 16, ctx_dim) fp32 context block; ``ctx_generic`` stands in
+        for the parameter of that name (the TTPT tuner's context)."""
         b = label.shape[0]
-        generic = self.ctx_generic[label]
+        generic = (self.ctx_generic if ctx_generic is None else ctx_generic)[label]
         if stage == "1a":
             modal = generic.new_zeros((b, N_MODAL_CTX, self.ctx_dim))
             plat = generic.new_zeros((b, N_PLAT_CTX, self.ctx_dim))
@@ -145,9 +146,11 @@ class UniPromptReID(ReIDModel):
 
     # ------------------------------------------------------------------ text
     def get_text(self, label: torch.Tensor, view: Optional[torch.Tensor] = None,
-                 stage: str = "1a") -> torch.Tensor:
-        """Prompted text features (B, embed_dim) for identity labels."""
-        ctx = self.prompt_learner.context(label, view, stage)
+                 stage: str = "1a", ctx_generic: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """Prompted text features (B, embed_dim) for identity labels, with
+        ``ctx_generic`` in place of the prompt learner's when given."""
+        ctx = self.prompt_learner.context(label, view, stage, ctx_generic)
         b = label.shape[0]
         embedding = self.text_encoder.embed(self.tokenized_prompts)  # (1, 77, ctx)
         prefix = embedding[:, :1].expand(b, -1, -1)
@@ -186,7 +189,7 @@ class UniPromptReID(ReIDModel):
         ``img_feature_proj`` (the projected class or mean token) and
         ``image_features_proj_raw`` (all projected tokens, in the tower's own
         layout)."""
-        out, raw_proj = self._forward_train(x, cam_label, view_label, gen)
+        out, raw_proj = self._forward_train(x, label, cam_label, view_label, gen)
         out["img_feature_proj"] = out["feats"][2]
         out["image_features_proj_raw"] = raw_proj
         return out

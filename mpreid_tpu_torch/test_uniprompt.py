@@ -6,15 +6,16 @@ ref test_uniprompt.py (the JAX package's entry script): the same CLI,
         --config_file configs/ours/cctv_ir_cctv_rgb.yml \\
         TEST.WEIGHT output_uniprompt/exp_cctv_ir_cctv_rgb/ViT-B-16_60.pth
 
-plain inference, and the VehicleID 10-trial averaging protocol as
-``python -m mpreid_tpu_torch.test`` runs it. It runs on the CUDA card;
-``MODEL.DEVICE cpu`` asks for the CPU. ``TEST.WEIGHT`` takes a training
-checkpoint of the port or a reference-layout Uni-Prompt ``.pth``
-(``models/convert.py::load_param``); without one the weights are random
-from ``SOLVER.SEED``. With ``MODEL.MOE.ENABLED`` the model is the MoE one
-(``switch_to_moe`` before the weights load, as the JAX script does). Not
-ported yet: the TTA / TTPT eval modes (``TEST.TTA_ENABLED``,
-``TEST.TTPT.ENABLED``, ROADMAP A9), which raise.
+and its eval branches in its order: the VehicleID 10-trial averaging protocol as
+``python -m mpreid_tpu_torch.test`` runs it; else, with
+``TEST.TTPT.ENABLED`` or ``TEST.TTA_ENABLED``, the TTA / TTPT eval modes
+(``engine/ttpt.py::do_inference_ttpt``); else plain inference. Each returns
+(rank-1, rank-5). It runs on the CUDA card; ``MODEL.DEVICE cpu`` asks for
+the CPU. ``TEST.WEIGHT`` takes a training checkpoint of the port or a
+reference-layout Uni-Prompt ``.pth`` (``models/convert.py::load_param``);
+without one the weights are random from ``SOLVER.SEED``. With
+``MODEL.MOE.ENABLED`` the model is the MoE one (``switch_to_moe`` before the
+weights load, as the JAX script does).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import os
 
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import build_dataset, make_dataloader
-from mpreid_tpu_torch.engine import do_inference
+from mpreid_tpu_torch.engine import do_inference, do_inference_ttpt
 from mpreid_tpu_torch.models import load_param, make_model_uniprompt, switch_to_moe
 from mpreid_tpu_torch.test import is_torch_weight, vehicleid_trials
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
@@ -42,9 +43,6 @@ def main(argv=None):
     cfg.merge_from_list(args.opts)
     cfg.freeze()
 
-    if cfg.TEST.TTA_ENABLED or cfg.TEST.TTPT.ENABLED:
-        raise NotImplementedError(
-            "TEST.TTA_ENABLED / TEST.TTPT.ENABLED are not ported yet (ROADMAP.md, A9)")
     device = device_from_cfg(cfg)
     output_dir = cfg.OUTPUT_DIR
     if output_dir:
@@ -70,9 +68,11 @@ def main(argv=None):
         load_param(cfg.TEST.WEIGHT, model)
         logger.info(f"Loading pretrained model from {cfg.TEST.WEIGHT}")
 
-    if dataset is None:
-        return do_inference(cfg, model, val_loader, num_query)
-    return vehicleid_trials(cfg, model, dataset, logger)
+    if dataset is not None:
+        return vehicleid_trials(cfg, model, dataset, logger)
+    if cfg.TEST.TTPT.ENABLED or cfg.TEST.TTA_ENABLED:
+        return do_inference_ttpt(cfg, model, val_loader, num_query)
+    return do_inference(cfg, model, val_loader, num_query)
 
 
 if __name__ == "__main__":

@@ -642,3 +642,85 @@ def test_tiny_stage1_step_on_the_card_matches_the_cpu(card, stage):
     assert set(card_g) == set(cpu_g) and cpu_g
     for name, g in card_g.items():
         assert (g - cpu_g[name]).norm().item() <= 1e-4 * cpu_g[name].norm().item(), name
+
+
+def _tiny_uniprompt_cfg(dtype="float32"):
+    from mpreid_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "ViT-B-16"
+    cfg.MODEL.DEBUG_TINY = True
+    cfg.MODEL.DEVICE = "cpu"
+    cfg.INPUT.SIZE_TRAIN = cfg.INPUT.SIZE_TEST = [64, 32]
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.TEST.TTPT.STEPS = 3
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_ttpt_tuner_on_the_card(card, dtype):
+    """The TTPT tuner (3 steps over 8 classes) on the card: the text
+    tower's attention forward 2 × 4 and backward 2 × 3 times, on the dtype's
+    route; in fp32 the entropy trace to 1e-5 norm-relative, the tuned
+    features to 1e-4 and the chosen classes equal to the CPU's plain path;
+    the model's weights untouched."""
+    from mpreid_tpu_torch.engine.ttpt import make_ttpt_tuner
+    from mpreid_tpu_torch.models import make_model_uniprompt
+
+    cfg = _tiny_uniprompt_cfg(dtype)
+    rng = np.random.default_rng(17)
+    agg = rng.standard_normal((6, 32)).astype(np.float32)
+    agg = torch.from_numpy(agg / np.linalg.norm(agg, axis=1, keepdims=True))
+    results = []
+    for device in ("cpu", card):
+        model = make_model_uniprompt(cfg, 8, 14, 15, device=device)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        fwd, bwd = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+        routed = dict(tattn.fused_attention_bwd.launches_by_route)
+        feats, trace, sim = make_ttpt_tuner(model, cfg)(agg.to(device))
+        torch.cuda.synchronize()
+        launched = (tattn.fused_attention.launches - fwd, tattn.fused_attention_bwd.launches - bwd)
+        assert launched == ((0, 0) if device == "cpu" else (8, 6))
+        if device != "cpu":
+            route = ROUTE[getattr(torch, dtype)]
+            assert tattn.fused_attention_bwd.launches_by_route[route] - routed[route] == 6
+        assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+        results.append([t.float().cpu() for t in (feats, trace, sim)])
+    (f_cpu, t_cpu, s_cpu), (f_card, t_card, s_card) = results
+    assert torch.isfinite(f_card).all() and torch.isfinite(t_card).all()
+    if dtype == "float32":
+        assert (t_card - t_cpu).norm().item() <= 1e-5 * t_cpu.norm().item()
+        assert (f_card - f_cpu).abs().max().item() <= 1e-4
+        assert torch.equal(s_card.argmax(1), s_cpu.argmax(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["arcface", "cosface", "amsoftmax", "circle"])
+def test_tiny_margin_head_step_on_the_card_matches_the_cpu(card, kind):
+    """fp32 tiny baseline step with MODEL.COS_LAYER: the loss to 1e-5
+    relative and every gradient to 1e-4 norm-relative (floored at 1e-3 of
+    the largest leaf's) against the CPU's plain path."""
+    from mpreid_tpu_torch.engine import loss_and_grads
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = _tiny_uniprompt_cfg()
+    cfg.MODEL.COS_LAYER, cfg.MODEL.COS_LAYER_TYPE = True, kind
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 32, 3)).astype(np.float32))
+    target = torch.arange(8) // 4
+    results = []
+    for device in ("cpu", card):
+        model = make_model(cfg, 8, 6, 1, device=device)
+        loss_fn, _ = make_loss(cfg, 8)
+        opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x.to(device),
+                                           target.to(device))
+        results.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (cpu_loss, cpu_g), (card_loss, card_g) = results
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    floor = 1e-3 * max(g.norm().item() for g in cpu_g.values())
+    for name, g in card_g.items():
+        assert (g - cpu_g[name]).norm().item() <= 1e-4 * max(cpu_g[name].norm().item(), floor), name

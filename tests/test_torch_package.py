@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_optional_packages():
             "mpreid_tpu_torch.train_uniprompt", "mpreid_tpu_torch.test_uniprompt",
             "mpreid_tpu_torch.models.tokenizer", "mpreid_tpu_torch.models.text",
             "mpreid_tpu_torch.models.uniprompt", "mpreid_tpu_torch.losses.supcon",
-            "mpreid_tpu_torch.engine.uniprompt", "mpreid_tpu_torch.ops.batch_hard"} <= set(MODULES)
+            "mpreid_tpu_torch.engine.uniprompt", "mpreid_tpu_torch.ops.batch_hard",
+            "mpreid_tpu_torch.engine.ttpt", "mpreid_tpu_torch.losses.margin"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax_and_builds_every_source():

@@ -608,7 +608,10 @@ def test_train_and_test_cli_on_the_cpu(mmmp, tmp_path):
 def test_entry_points_refuse_what_is_not_ported(mmmp, tmp_path):
     """MODEL.MOE.ENABLED (it raised until the MoE tower was ported) runs the
     pipeline to its end, upcycling after stage 1b, and test_uniprompt loads
-    the MoE checkpoint strictly; TTA and TTPT still raise (ROADMAP A9)."""
+    the MoE checkpoint strictly; TEST.TTA_ENABLED and TEST.TTPT.ENABLED
+    (they raised until the eval modes were ported) run through
+    test_uniprompt and return the ranks of a direct do_inference_ttpt call
+    on the same seeded model."""
     from mpreid_tpu_torch import test_uniprompt, train_uniprompt
 
     moe = ["MODEL.MOE.ENABLED", "True", "MODEL.MOE.NUM_EXPERTS", "4", "MODEL.MOE.TOP_K", "2",
@@ -622,6 +625,18 @@ def test_entry_points_refuse_what_is_not_ported(mmmp, tmp_path):
     assert test_uniprompt.main(["--config_file", cfg_file, *TINY_ARGS, "DATASETS.ROOT_DIR",
                                 mmmp, *moe, "TEST.WEIGHT", str(ckpt),
                                 "OUTPUT_DIR", str(tmp_path / "test")]) == (rank1, rank5)
+    from mpreid_tpu_torch.data import make_dataloader
+    from mpreid_tpu_torch.engine import do_inference_ttpt
+    from mpreid_tpu_torch.models import make_model_uniprompt
+
     for flag in ("TEST.TTA_ENABLED", "TEST.TTPT.ENABLED"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            test_uniprompt.main([*TINY_ARGS, "DATASETS.ROOT_DIR", mmmp, flag, "True"])
+        args = [*TINY_ARGS, "DATASETS.ROOT_DIR", mmmp, flag, "True", "TEST.TTPT.STEPS", "2",
+                "OUTPUT_DIR", str(tmp_path / "tta")]
+        ranks = test_uniprompt.main(["--config_file", cfg_file, *args])
+        cfg = get_default_cfg()
+        cfg.merge_from_file(cfg_file)
+        cfg.merge_from_list(args)
+        _, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
+        model = make_model_uniprompt(cfg, ncls, ncam, nview, device="cpu")
+        assert ranks == do_inference_ttpt(cfg, model, val, nq)
+        assert all(0.0 <= r <= 1.0 for r in ranks)
