@@ -100,7 +100,24 @@ Phases, in order; any failure raises and the exit code is not 0:
    amsoftmax and circle, the last with ``SOLVER.FUSED_ADAM``) in
    configs/person/vit_base.yml's training path at full width: 4 steps on
    one PK batch, augmentation off, the loss falling, and one fp32 step's
-   loss and gradients on the card against the CPU.
+   loss and gradients on the card against the CPU;
+14. data parallelism over ``torch.distributed`` (``mpreid_tpu_torch/parallel``)
+   at full width: (a) in a process given torchrun's variables for a world
+   of 1, ``init_distributed`` makes the NCCL group, one all-reduce of a
+   card tensor, one ``do_train`` step of configs/person/vit_base.yml
+   (which runs without data parallelism) equal to the step without the
+   group; then two ranks sharing the one card over gloo (NCCL refuses two
+   ranks on one device), spawned with their own timeouts: (b) the baseline
+   step, global batch 64 = 2 × 32, in fp32 against the single-process step
+   (loss, every gradient, the BNNeck running statistics, the parameters
+   after an Adam step), in bf16 its loss, launches per rank and img/s
+   beside one process's (not a scaling number), plain and fused Adam; (c)
+   ZeRO-1 against replicated data parallelism over 3 steps, fp32 and bf16
+   moments, fused Adam off and on: parameters and gathered moments bit for
+   bit, each rank's optimizer-state bytes; (d) one fp32 Uni-Prompt stage-2a
+   step and one MoE stage-2b step (aux loss included) against one process;
+   (e) gallery-sharded CMC / mAP at Market-1501's scale against the dense
+   evaluator, with rows duplicated across the shard boundary.
 
 Phase 12 runs after phase 8 (on its model) and phase 13 after phase 6.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
@@ -1472,6 +1489,29 @@ def _rel_err(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
     return (a - b).norm().item() / max(b.norm().item(), floor, 1e-30)
 
 
+def adam_step_errors(p_got: dict, p_want: dict, g_got: dict, g_want: dict, weights: dict,
+                     opt, lr: float) -> dict:
+    """Parameters after Adam's first step, got against want, in units of
+    lr·mult. Adam's first step is lr·g'/(|g'| + eps) with g' = g + wd·p:
+    where |g'| < 100·eps, or where the two runs' g' differ in sign, rounding
+    of g' moves it by up to lr either way, so those elements (counted) are
+    held to 2·lr·mult and the rest to 0.25·lr·mult."""
+    worst, worst_all, n_small, n_flip = 0.0, 0.0, 0, 0
+    for k, p in p_want.items():
+        err = (p_got[k] - p).abs() / (lr * opt.lr_mult[k])
+        g_w, g_g = (g[k] + opt.wd[k] * weights[k] for g in (g_want, g_got))
+        flip = torch.sign(g_w) != torch.sign(g_g)
+        small = (g_w.abs() < 100 * opt.eps) | flip
+        n_small += int(small.sum())
+        n_flip += int(flip.sum())
+        worst = max(worst, err[~small].max().item() if bool((~small).any()) else 0.0)
+        worst_all = max(worst_all, err.max().item())
+    return dict(worst_param_err_lr_units=worst, elements_near_zero_step=n_small,
+                elements_with_flipped_step=n_flip,
+                worst_param_err_lr_units_near_zero_step=worst_all,
+                params_ok=worst <= 0.25 and worst_all <= 2.0)
+
+
 def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
     """From the slice's weights: one stage-1b step and one stage-2a step at
     batch 8 (augmentation off), fp32 on the card against fp32 on the CPU: the
@@ -1529,30 +1569,15 @@ def uniprompt_cross_checks(model, text: torch.Tensor) -> dict:
             out["cpu"][stage], out["card"][stage]
         floor = 1e-3 * max(g.norm().item() for g in g_cpu.values())
         zero = [k for k, g in g_cpu.items() if not bool(g.any())]
-        worst_p, worst_all, n_small, n_flip, ok_p = 0.0, 0.0, 0, 0, True
-        for k, p in p_cpu.items():
-            err = (p_gpu[k] - p).abs() / (lr * opt.lr_mult[k])
-            # Adam's first step is lr·g'/(|g'| + eps) with g' = g + wd·p: where
-            # |g'| < 100·eps, or where the two devices' g' (held to GRAD_RTOL)
-            # differ in sign, rounding of g' moves it by up to lr either way
-            g_c, g_g = (g[k] + opt.wd[k] * weights[k] for g in (g_cpu, g_gpu))
-            flip = torch.sign(g_c) != torch.sign(g_g)
-            small = (g_c.abs() < 100 * opt.eps) | flip
-            n_small += int(small.sum())
-            n_flip += int(flip.sum())
-            worst_p = max(worst_p, err[~small].max().item() if bool((~small).any()) else 0.0)
-            worst_all = max(worst_all, err.max().item())
-        ok_p = worst_p <= 0.25 and worst_all <= 2.0
         checks[stage] = dict(
             loss_rel=abs(l_gpu - l_cpu) / abs(l_cpu),
             worst_grad_rel=max(_rel_err(g_gpu[k], g, floor) for k, g in g_cpu.items()),
             zero_grad_leaves=len(zero), zero_on_card=all(not bool(g_gpu[k].any()) for k in zero),
-            worst_param_err_lr_units=worst_p, elements_near_zero_step=n_small,
-            elements_with_flipped_step=n_flip,
-            worst_param_err_lr_units_near_zero_step=worst_all, leaves=len(g_cpu))
+            **adam_step_errors(p_gpu, p_cpu, g_gpu, g_cpu, weights, opt, lr),
+            leaves=len(g_cpu))
         log(f"uniprompt step cross-check {stage} {json.dumps(checks[stage])}")
         if not (checks[stage]["loss_rel"] <= LOSS_RTOL and checks[stage]["worst_grad_rel"]
-                <= GRAD_RTOL and checks[stage]["zero_on_card"] and ok_p):
+                <= GRAD_RTOL and checks[stage]["zero_on_card"] and checks[stage]["params_ok"]):
             raise AssertionError(f"stage {stage} step on the card differs from the CPU's: "
                                  f"{checks[stage]}")
     if checks["2a"]["zero_grad_leaves"] < 7:
@@ -2746,6 +2771,418 @@ def rerank_msmt(profile: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallelism over torch.distributed (the data axis)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2  # ranks sharing the one card over gloo (NCCL refuses two ranks on one device)
+DP_TIMEOUT = 600  # seconds each spawned two-rank job may take
+DP_TIMED_STEPS = 6
+ZERO_STEPS = 3
+DP_LR = 1e-3
+DP_SEED = 17  # the global batch's images and the step generator
+DP_STATS_RTOL = 1e-5  # BNNeck running statistics, data parallel against one process
+DP_BF16_LOSS_RTOL = 1e-2
+DP_TIES = 64  # gallery rows duplicated across the shard boundary in the tie case
+RATE_NOTE = "two ranks sharing one card over gloo: not a scaling number"
+
+
+def dp_plan(device: str = CARD) -> dict:
+    """What every phase-14 job takes: its configs (built here), sizes and
+    device, so a spawned rank needs nothing else of this script's state."""
+    return dict(device=device, hw=HW, batch=BATCH, classes=NUM_CLASSES, ids=P_IDS,
+                uni_classes=UNI_CLASSES, market=MARKET, cfg32=vit_base_cfg("float32", device),
+                cfg16=vit_base_cfg("bfloat16", device), uni32=uniprompt_cfg("float32", device),
+                moe32=tuned_cfg("float32", device))
+
+
+def dp_batch(plan: dict, device) -> dict:
+    """The global PK batch (``plan['ids']`` identities × K_INST seeded
+    images), the same on every rank."""
+    rng = np.random.default_rng(DP_SEED)
+    n, (h, w) = plan["ids"] * K_INST, plan["hw"]
+    bases = rng.integers(40, 215, (plan["ids"], h, w, 3), dtype=np.int16)
+    pids = np.repeat(np.arange(plan["ids"]), K_INST)
+    images = np.clip(bases[pids] + rng.integers(-60, 61, (n, h, w, 3)), 0, 255).astype(np.uint8)
+    zeros = torch.zeros(n, dtype=torch.int32, device=device)
+    return {"images": torch.from_numpy(images).to(device),
+            "pids": torch.from_numpy(pids.astype(np.int32)).to(device),
+            "camids": zeros, "trackids": zeros}
+
+
+def dp_rank_setup(plan: dict) -> tuple:
+    """A spawned rank's start: the plan's device (current, with TF32 off as
+    ``header`` sets it) and the mesh over the group → (device, mesh)."""
+    from mpreid_tpu_torch.parallel import make_mesh
+
+    device = torch.device(plan["device"])
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())  # the one card
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device, make_mesh()
+
+
+def dp_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_against_one_process(build, cfg, stage: str, plan: dict, mesh, with_text: bool) -> dict:
+    """One fp32 data-parallel step of the model ``build()`` makes against
+    the single-process step on the global batch, augmentation on (each rank
+    its rows of the global draws): the loss, every gradient, the BatchNorm
+    running statistics and the parameters after one Adam step. Both ranks
+    run the data-parallel step; rank 0 then runs the single-process one and
+    compares (rank 1 waits) → rank 0's checks."""
+    from mpreid_tpu_torch.engine.steps import augment_args
+    from mpreid_tpu_torch.ops.augment import train_augment
+    from mpreid_tpu_torch.parallel import replicated, shard_batch
+
+    device = torch.device(plan["device"])
+    stage_cfg = cfg.SOLVER if stage == "baseline" else cfg.SOLVER.STAGE2
+    classes = plan["classes"] if stage == "baseline" else plan["uni_classes"]
+    model = build()
+    replicated(model)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    text = precompute_text_features(cfg, model, classes) if with_text else None
+    loss_fn, _ = make_loss(cfg, classes)
+    batch = dp_batch(plan, device)
+
+    def run(mesh_or_none):
+        model.load_state_dict(w0)
+        b = batch if mesh_or_none is None else shard_batch(batch, mesh_or_none)
+        shard = None if mesh_or_none is None else (mesh_or_none.data, mesh_or_none.rank)
+        gen = torch.Generator(device=device).manual_seed(DP_SEED)
+        x = train_augment(b["images"], gen, **augment_args(cfg), shard=shard)
+        opt = make_optimizer(stage_cfg, model, stage=stage)
+        loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x, b["pids"].long(),
+                                           text_features=text, gen=gen, mesh=mesh_or_none)
+        stats = {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()
+                 if "running" in k}
+        grads = {k: g.float().cpu() for k, g in grads.items()}
+        model.load_state_dict(w0)
+        state = initial_state(model, opt)
+        step = make_train_step(model, cfg, loss_fn, opt, uniprompt=with_text,
+                               text_features=text, mesh=mesh_or_none)
+        state, _ = step(state, b, DP_LR, torch.Generator(device=device).manual_seed(DP_SEED))
+        train, _ = opt.partition(model)
+        dp_sync(device)
+        return float(loss), grads, stats, {k: p.detach().float().cpu() for k, p in train.items()}, opt
+
+    got = run(mesh)
+    res = {}
+    if mesh.rank == 0:
+        want = run(None)
+        (l_g, g_g, s_g, p_g, opt), (l_w, g_w, s_w, p_w, _) = got, want
+        weights = {k: v.float().cpu() for k, v in w0.items()}
+        res = dict(loss=l_w, loss_rel=abs(l_g - l_w) / abs(l_w),
+                   worst_grad_rel=worst_grad_rel(g_g, g_w), leaves=len(g_w),
+                   bn_stats_worst_rel=max(((s_g[k] - v).abs() / v.abs().clamp(min=1e-6)).max().item()
+                                          for k, v in s_w.items()),
+                   bn_buffers=len(s_w),
+                   **adam_step_errors(p_g, p_w, g_g, g_w, weights, opt, DP_LR))
+    torch.distributed.barrier()
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_steps(model, cfg, opt, plan: dict, mesh, n: int, w0: dict, timed: bool = False) -> dict:
+    """``n`` steps through ``make_train_step`` from ``w0`` (data parallel
+    under ``mesh``, else one process on the global batch), augmentation on →
+    the last loss, the launch counts, the median step seconds, the final
+    parameters and moments (gathered to the parameters' shapes) and this
+    rank's optimizer-state bytes."""
+    from mpreid_tpu_torch.engine.processor import checkpoint_state
+    from mpreid_tpu_torch.parallel import shard_batch
+    from mpreid_tpu_torch.parallel.zero import optimizer_state_bytes
+
+    device = torch.device(plan["device"])
+    model.load_state_dict(w0)
+    loss_fn, _ = make_loss(cfg, plan["classes"])
+    state = initial_state(model, opt)
+    step = make_train_step(model, cfg, loss_fn, opt, mesh=mesh)
+    batch = dp_batch(plan, device)
+    local = batch if mesh is None else shard_batch(batch, mesh)
+    gen = torch.Generator(device=device).manual_seed(DP_SEED)
+    reset_counts()
+    seconds = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step(state, local, DP_LR, gen)
+        dp_sync(device)
+        seconds.append(time.perf_counter() - t0)
+    counts, routes = read_counts(), read_routes()
+    full = checkpoint_state(state, opt).opt_state
+    return dict(loss=float(metrics["loss"]), launches=counts, launches_by_route=routes,
+                step_s=float(np.median(seconds)), opt_bytes=optimizer_state_bytes(state.opt_state),
+                params={k: p.detach().clone() for k, p in model.named_parameters()},
+                mu=dict(full.mu), nu=dict(full.nu))
+
+
+def dp_train_job(plan: dict) -> dict:
+    """Phase 14b and 14c on one rank: the baseline step in fp32 against one
+    process; in bf16 its loss, launches and rate, plain and fused Adam; then
+    ZeRO-1 against replicated data parallelism, bitwise, for fp32 and bf16
+    moments with the fused Adam off and on."""
+    from mpreid_tpu_torch.parallel import replicated, zero_sharded
+
+    device, mesh = dp_rank_setup(plan)
+    out = {"rank": mesh.rank}
+    cfg32, cfg16 = plan["cfg32"], plan["cfg16"]
+    out["fp32"] = dp_against_one_process(
+        lambda: make_model(cfg32, plan["classes"], 6, 1, device=device), cfg32, "baseline",
+        plan, mesh, with_text=False)
+
+    model = make_model(cfg16, plan["classes"], 6, 1, device=device)
+    replicated(model)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out["depth"] = len(model.image_encoder.transformer.resblocks)
+
+    def opt_for(fused=False, moment_dtype="float32", zero=False):
+        c = cfg16.clone()
+        c.SOLVER.FUSED_ADAM, c.SOLVER.MOMENT_DTYPE = fused, moment_dtype
+        opt = make_optimizer(c.SOLVER, model, stage="baseline")
+        return (zero_sharded(opt, mesh) if zero else opt), c
+
+    opt, c = opt_for()
+    dp = dp_steps(model, c, opt, plan, mesh, 1 + DP_TIMED_STEPS, w0)
+    out["bf16"] = {k: dp[k] for k in ("loss", "launches", "launches_by_route", "step_s")}
+    if mesh.rank == 0:  # the same steps in one process: the loss after them, and the rate
+        one = dp_steps(model, c, opt_for()[0], plan, None, 1 + DP_TIMED_STEPS, w0)
+        out["bf16"].update(one_process_loss=one["loss"], one_process_step_s=one["step_s"])
+    torch.distributed.barrier()
+    opt, c = opt_for(fused=True)
+    fused = dp_steps(model, c, opt, plan, mesh, 1, w0)
+    out["fused"] = {k: fused[k] for k in ("loss", "launches", "launches_by_route")}
+
+    zero = {}
+    for md in ("float32", "bfloat16"):
+        for fused in (False, True):
+            rep, zer = (dp_steps(model, c, o, plan, mesh, ZERO_STEPS, w0)
+                        for o, c in (opt_for(fused, md, z) for z in (False, True)))
+            zero[f"{md}_fused_{fused}"] = dict(
+                params_equal=all(torch.equal(zer["params"][k], v) for k, v in rep["params"].items()),
+                moments_equal=all(torch.equal(zer[m][k], v) for m in ("mu", "nu")
+                                  for k, v in rep[m].items()),
+                replicated_opt_bytes=rep["opt_bytes"], zero_opt_bytes=zer["opt_bytes"],
+                launches=zer["launches"], launches_by_route=zer["launches_by_route"],
+                loss=zer["loss"])
+    out["zero"] = zero
+    return out
+
+
+def dp_uniprompt_job(plan: dict) -> dict:
+    """Phase 14d on one rank: one fp32 data-parallel step of Uni-Prompt
+    stage 2a (the i2t term) and of MoE stage 2b (distinct random experts and
+    gates, the aux loss), each against the single-process step."""
+    device, mesh = dp_rank_setup(plan)
+    out = {}
+    for name, cfg, stage in (("stage2a", plan["uni32"], "stage2a"),
+                             ("moe_stage2b", plan["moe32"], "stage2b")):
+        out[name] = dp_against_one_process(
+            lambda c=cfg: make_model_uniprompt(c, plan["uni_classes"], 14, UNI_VIEWS,
+                                               device=device),
+            cfg, stage, plan, mesh, with_text=True)
+    return out
+
+
+def dp_eval_job(plan: dict) -> dict:
+    """Phase 14e on one rank: gallery-sharded CMC / mAP at Market-1501's
+    scale (seeded clustered features) through the evaluator's sharded path,
+    each rank one block of the gallery, against the dense evaluator on rank
+    0 (both timed after a warm-up call); then the same with DP_TIES gallery
+    rows copied across the shard boundary (half of them under another
+    identity: exact ties)."""
+    from mpreid_tpu_torch.engine.processor import sharded_gallery_metrics
+
+    device, mesh = dp_rank_setup(plan)
+    m = plan["market"]
+    feats, pids, camids = clustered_feats(m["q"], m["g"], m["ids"])
+    out = {}
+    for case in ("clustered", "ties"):
+        if case == "ties":
+            half = -(-m["g"] // mesh.data)
+            rows = np.random.default_rng(3).choice(half, DP_TIES, replace=False)
+            src, dst = m["q"] + rows, m["q"] + half + rows
+            dst = dst[dst < len(pids)]
+            src = src[:len(dst)]
+            feats[dst], pids[dst] = feats[src], pids[src]
+            pids[dst[::2]] = pids[src[::2]] + 1  # another identity at the same distance
+        ev = R1mAPEvaluator(m["q"], max_rank=50, feat_norm=True, device=device)
+        ev.update((torch.from_numpy(feats).to(device), pids, camids))
+        if case == "clustered":  # warm-up: the first call of each kernel
+            sharded_gallery_metrics(ev)
+            if mesh.rank == 0:
+                ev.compute()
+        dp_sync(device)
+        t0 = time.perf_counter()
+        cmc, mAP = sharded_gallery_metrics(ev)
+        dp_sync(device)
+        res = dict(sharded_s=time.perf_counter() - t0, rank1=float(cmc[0]), mAP=mAP)
+        if mesh.rank == 0:
+            t0 = time.perf_counter()
+            dcmc, dmap, *_ = ev.compute()
+            dp_sync(device)
+            res.update(dense_s=time.perf_counter() - t0, cmc_equal=bool(np.array_equal(cmc, dcmc)),
+                       map_abs_diff=abs(mAP - dmap), dense_mAP=dmap)
+        out[case] = res
+        torch.distributed.barrier()
+    return out
+
+
+def nccl_world_one(plan_path: str) -> None:
+    """Phase 14a, in a process started with torchrun's variables for a world
+    of 1: ``init_distributed`` makes the NCCL group (gloo on the CPU), one
+    all-reduce of a device tensor, one ``do_train`` step at full width with
+    the group, then the same step without it; prints one JSON line."""
+    import torch.distributed as dist
+
+    from mpreid_tpu_torch.parallel import init_distributed, world_size
+
+    plan = torch.load(plan_path, weights_only=False)
+    device = torch.device(plan["device"])
+    rank = init_distributed(device=device)
+    t = torch.full((4,), 3.0, device=device)
+    dist.all_reduce(t)
+    res = dict(rank=rank, world=world_size(), backend=dist.get_backend(),
+               all_reduce_ok=bool((t == 3.0).all()))
+
+    def one_step():
+        cfg = plan["cfg16"]
+        batch = dp_batch(plan, "cpu")
+        images, pids = batch["images"].numpy(), batch["pids"].numpy()
+        sampler = RandomIdentitySampler(list(zip(range(len(pids)), pids)), plan["batch"],
+                                        K_INST, seed=int(cfg.SOLVER.SEED))
+        loader = TrainLoader(MemoryBatcher(images, pids, plan["batch"]), sampler)
+        model = make_model(cfg, plan["classes"], 6, 1, device=device)
+        loss_fn, _ = make_loss(cfg, plan["classes"])
+        opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        reset_counts()
+        _, history = do_train(cfg, model, loader, None, opt, lambda e: DP_LR, loss_fn, QUERY,
+                              max_epochs=1)
+        dp_sync(device)
+        run = dict(steps=len(sampler.epoch_indices(1)) // plan["batch"], launches=read_counts(),
+                   launches_by_route=read_routes(), history=history)
+        return run, {k: p.detach().cpu() for k, p in model.named_parameters()}
+
+    run, p_group = one_step()
+    dist.destroy_process_group()
+    alone, p_alone = one_step()
+    res.update(run, history_equal=run["history"] == alone["history"],
+               params_equal=all(torch.equal(v, p_alone[k]) for k, v in p_group.items()))
+    print("NCCL_WORLD_ONE " + json.dumps(res), flush=True)
+
+
+def run_data_parallel(plan: dict) -> dict:
+    """Phase 14: 14a in a subprocess with torchrun's variables, then 14b–e
+    as spawned two-rank gloo jobs sharing the card, each with its own
+    timeout; every check raises on failure."""
+    from mpreid_tpu_torch.parallel.launch import free_port, spawn
+
+    res = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plan.pth")
+        torch.save(plan, path)
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        code = f"import chip_smoke; chip_smoke.nccl_world_one({path!r})"
+        proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                              text=True, timeout=DP_TIMEOUT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("NCCL_WORLD_ONE ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"14a failed (exit {proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    a = json.loads(lines[-1].split(" ", 1)[1])
+    a["seconds"] = time.perf_counter() - t0
+    log(f"  14a world 1 through init_distributed {json.dumps(a)}")
+    want_backend = "nccl" if plan["device"] != "cpu" else "gloo"
+    if not (a["backend"] == want_backend and a["world"] == 1 and a["all_reduce_ok"]
+            and a["history_equal"] and a["params_equal"] and a["steps"] == 1):
+        raise AssertionError(f"14a: the world-1 group changed the step: {a}")
+    res["14a"] = a
+
+    t0 = time.perf_counter()
+    ranks = spawn(dp_train_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    b = ranks[0]
+    b_res = dict(fp32=b["fp32"], bf16=b["bf16"], fused=b["fused"],
+                 seconds=time.perf_counter() - t0)
+    log(f"  14b data parallel, 2 ranks on one card over gloo {json.dumps(b_res)}")
+    f32 = b["fp32"]
+    if not (f32["loss_rel"] <= LOSS_RTOL and f32["worst_grad_rel"] <= GRAD_RTOL
+            and f32["bn_stats_worst_rel"] <= DP_STATS_RTOL and f32["params_ok"]):
+        raise AssertionError(f"14b: the fp32 data-parallel step differs from one process's: {f32}")
+    bf = b["bf16"]
+    if not abs(bf["loss"] - bf["one_process_loss"]) <= DP_BF16_LOSS_RTOL * abs(bf["one_process_loss"]):
+        raise AssertionError(f"14b: the bf16 data-parallel loss differs from one process's: {bf}")
+    depth, n = b["depth"], 1 + DP_TIMED_STEPS
+    for r, out in enumerate(ranks):
+        expect_dp_counts(f"14b rank {r} plain Adam", out["bf16"], {
+            "attention_fwd": depth * n, "attention_bwd": depth * n})
+        expect_dp_counts(f"14b rank {r} fused Adam", out["fused"], {
+            "attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES})
+    rates = dict(two_ranks_img_per_s=plan["batch"] / bf["step_s"],
+                 one_process_img_per_s=plan["batch"] / bf["one_process_step_s"], note=RATE_NOTE)
+    rate_line("data-parallel train img/s (configs/person/vit_base.yml, global batch 64, "
+              f"median of {DP_TIMED_STEPS + 1} steps; {RATE_NOTE})", rates)
+    res["14b"] = dict(b_res, rates=rates)
+
+    z = b["zero"]
+    log(f"  14c ZeRO-1 against replicated data parallelism {json.dumps(z)}")
+    for r, out in enumerate(ranks):
+        for name, c in out["zero"].items():
+            if not (c["params_equal"] and c["moments_equal"]):
+                raise AssertionError(f"14c rank {r} {name}: ZeRO differs from replicated: {c}")
+            if not c["zero_opt_bytes"] < 0.75 * c["replicated_opt_bytes"]:
+                raise AssertionError(f"14c rank {r} {name}: no saving in optimizer state: {c}")
+            fused = name.endswith("True")
+            expect_dp_counts(f"14c rank {r} {name}", c, {
+                "attention_fwd": depth * ZERO_STEPS, "attention_bwd": depth * ZERO_STEPS,
+                "adam": ADAM_LEAVES * ZERO_STEPS if fused else 0})
+    res["14c"] = {name: {k: c[k] for k in ("replicated_opt_bytes", "zero_opt_bytes")}
+                  for name, c in z.items()}
+    res["14c"]["launches"] = {r: out["zero"]["bfloat16_fused_True"]["launches"]
+                              for r, out in enumerate(ranks)}
+
+    t0 = time.perf_counter()
+    d = spawn(dp_uniprompt_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)[0]
+    log(f"  14d Uni-Prompt stage 2a and MoE stage 2b, fp32 {json.dumps(d)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, c in d.items():
+        if not (c["loss_rel"] <= LOSS_RTOL and c["worst_grad_rel"] <= GRAD_RTOL
+                and c["bn_stats_worst_rel"] <= DP_STATS_RTOL and c["params_ok"]):
+            raise AssertionError(f"14d {name}: the data-parallel step differs from one "
+                                 f"process's: {c}")
+    res["14d"] = d
+
+    t0 = time.perf_counter()
+    e = spawn(dp_eval_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)[0]
+    log(f"  14e gallery-sharded eval at Market-1501's scale {json.dumps(e)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, c in e.items():
+        if not (c["cmc_equal"] and c["map_abs_diff"] <= 1e-6):
+            raise AssertionError(f"14e {name}: sharded metrics differ from the dense ones: {c}")
+    res["14e"] = e
+    return res
+
+
+def expect_dp_counts(what: str, run: dict, want: dict) -> None:
+    """A spawned rank's launch counts as ``want`` says (0 where it says
+    nothing), every attention launch on "tc" (the runs are bf16)."""
+    got = run["launches"]
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+    routes = run["launches_by_route"]
+    for name, by_route in routes.items():
+        if by_route != {r: got[name] if r == "tc" else 0 for r in attn.ROUTES}:
+            raise AssertionError(f"{what}: attention launches by route {routes}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true")
@@ -2870,6 +3307,15 @@ def main() -> None:
                    stage1b_rows_per_s=rn50_uni["res"]["stage1b"]["bank_rows_per_s"]))
     log(f"  CLIP loader and RN50 phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("data parallelism over torch.distributed (14a NCCL at world 1; 14b–e two ranks "
+        "sharing the card over gloo), full width:")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dp_res = run_data_parallel(dp_plan())
+    expect_dp_counts("14a world 1", dp_res["14a"], {
+        "attention_fwd": 12 * dp_res["14a"]["steps"], "attention_bwd": 12 * dp_res["14a"]["steps"]})
+    log(f"  data-parallel phase seconds {time.perf_counter() - t0:.1f}")
+
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
@@ -2898,6 +3344,10 @@ def main() -> None:
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
             "launches_ttpt": {k: ttpt_res[k]["launches"][name] for k in ("tta", "ttpt")},
             "launches_margin": {k: margin_res[k]["launches"][name] for k in MARGIN_KINDS},
+            "launches_data_parallel": {
+                "nccl_world_one_step": dp_res["14a"]["launches"][name],
+                "per_rank_dp_step": dp_res["14b"]["bf16"]["launches"][name] // (1 + DP_TIMED_STEPS),
+                "per_rank_zero_3_steps": dp_res["14c"]["launches"][0][name]},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             **timing(pick(found, "vision")),
             "shape": "B64 L129 12x64 bf16 packed, no mask",
@@ -2924,6 +3374,9 @@ def main() -> None:
         "replaces": "mpreid_tpu/ops/adam_kernel.py:60",
         "launches": train_res["fused"]["launches"]["adam"],
         "launches_margin": margin_res[MARGIN_KINDS[-1]]["launches"]["adam"],
+        "launches_data_parallel": {
+            "per_rank_fused_dp_step": dp_res["14b"]["fused"]["launches"]["adam"],
+            "per_rank_zero_slices_3_steps": dp_res["14c"]["launches"][0]["adam"]},
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",

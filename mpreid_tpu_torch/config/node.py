@@ -66,6 +66,13 @@ class CfgNode(dict):
     def is_frozen(self) -> bool:
         return object.__getattribute__(self, _FROZEN)
 
+    def __reduce__(self):
+        # pickled as plain dicts and the flag: unpickling a dict subclass sets
+        # its items before its attributes, which __setitem__ cannot take
+        plain = {k: v.__reduce__()[1][0] if isinstance(v, CfgNode) else v
+                 for k, v in self.items()}
+        return _rebuild, (plain, self.is_frozen())
+
     def clone(self) -> "CfgNode":
         node = CfgNode()
         for k, v in self.items():
@@ -174,3 +181,10 @@ def _coerce(value: Any, old: Any, key: str) -> Any:
     # tuples in defaults written as ('market1501') are actually plain strings —
     # accept str↔str and anything whose types already match.
     return value
+
+
+def _rebuild(plain: dict, frozen: bool) -> CfgNode:
+    node = CfgNode(plain)
+    if frozen:
+        node.freeze()
+    return node

@@ -18,6 +18,7 @@ the final batch is zero-padded to the full batch size).
 
 from __future__ import annotations
 
+import copy
 import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Optional, Sequence
@@ -26,7 +27,7 @@ import numpy as np
 
 from .base import ReIDDataset, Record
 from .datasets import build_dataset
-from .sampler import RandomIdentitySampler
+from .sampler import RandomIdentitySampler, shard_for_host
 
 logger = logging.getLogger("mpreid_tpu_torch.data")
 
@@ -161,6 +162,45 @@ class ShuffledLoader:
 
     def __len__(self):
         return len(self.batcher)
+
+
+class ShardedLoader:
+    """One rank's block of every global batch of ``loader`` (a
+    ``TrainLoader`` or ``ShuffledLoader`` whose batch is the global one,
+    ``SOLVER.IMS_PER_BATCH``): the epoch's global order cut by
+    ``shard_for_host`` into ``num_shards`` contiguous blocks per batch, as
+    the JAX package's hosts feed theirs (tests/_mp_worker.py). Every rank
+    draws the same global order from the same seed, so together the ranks
+    see each global batch exactly once; full batches only (a
+    ``ShuffledLoader``'s partial last batch is dropped). It decodes through
+    a copy of the loader's batcher at the block size, sharing its cache."""
+
+    def __init__(self, loader, num_shards: int, shard_id: int):
+        src = loader.batcher
+        if src.batch_size % num_shards:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH {src.batch_size} does not split over "
+                             f"{num_shards} ranks")
+        self.loader = loader
+        self.num_shards, self.shard_id = num_shards, shard_id
+        self.global_batch = src.batch_size
+        self.batcher = copy.copy(src)  # the same decoder (and cache) at the block size
+        self.batcher.batch_size = src.batch_size // num_shards
+        self.batcher.prefetcher = ThreadPoolExecutor(max_workers=1)
+        self.batcher._pool = None
+
+    def epoch_order(self, epoch_idx: int) -> np.ndarray:
+        if isinstance(self.loader, TrainLoader):
+            return np.asarray(self.loader.sampler.epoch_indices(epoch_idx))
+        rng = np.random.default_rng(self.loader.seed + epoch_idx)
+        return rng.permutation(len(self.loader.batcher.records))
+
+    def epoch(self, epoch_idx: int) -> Iterator[Dict]:
+        block = shard_for_host(self.epoch_order(epoch_idx), self.global_batch,
+                               self.num_shards, self.shard_id)
+        return self.batcher.iter_indices(block, drop_last=True)
+
+    def __len__(self):
+        return len(self.loader)
 
 
 def make_dataloader(cfg, dataset: Optional[ReIDDataset] = None):

@@ -18,15 +18,29 @@ each epoch is one ``steps.make_train_epoch`` call over ``epoch_perm``'s
 index matrix, with no upload or host decode inside it. ``TPU.PROFILE_DIR``
 writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
 steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
-the whole second epoch, into that directory. ``TPU.EVAL_SHARDED``,
-``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` act in the JAX package only
-over a mesh of more than one device, so on one card they do nothing here
-either (``check_tpu_keys`` logs so). Not ported: the mesh itself (the
-parallel slice).
+the whole second epoch, into that directory.
+
+Data parallelism (ref processor.py:186-201, :69-100): under a process group
+of more than one rank (``parallel.init_distributed``, torchrun) and
+``TPU.MESH_DATA`` other than 1, ``do_train`` builds the mesh, feeds each
+rank its block of every global batch (``data/loader.py::ShardedLoader``),
+runs the data-parallel step from rank 0's broadcast state, and under
+``TPU.ZERO_OPT_STATE`` shards the optimizer moments (``parallel/zero.py``).
+``TPU.DEVICE_DATASET`` is off there, as in the JAX package. Rank 0 alone
+logs metrics and writes checkpoints (a ZeRO run's moments gathered first).
+``run_validation`` extracts the features on every rank; under
+``TPU.EVAL_SHARDED`` without ``TEST.RE_RANKING`` each rank then takes one
+block of the gallery and ``parallel.sharded_cmc_map`` computes the metrics.
+On one rank ``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and
+``TPU.TP_TOWERS`` do nothing, as in the JAX package (``check_tpu_keys``
+logs so); over the data axis ``TPU.TP_TOWERS`` does nothing either (a
+model axis of 1), and ``TPU.MESH_MODEL`` above 1 raises: the model axis is
+the next parallel slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -36,6 +50,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mpreid_tpu_torch.data.loader import ShardedLoader
+from mpreid_tpu_torch.parallel import (
+    ZeroOptimizer, is_main, make_mesh, mesh_from_cfg, rank, replicated, sharded_cmc_map,
+    world_size, zero_sharded,
+)
 from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state, save_checkpoint
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
@@ -56,6 +75,54 @@ def check_tpu_keys(cfg, keys, logger) -> None:
         if cfg.TPU[key]:
             logger.info(f"TPU.{key} does nothing on one device (the JAX package acts on it "
                         "only over a mesh of more than one)")
+
+
+def rank_logger(logger: logging.Logger) -> logging.Logger:
+    """``logger`` on rank 0; on the other ranks a child of it that passes
+    warnings and errors only, so one rank logs the metrics."""
+    if is_main():
+        return logger
+    quiet = logging.getLogger(f"{logger.name}.rank{rank()}")
+    quiet.setLevel(logging.WARNING)
+    return quiet
+
+
+def data_parallel(cfg, optimizer, logger):
+    """(mesh, optimizer) of a training loop (ref processor.py:186-201): over
+    a group of more than one rank with ``TPU.MESH_DATA`` other than 1, the
+    mesh and, under ``TPU.ZERO_OPT_STATE``, the ZeRO-1 optimizer; else
+    (None, ``optimizer``), the mesh keys logged as doing nothing."""
+    if world_size() == 1 or cfg.TPU.MESH_DATA == 1:
+        check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
+        return None, optimizer
+    mesh = mesh_from_cfg(cfg)
+    logger.info(f"Training over mesh {mesh.shape}: each rank feeds its block of every "
+                "global batch")
+    if cfg.TPU.TP_TOWERS:
+        logger.info("TPU.TP_TOWERS does nothing with a model axis of 1")
+    if cfg.TPU.ZERO_OPT_STATE:
+        optimizer = zero_sharded(optimizer, mesh, tp_towers=cfg.TPU.TP_TOWERS)
+        logger.info("ZeRO-1: optimizer moments sharded over 'data'")
+    if cfg.TPU.DEVICE_DATASET:
+        logger.info("TPU.DEVICE_DATASET is off under data parallelism (as in the JAX package)")
+    return mesh, optimizer
+
+
+def start_data_parallel(state, optimizer, train_loader, mesh):
+    """Rank 0's model, replicated moments and centers on every rank (ZeRO's
+    moment slices are each rank's own) → this rank's view of the loader."""
+    zero = isinstance(optimizer, ZeroOptimizer)
+    replicated(state.model, None if zero else state.opt_state, state.centers)
+    return ShardedLoader(train_loader, mesh.data, mesh.rank)
+
+
+def checkpoint_state(state, optimizer):
+    """``state`` with the optimizer moments at the parameters' shapes (a ZeRO
+    optimizer gathers them: every rank must call this)."""
+    if isinstance(optimizer, ZeroOptimizer):
+        return dataclasses.replace(state, opt_state=optimizer.gathered(state.opt_state,
+                                                                       state.model))
+    return state
 
 
 def build_device_dataset(train_loader, device: torch.device):
@@ -115,8 +182,13 @@ def stop_trace(prof, directory: str, logger) -> None:
 
 def run_validation(cfg, model, val_loader, num_query, logger=None,
                    epoch: Optional[int] = None):
-    """Shared eval loop (ref processor.py:117-158 / 187-208) → (cmc, mAP)."""
-    check_tpu_keys(cfg, ("EVAL_SHARDED",), logger or logging.getLogger("mpreid_tpu_torch"))
+    """Shared eval loop (ref processor.py:117-158 / 187-208) → (cmc, mAP).
+    Under ``TPU.EVAL_SHARDED`` over more than one rank, without
+    ``TEST.RE_RANKING``, the metrics come from ``sharded_gallery_metrics``."""
+    sharded = cfg.TPU.EVAL_SHARDED and world_size() > 1 and not cfg.TEST.RE_RANKING
+    logger = rank_logger(logger) if logger else None
+    if world_size() == 1:
+        check_tpu_keys(cfg, ("EVAL_SHARDED",), logger or logging.getLogger("mpreid_tpu_torch"))
     evaluator = R1mAPEvaluator(
         num_query,
         max_rank=50,
@@ -133,8 +205,11 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
         feat = eval_step(batch)
         n = batch["count"]
         evaluator.update((feat[:n], batch["pids"][:n], batch["camids"][:n]))
-    cmc, mAP, distmat, *_ = evaluator.compute()
-    if cfg.TEST.DIST_MAT and cfg.OUTPUT_DIR:
+    if sharded:
+        cmc, mAP, distmat = (*sharded_gallery_metrics(evaluator), None)
+    else:
+        cmc, mAP, distmat, *_ = evaluator.compute()
+    if cfg.TEST.DIST_MAT and cfg.OUTPUT_DIR and distmat is not None and is_main():
         np.save(os.path.join(cfg.OUTPUT_DIR, cfg.TEST.DIST_MAT), distmat)
     if logger:
         tag = f" - Epoch: {epoch}" if epoch is not None else " "
@@ -144,6 +219,38 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
             if r <= len(cmc):  # tiny galleries have fewer ranks than 10
                 logger.info("CMC curve, Rank-{:<3}:{:.1%}".format(r, cmc[r - 1]))
     return cmc, mAP
+
+
+def sharded_gallery_metrics(evaluator: R1mAPEvaluator):
+    """(cmc, mAP) of the evaluator's features with the gallery split over
+    the ranks (ref processor.py:69-100): every rank holds every feature; the
+    gallery, padded to a multiple of the ranks with far-away dummies (pid
+    −1, features 1e6: ranked last and never relevant, so the metrics are
+    exact), is cut into one contiguous block per rank for
+    ``parallel.sharded_cmc_map``; the (Q, G) distances are never formed."""
+    feats = torch.cat(evaluator.feats, dim=0).float()
+    pids = np.concatenate(evaluator.pids)
+    camids = np.concatenate(evaluator.camids)
+    if evaluator.feat_norm:
+        feats = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
+    nq, device = evaluator.num_query, feats.device
+    mesh = make_mesh(data=world_size(), model=1)
+    gf, g_pids, g_camids = feats[nq:], pids[nq:], camids[nq:]
+    pad = (-len(g_pids)) % mesh.data
+    if pad:
+        gf = torch.cat([gf, torch.full((pad, gf.shape[1]), 1e6, device=device)])
+        g_pids = np.concatenate([g_pids, np.full(pad, -1, g_pids.dtype)])
+        g_camids = np.concatenate([g_camids, np.full(pad, -1, g_camids.dtype)])
+    per = len(g_pids) // mesh.data
+    block = slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    cmc, mAP = sharded_cmc_map(feats[:nq], gf[block], dev(pids[:nq]), dev(g_pids[block]),
+                               dev(camids[:nq]), dev(g_camids[block]), mesh,
+                               max_rank=evaluator.max_rank, camera_filter=evaluator.camera_filter)
+    return cmc.cpu().numpy(), float(mAP)
 
 
 def do_inference(cfg, model, val_loader, num_query: int):
@@ -158,7 +265,7 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
                  scheduler: Callable[[int], float], start_epoch: int, epochs: int,
                  log_period: int, checkpoint_period: int, eval_period: int,
                  checkpoint_path: Callable[[int], str], logger, train_epoch=None,
-                 profile_dir: str = ""):
+                 profile_dir: str = "", optimizer=None, mesh=None):
     """The epoch loop shared by ``do_train`` and the Uni-Prompt stage 2:
     the lr of each epoch from the schedule, the train steps, metrics drained
     from the device only at log points, samples/s with the reference's
@@ -171,11 +278,17 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
     placed on the model's device once and each epoch is one call of it over
     ``epoch_perm``'s batches; the loss and accuracy come back once, at the
     epoch's end. ``profile_dir`` traces steps 1..``TPU.PROFILE_STEPS`` of
-    epoch 1, or with ``train_epoch`` the whole second epoch."""
+    epoch 1, or with ``train_epoch`` the whole second epoch.
+
+    With ``mesh`` (data parallel) ``train_loader`` yields this rank's blocks,
+    every rank seeds the one generator alike, the rates count the global
+    batch, rank 0 alone logs and writes the checkpoints, and ``optimizer``
+    (a ZeRO one) gathers the moments for them on every rank."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(int(cfg.SOLVER.SEED))
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
-    batch_size = train_loader.batcher.batch_size
+    batch_size = train_loader.batcher.batch_size * (mesh.data if mesh is not None else 1)
+    logger = rank_logger(logger)
     history = []
     data = None
     if train_epoch is not None:
@@ -248,7 +361,9 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
 
         path = checkpoint_path(epoch)
         if path and epoch % checkpoint_period == 0:
-            save_checkpoint(path, state, epoch)
+            saved = checkpoint_state(state, optimizer)
+            if is_main():
+                save_checkpoint(path, saved, epoch)
         if epoch % eval_period == 0 and val_loader is not None:
             run_validation(cfg, model, val_loader, num_query, logger, epoch)
     return state, history
@@ -263,27 +378,29 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
     its records are decoded once onto the model's device instead."""
     solver = cfg.SOLVER
     epochs = max_epochs or solver.MAX_EPOCHS
-    logger = logging.getLogger("mpreid_tpu_torch.train")
-    check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
+    logger = rank_logger(logging.getLogger("mpreid_tpu_torch.train"))
     logger.info("start training")
+    mesh, optimizer = data_parallel(cfg, optimizer, logger)
 
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
     center = dict(center_weight=solver.CENTER_LOSS_WEIGHT if with_center else None,
                   center_lr=solver.CENTER_LR if with_center else None)
-    train_step = make_train_step(model, cfg, loss_fn, optimizer, **center)
+    train_step = make_train_step(model, cfg, loss_fn, optimizer, **center, mesh=mesh)
     train_epoch = make_train_epoch(model, cfg, loss_fn, optimizer, **center) \
-        if cfg.TPU.DEVICE_DATASET else None
+        if cfg.TPU.DEVICE_DATASET and mesh is None else None
     state = initial_state(model, optimizer, centers=centers if with_center else None)
     start_epoch = 1
     if solver.RESUME:
-        start_epoch = restore_state(state, load_checkpoint(solver.RESUME)) + 1
+        start_epoch = restore_state(state, load_checkpoint(solver.RESUME), optimizer) + 1
         logger.info(f"Resumed from {solver.RESUME} at epoch {start_epoch}")
+    if mesh is not None:
+        train_loader = start_data_parallel(state, optimizer, train_loader, mesh)
 
     all_start = time.monotonic()
     state, history = train_epochs(
         cfg, model, train_loader, val_loader, num_query, train_step, state, scheduler,
         start_epoch, epochs, solver.LOG_PERIOD, solver.CHECKPOINT_PERIOD, solver.EVAL_PERIOD,
         lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
-        logger, train_epoch, cfg.TPU.PROFILE_DIR)
+        logger, train_epoch, cfg.TPU.PROFILE_DIR, optimizer, mesh)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history

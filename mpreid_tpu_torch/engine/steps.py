@@ -30,6 +30,8 @@ import torch
 from mpreid_tpu_torch.losses import center_loss, supcon_loss
 from mpreid_tpu_torch.models.moe import load_balancing_loss
 from mpreid_tpu_torch.ops.augment import eval_preprocess, train_augment
+from mpreid_tpu_torch.parallel import collectives as C
+from mpreid_tpu_torch.parallel.mesh import global_batch
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
 
 from .train_state import TrainState
@@ -70,12 +72,27 @@ def _grads(loss: torch.Tensor, inputs):
     return torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
 
 
+def gather_outputs(out: dict, mesh) -> dict:
+    """The per-sample train outputs of every rank's block, concatenated in
+    rank order (``all_gather_cat``): the scores and the feats (and
+    ``img_feature_proj``, which is feats[2]). The MoE router logits stay
+    local: the aux loss sums over the ranks itself (``load_balancing_loss``)."""
+    def cat(t):
+        return C.all_gather_cat(t, mesh.group)
+
+    full = dict(out, scores=[cat(t) for t in out["scores"]], feats=[cat(t) for t in out["feats"]])
+    if "img_feature_proj" in out:
+        full["img_feature_proj"] = full["feats"][2]
+    full.pop("image_features_proj_raw", None)
+    return full
+
+
 def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
                    target: torch.Tensor, cam=None, view=None,
                    centers: Optional[torch.Tensor] = None,
                    center_weight: Optional[float] = None,
                    text_features: Optional[torch.Tensor] = None,
-                   gen: Optional[torch.Generator] = None,
+                   gen: Optional[torch.Generator] = None, mesh=None,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor],
                               Optional[torch.Tensor]]:
     """Loss, accuracy, ``{name: gradient}`` over the trainable parameters and
@@ -89,11 +106,27 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
     ``MODEL.MOE.ENABLED`` an MoE tower's router logits add
     ``MODEL.MOE.AUX_LOSS_COEFF`` × the mean over gating blocks of
     ``load_balancing_loss`` (ref mpreid_tpu/engine/steps.py:70-75). ``gen`` draws the MoE
-    experts' dropout."""
+    experts' dropout.
+
+    With ``mesh`` (a data-parallel step of more than one rank) ``x`` and the
+    labels are this rank's block of the global batch. The forward runs on
+    the block, its BatchNorms over the global batch
+    (``parallel.mesh.global_batch``); the per-sample outputs and the labels
+    are gathered from every rank (``gather_outputs``), and every rank
+    computes the single-process loss of the global batch from them. The
+    gradients of the parameters, all upstream of that gather, are this
+    rank's share and are summed over the ranks (``all_reduce_buckets``);
+    the centers sit after it, so their gradient is already the global one
+    on every rank and is not summed."""
     train = trainable_params(model, optimizer)
     aux_coeff = cfg.MODEL.MOE.AUX_LOSS_COEFF if cfg.MODEL.MOE.ENABLED else 0.0
     with torch.enable_grad():
-        out = model.forward_train(x, target, cam, view, gen=gen)
+        with global_batch(mesh):
+            out = model.forward_train(x, target, cam, view, gen=gen)
+        if mesh is not None:
+            out = gather_outputs(out, mesh)
+            target = C.all_gather(target, mesh.group)
+            cam = None if cam is None else C.all_gather(cam, mesh.group)
         if text_features is not None:
             logits = torch.matmul(out["img_feature_proj"].float(), text_features.float().t())
             loss = loss_fn(out["scores"][0], out["feats"][1], target, cam, logits)
@@ -102,7 +135,8 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
             loss = loss_fn(out["scores"], out["feats"], target, cam)
         if aux_coeff and "router_logits" in out:
             top_k = cfg.MODEL.MOE.TOP_K
-            aux = torch.stack([load_balancing_loss(rl, top_k) for rl in out["router_logits"]])
+            aux = torch.stack([load_balancing_loss(rl, top_k, mesh)
+                               for rl in out["router_logits"]])
             loss = loss + aux_coeff * aux.mean()
         inputs = list(train.values())
         if center_weight is not None:
@@ -112,26 +146,37 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
         grads = _grads(loss, inputs)
     acc = (logits.detach().argmax(dim=-1) == target).float().mean()
     named = dict(zip(train, grads))
+    if mesh is not None:
+        named = C.all_reduce_buckets(named, mesh.group)
     cgrad = grads[-1] if center_weight is not None else None
     return loss.detach(), acc, named, cgrad
 
 
 def _make_step_body(model, cfg, loss_fn: Callable, optimizer, center_weight, center_lr,
-                    uniprompt: bool, text_features):
+                    uniprompt: bool, text_features, mesh=None):
     """The body shared by ``make_train_step`` and ``make_train_epoch`` (ref
     ``_train_step_impl``): ``body(state, images, target, cam, view, lr, gen)``
     on device tensors augments the uint8 batch with ``gen``, takes the loss
-    and gradients and updates the state in place → (state, {"loss", "acc"})."""
+    and gradients and updates the state in place → (state, {"loss", "acc"}).
+
+    With ``mesh`` (data parallel over more than one rank) the batch is this
+    rank's block of the global one: it takes its rows of the global batch's
+    augmentation draws (``train_augment``'s ``shard``) and the data-parallel
+    ``loss_and_grads``, so from one state and generator state the ranks
+    together take the single-process step of the global batch. The loss and
+    accuracy are the global batch's, the same on every rank."""
+    mesh = mesh if mesh is not None and mesh.data > 1 else None
+    shard = None if mesh is None else (mesh.data, mesh.rank)
     aug = augment_args(cfg)
     device = _device_of(model)
     center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None
     text = text_features.to(device) if uniprompt and text_features is not None else None
 
     def body(state: TrainState, images, target, cam, view, lr: float, gen: torch.Generator):
-        x = train_augment(images, gen, **aug)
+        x = train_augment(images, gen, **aug, shard=shard)
         loss, acc, grads, cgrad = loss_and_grads(
             state.model, cfg, loss_fn, optimizer, x, target.long(), cam, view,
-            state.centers, center_weight, text, gen)
+            state.centers, center_weight, text, gen, mesh)
         if center_opt is not None:
             state.centers = center_opt.update(cgrad, state.centers).detach()
         train, _ = optimizer.partition(state.model)
@@ -145,7 +190,7 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
                     center_weight: Optional[float] = None,
                     center_lr: Optional[float] = None,
                     uniprompt: bool = False,
-                    text_features: Optional[torch.Tensor] = None):
+                    text_features: Optional[torch.Tensor] = None, mesh=None):
     """Baseline / Uni-Prompt stage-2 train step (ref processor.py:57-88 and
     processor_uniprompt_stage2.py:88-156 hot loops) →
     ``step(state, batch, lr, gen) → (state, {"loss", "acc"})``.
@@ -156,10 +201,12 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
     (and the MoE experts' dropout). With ``center_weight`` the center loss
     joins, and the centers take an SGD step on their gradient rescaled by
     1/``center_weight``. With ``uniprompt`` and ``text_features`` the
-    image-to-text term joins (``loss_and_grads``)."""
+    image-to-text term joins (``loss_and_grads``). With ``mesh`` of more
+    than one rank, ``batch`` is this rank's block of the global batch and
+    the step is the data-parallel one (``_make_step_body``)."""
     device = _device_of(model)
     body = _make_step_body(model, cfg, loss_fn, optimizer, center_weight, center_lr,
-                           uniprompt, text_features)
+                           uniprompt, text_features, mesh)
 
     def step(state: TrainState, batch, lr: float, gen: torch.Generator):
         cam, view = (_to(device, a) for a in labels_for(cfg, batch))

@@ -21,9 +21,13 @@ The four freeze regimes are four optimizers over one model
 files: ``{NAME}_stage{1a,1b}_{epoch}.pth`` under ``OUTPUT_DIR`` and
 ``{NAME}_{epoch}.pth`` under ``OUTPUT_DIR/EXP_SETTING``. Stage 2 traces
 nothing: the JAX package's stage 2 never reads ``TPU.PROFILE_DIR``, and
-here it is logged as doing nothing. Not ported: the mesh branch of stage 2
-(ROADMAP A11, so ``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` do nothing on
-one card).
+here it is logged as doing nothing.
+
+Data parallelism (ref mpreid_tpu/engine/uniprompt.py:191-215): stage 2
+takes the baseline's mesh branch (``processor.data_parallel``), dense and
+MoE alike, with the text features computed on every rank; stage 1 has no
+mesh in the JAX package, so every rank runs it alike (rank 0 alone writes
+its checkpoints).
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ import torch
 from mpreid_tpu_torch.utils.checkpoint import save_checkpoint
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
-from .processor import TRAIN_TPU_KEYS, check_tpu_keys, do_inference, train_epochs
+from mpreid_tpu_torch.parallel import is_main
+
+from .processor import (
+    data_parallel, do_inference, rank_logger, start_data_parallel, train_epochs,
+)
 from .steps import (
     make_image_bank_step, make_stage1_step, make_text_step, make_train_epoch, make_train_step,
 )
@@ -77,7 +85,8 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
     (state, history); the model's contexts are updated in place."""
     stage_cfg = stage_cfg or cfg.SOLVER.STAGE1
     stage = "1b" if is_stage1b else "1a"
-    logger.info(f"Start training stage {stage}")
+    log = rank_logger(logger)
+    log.info(f"Start training stage {stage}")
     all_start = time.monotonic()
 
     if bank is None:
@@ -115,15 +124,15 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
             pending.append((metrics["loss"], len(sel)))
             if i < i_ter and (i + 1) % stage_cfg.LOG_PERIOD == 0:
                 drain()
-                logger.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
+                log.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
                     epoch, i + 1, i_ter + 1, loss_meter.avg, lr))
         drain()
         history.append({"epoch": epoch, "loss": loss_meter.avg})
-        if cfg.OUTPUT_DIR and epoch % stage_cfg.CHECKPOINT_PERIOD == 0:
+        if cfg.OUTPUT_DIR and epoch % stage_cfg.CHECKPOINT_PERIOD == 0 and is_main():
             name = f"{cfg.MODEL.NAME}_stage{stage}_{epoch}.pth"
             save_checkpoint(os.path.join(cfg.OUTPUT_DIR, name), state, epoch)
 
-    logger.info(f"Stage {stage} running time: {timedelta(seconds=time.monotonic() - all_start)}")
+    log.info(f"Stage {stage} running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history
 
 
@@ -145,28 +154,31 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
                     checkpoint_period: Optional[int] = None, eval_period: Optional[int] = None):
     """Stage-2 fine-tune (ref processor_uniprompt_stage2.py:14-223) →
     (state, history)."""
-    check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
+    log = rank_logger(logger)
     if cfg.TPU.PROFILE_DIR:
-        logger.info("TPU.PROFILE_DIR does nothing in stage 2 (the JAX package traces only "
+        log.info("TPU.PROFILE_DIR does nothing in stage 2 (the JAX package traces only "
                     "the baseline loop)")
     s2 = cfg.SOLVER.STAGE2
-    logger.info("start training")
+    log.info("start training")
     all_start = time.monotonic()
     text_features = precompute_text_features(cfg, model, num_classes)
+    mesh, optimizer = data_parallel(cfg, optimizer, log)
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
     kwargs = dict(center_weight=s2.CENTER_LOSS_WEIGHT if with_center else None,
                   center_lr=s2.CENTER_LR if with_center else None,
                   uniprompt=True, text_features=text_features)
-    train_step = make_train_step(model, cfg, loss_fn, optimizer, **kwargs)
+    train_step = make_train_step(model, cfg, loss_fn, optimizer, **kwargs, mesh=mesh)
     train_epoch = make_train_epoch(model, cfg, loss_fn, optimizer, **kwargs) \
-        if cfg.TPU.DEVICE_DATASET else None
+        if cfg.TPU.DEVICE_DATASET and mesh is None else None
     state = initial_state(model, optimizer, centers=centers if with_center else None)
+    if mesh is not None:
+        train_loader_stage2 = start_data_parallel(state, optimizer, train_loader_stage2, mesh)
     out_dir = cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, cfg.DATASETS.EXP_SETTING)
     state, history = train_epochs(
         cfg, model, train_loader_stage2, val_loader, num_query, train_step, state, scheduler,
         1, max_epochs or s2.MAX_EPOCHS, log_period or s2.LOG_PERIOD,
         checkpoint_period or s2.CHECKPOINT_PERIOD, eval_period or s2.EVAL_PERIOD,
         lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger,
-        train_epoch)
-    logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
+        train_epoch, optimizer=optimizer, mesh=mesh)
+    log.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     return state, history

@@ -37,6 +37,8 @@ from torch import nn
 from mpreid_tpu_torch.losses import margin as M
 from mpreid_tpu_torch.ops.attention import fused_attention
 from mpreid_tpu_torch.ops.matmul import mm_f32
+from mpreid_tpu_torch.parallel import collectives as C
+from mpreid_tpu_torch.parallel.mesh import batch_mesh
 
 
 def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
@@ -215,6 +217,41 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+class _GlobalMoments(torch.autograd.Function):
+    """Mean and biased variance over ``dims`` of the global batch, each rank
+    holding its block: the single-process code's two sums (Σx, then
+    Σ(x − mean)²), each all-reduced. The backward all-reduces the two
+    cotangent sums (every rank's block enters the same statistics) and
+    returns this rank's dx."""
+
+    @staticmethod
+    def forward(ctx, x, dims, count, group):
+        shape = [1 if i in dims else s for i, s in enumerate(x.shape)]
+        mean = C.all_reduce_sum(x.sum(dim=dims), group) / count
+        centred = x - mean.view(shape)
+        var = C.all_reduce_sum(torch.square(centred).sum(dim=dims), group) / count
+        ctx.save_for_backward(centred)
+        ctx.shape, ctx.count, ctx.group = shape, count, group
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        (centred,) = ctx.saved_tensors
+        sums = C.all_reduce_sum(torch.stack([dmean, dvar]), ctx.group)
+        dmean, dvar = sums[0].view(ctx.shape), sums[1].view(ctx.shape)
+        return (dmean + 2.0 * dvar * centred) / ctx.count, None, None, None
+
+
+def global_moments(x32: torch.Tensor, dims, mesh):
+    """(mean, biased variance, element count) per channel over ``dims`` of
+    the global batch that ``mesh``'s ranks hold in blocks of one size (the
+    BatchNorms under a data-parallel forward, ``parallel.mesh.global_batch``)."""
+    per_rank = x32.numel() // math.prod(x32.shape[i] for i in range(x32.dim()) if i not in dims)
+    count = per_rank * mesh.data
+    mean, var = _GlobalMoments.apply(x32, tuple(dims), count, mesh.group)
+    return mean, var, count
+
+
 class BNNeck(nn.Module):
     """BatchNorm1d bottleneck, fp32 (ref ``BNNeck``).
 
@@ -223,7 +260,9 @@ class BNNeck(nn.Module):
     normalises with the batch mean and biased variance and updates the
     running statistics with the unbiased variance, EMA decay 0.9, and counts
     the batch in ``num_batches_tracked``; ``train=False`` uses the running
-    statistics."""
+    statistics. Under a data-parallel forward (``parallel.mesh.global_batch``)
+    the batch statistics, and so the running ones, are the global batch's
+    (``global_moments``), equal on every rank."""
 
     momentum = 0.9  # torch BN momentum 0.1 → EMA decay 0.9
 
@@ -239,9 +278,13 @@ class BNNeck(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
         if train:
-            mean = x32.mean(dim=0)
-            var = torch.square(x32 - mean).mean(dim=0)
-            n = x.shape[0]
+            mesh = batch_mesh()
+            if mesh is None:
+                mean = x32.mean(dim=0)
+                var = torch.square(x32 - mean).mean(dim=0)
+                n = x.shape[0]
+            else:
+                mean, var, n = global_moments(x32, (0,), mesh)
             with torch.no_grad():
                 unbiased = var * (n / max(n - 1, 1))
                 self.running_mean.copy_(

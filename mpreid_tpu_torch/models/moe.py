@@ -39,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpreid_tpu_torch.ops.matmul import bmm_f32
+from mpreid_tpu_torch.parallel import collectives as C
+from mpreid_tpu_torch.parallel.mesh import batch_mesh
 
 from .layers import LayerNorm, Linear, MultiHeadAttention, init_normal_, linear_bias_act, quick_gelu
 
@@ -63,25 +65,43 @@ def topk_routing(router_logits: torch.Tensor, top_k: int
     return torch.zeros_like(probs).scatter(-1, selected, top), selected
 
 
-def load_balancing_loss(router_logits: torch.Tensor, top_k: int) -> torch.Tensor:
+def load_balancing_loss(router_logits: torch.Tensor, top_k: int, mesh=None) -> torch.Tensor:
     """The Switch-Transformer aux loss (ref ``load_balancing_loss``): the
     (top_k, E) share of tokens routed to each expert at each rank, times each
-    expert's mean router probability, summed and scaled by E."""
+    expert's mean router probability, summed and scaled by E.
+
+    With ``mesh`` (a data-parallel step; each rank holds its block of the
+    tokens) both means are over the global batch's tokens: their sums are
+    summed over the ranks, with a gradient, before the product, which is not
+    linear in the batch (so the ranks' own losses would not average to it)."""
     num_experts = router_logits.shape[-1]
     weights = torch.softmax(router_logits.reshape(-1, num_experts).float(), dim=-1)
     mask = F.one_hot(top_k_indices(weights, top_k), num_experts).float()
-    tokens_per_expert = mask.mean(dim=0)        # (top_k, E)
-    prob_per_expert = weights.mean(dim=0)       # (E,)
+    if mesh is None or mesh.data == 1:
+        tokens_per_expert = mask.mean(dim=0)        # (top_k, E)
+        prob_per_expert = weights.mean(dim=0)       # (E,)
+    else:
+        n = weights.shape[0] * mesh.data
+        tokens_per_expert = C.all_reduce_sum(mask.sum(dim=0), mesh.group) / n
+        prob_per_expert = C.sum_over_ranks(weights.sum(dim=0), mesh.group) / n
     return (tokens_per_expert * prob_per_expert).sum() * num_experts
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with 1 - ``rate``,
-    scale the kept values by 1 / (1 - ``rate``); draws from ``gen``."""
+    scale the kept values by 1 / (1 - ``rate``); draws from ``gen`` (in a
+    data-parallel forward, the global batch's mask, of which this rank keeps
+    its rows)."""
     if gen is None:
         raise ValueError("MoE dropout in training needs the step's torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    mesh = batch_mesh()
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    else:  # the global batch's draw (rank-major rows), this rank's rows of it
+        n = x.shape[0]
+        draw = torch.rand((n * mesh.data, *x.shape[1:]), generator=gen, device=x.device)
+        keep = draw[mesh.rank * n:(mesh.rank + 1) * n] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -39,8 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mpreid_tpu_torch.ops.matmul import bmm_f32
+from mpreid_tpu_torch.parallel.mesh import batch_mesh
 
-from .layers import Linear, init_normal_
+from .layers import Linear, global_moments, init_normal_
 
 
 class BatchNorm2d(nn.Module):
@@ -50,7 +51,9 @@ class BatchNorm2d(nn.Module):
     updates the running statistics (EMA decay 0.9) with the unbiased one,
     outside the autograd graph, and counts the batch in
     ``num_batches_tracked``; ``train=False`` uses the running statistics.
-    ``F.batch_norm`` computes exactly that in one pass."""
+    ``F.batch_norm`` computes exactly that in one pass. Under a
+    data-parallel forward (``parallel.mesh.global_batch``) the statistics
+    are the global batch's."""
 
     momentum = 0.9  # EMA decay; torch's momentum is 1 - 0.9
 
@@ -67,8 +70,27 @@ class BatchNorm2d(nn.Module):
         if train:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
+            mesh = batch_mesh()
+            if mesh is not None:
+                return self._global_batch_norm(x, mesh)
         y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                          self.bias, training=train, momentum=1 - self.momentum, eps=self.eps)
+        return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """Train mode over the global batch of a data-parallel forward: its
+        statistics (``layers.global_moments``), the running ones updated
+        with them as ``F.batch_norm`` updates them."""
+        x32 = x.float()
+        mean, var, n = global_moments(x32, (0, 2, 3), mesh)
+        with torch.no_grad():
+            self.running_mean.copy_(self.momentum * self.running_mean
+                                    + (1 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var
+                                   + (1 - self.momentum) * var * (n / max(n - 1, 1)))
+        c = (1, -1, 1, 1)
+        y = (x32 - mean.view(c)) * torch.rsqrt(var.view(c) + self.eps) * self.weight.view(c) \
+            + self.bias.view(c)
         return y.to(x.dtype)
 
 

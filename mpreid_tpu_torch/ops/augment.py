@@ -20,7 +20,7 @@ drawn once and clamped into the image instead of timm's up-to-10 retries.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -108,8 +108,18 @@ def train_augment(images_u8: torch.Tensor, gen: torch.Generator,
                   mean: Sequence[float] = (0.485, 0.456, 0.406),
                   std: Sequence[float] = (0.229, 0.224, 0.225),
                   flip_prob: float = 0.5, padding: int = 10,
-                  re_prob: float = 0.5) -> torch.Tensor:
-    """(B,H,W,3) uint8 → augmented normalized float32 batch; draws from ``gen``."""
+                  re_prob: float = 0.5, shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """(B,H,W,3) uint8 → augmented normalized float32 batch; draws from ``gen``.
+
+    With ``shard`` = (ranks, rank) the batch is this rank's block of a global
+    batch of ranks·B images: the global batch's draws are made (the same on
+    every rank, whose generators agree) and this rank's rows of them applied,
+    so the ranks together augment exactly as one process does."""
     b, h, w, _ = images_u8.shape
-    draws = train_augment_draws(b, h, w, gen, flip_prob, padding, re_prob)
+    if shard is None:
+        draws = train_augment_draws(b, h, w, gen, flip_prob, padding, re_prob)
+    else:
+        ranks, rank = shard
+        draws = train_augment_draws(b * ranks, h, w, gen, flip_prob, padding, re_prob)
+        draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
     return train_augment_with_draws(images_u8, mean=mean, std=std, padding=padding, **draws)

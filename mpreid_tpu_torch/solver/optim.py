@@ -20,7 +20,10 @@ step), per leaf, written in plain PyTorch and applied in place under
 ``MOMENT_DTYPE`` (fp32 or bf16) with their math in fp32, and the step uses
 the fresh fp32 moments. With ``FUSED_ADAM`` on, CUDA leaves of at least
 ``ops.adam.MIN_FUSED_SIZE`` elements go through the fused kernel
-(``ops/adam.py``). Frozen parameters get neither gradients nor moments.
+(``ops/adam.py``; ``kernel_route``). Frozen parameters get neither
+gradients nor moments. ``update_leaf`` is one leaf's update, on the whole
+leaf or on a flat slice of it with the route of the whole leaf: the hook
+ZeRO-1 (``parallel/zero.py``) updates its slices through.
 """
 
 from __future__ import annotations
@@ -157,24 +160,36 @@ class Optimizer:
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
                train: Mapping[str, torch.Tensor], lr: float) -> OptState:
         t = state.step + 1
-        if self.name == "SGD":
-            for k, p in train.items():
-                g = grads[k] + self.wd[k] * p  # coupled L2 (torch SGD)
-                mu32 = self.momentum * state.mu[k].float() + g
-                p.sub_(lr * mu32 * self.lr_mult[k])
-                state.mu[k].copy_(mu32)
-            return OptState(step=t, mu=state.mu, nu=state.nu)
+        for k, p in train.items():
+            self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k], lr, t,
+                             self.kernel_route(p))
+        return OptState(step=t, mu=state.mu, nu=state.nu)
 
-        decoupled = self.name == "AdamW"
+    def kernel_route(self, p: torch.Tensor) -> bool:
+        """Whether leaf ``p``'s update takes the fused Adam kernel: Adam or
+        AdamW under ``FUSED_ADAM``, on the card, at least ``MIN_FUSED_SIZE``
+        elements. ZeRO decides it from the whole leaf, never from its slice."""
+        return self.fused_adam and p.is_cuda and p.numel() >= MIN_FUSED_SIZE
+
+    @torch.no_grad()
+    def update_leaf(self, k: str, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor, lr: float, t: int, fused: bool) -> None:
+        """Leaf ``k``'s step ``t`` in place, on ``p`` and its moments ``m``,
+        ``v`` with gradient ``g``, all of one shape: the whole leaf, or (ZeRO,
+        ``parallel/zero.py``) one flat slice of it. Every operation is
+        elementwise, so a slice's elements come out as the whole leaf's."""
+        if self.name == "SGD":
+            g = g + self.wd[k] * p  # coupled L2 (torch SGD)
+            mu32 = self.momentum * m.float() + g
+            p.sub_(lr * mu32 * self.lr_mult[k])
+            m.copy_(mu32)
+            return
         bc1 = _f32(1 - np.float32(self.b1) ** np.float32(t))
         bc2 = _f32(1 - np.float32(self.b2) ** np.float32(t))
-        for k, p in train.items():
-            lr_eff = _f32(np.float32(lr) * np.float32(self.lr_mult[k]))
-            fused = self.fused_adam and p.is_cuda and p.numel() >= MIN_FUSED_SIZE
-            (fused_adam_leaf if fused else adam_leaf_plain)(
-                p, state.mu[k], state.nu[k], grads[k].contiguous(), lr_eff, bc1, bc2,
-                self.b1, self.b2, self.eps, self.wd[k], decoupled)
-        return OptState(step=t, mu=state.mu, nu=state.nu)
+        lr_eff = _f32(np.float32(lr) * np.float32(self.lr_mult[k]))
+        (fused_adam_leaf if fused else adam_leaf_plain)(
+            p, m, v, g.contiguous(), lr_eff, bc1, bc2, self.b1, self.b2, self.eps, self.wd[k],
+            self.name == "AdamW")
 
 
 def make_optimizer(cfg_stage, params, stage: Optional[str] = None,

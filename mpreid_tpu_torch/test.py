@@ -14,7 +14,6 @@ weights are random from ``SOLVER.SEED``.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 
@@ -22,7 +21,7 @@ from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import ImageBatcher, build_dataset, make_dataloader
 from mpreid_tpu_torch.engine import do_inference, run_validation
 from mpreid_tpu_torch.models import load_param, make_model
-from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
+from mpreid_tpu_torch.train import start
 
 
 def is_torch_weight(path: str) -> bool:
@@ -41,11 +40,7 @@ def main(argv=None):
     cfg.merge_from_list(args.opts)
     cfg.freeze()
 
-    device = device_from_cfg(cfg)
-    output_dir = cfg.OUTPUT_DIR
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=False)
+    device, logger = start(cfg, cfg.OUTPUT_DIR, if_train=False)
     logger.info(f"Running on {device} with config:\n{cfg}")
     if cfg.TEST.WEIGHT and not is_torch_weight(cfg.TEST.WEIGHT):
         raise ValueError(

@@ -21,14 +21,13 @@ weights load, as the JAX script does).
 from __future__ import annotations
 
 import argparse
-import os
 
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import build_dataset, make_dataloader
 from mpreid_tpu_torch.engine import do_inference, do_inference_ttpt
 from mpreid_tpu_torch.models import load_param, make_model_uniprompt, switch_to_moe
 from mpreid_tpu_torch.test import is_torch_weight, vehicleid_trials
-from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
+from mpreid_tpu_torch.train import start
 
 
 def main(argv=None):
@@ -43,11 +42,7 @@ def main(argv=None):
     cfg.merge_from_list(args.opts)
     cfg.freeze()
 
-    device = device_from_cfg(cfg)
-    output_dir = cfg.OUTPUT_DIR
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=False)
+    device, logger = start(cfg, cfg.OUTPUT_DIR, if_train=False)
     logger.info(f"Running on {device} with config:\n{cfg}")
     if cfg.TEST.WEIGHT and not is_torch_weight(cfg.TEST.WEIGHT):
         raise ValueError(

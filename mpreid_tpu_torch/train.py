@@ -11,11 +11,21 @@ replaces the towers with the OpenAI CLIP weights of a local file
 (``ViT-B-16.pt``, ``RN50.pt``). Nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
 without a path raises. With ``MODEL.MOE.ENABLED`` the model has the MoE
 vision tower from the start, as the JAX package's ``make_model`` builds it.
+
+Under torchrun it trains data parallel over the ranks, one card each
+(``cuda:LOCAL_RANK``, NCCL; ``MODEL.DEVICE cpu``: gloo), with
+``SOLVER.IMS_PER_BATCH`` the global batch:
+
+    torchrun --nproc_per_node=N -m mpreid_tpu_torch.train \
+        --config_file configs/person/vit_base.yml DATASETS.ROOT_DIR ../data
+
+Without torchrun's environment it runs on one device as before.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import random
 
@@ -27,6 +37,7 @@ from mpreid_tpu_torch.data import make_dataloader
 from mpreid_tpu_torch.engine import do_train
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.models import load_pretrained, make_model, pretrain_path
+from mpreid_tpu_torch.parallel import init_distributed, is_main, rank_device
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
 
@@ -35,6 +46,21 @@ def set_seed(seed: int) -> None:
     np.random.seed(seed)
     random.seed(seed)
     torch.manual_seed(seed)
+
+
+def start(cfg, log_dir: str, if_train: bool):
+    """The entry points' common start: this rank's device, the process
+    group when torchrun launched the run (``parallel.init_distributed``), and
+    the logger (rank 0 logs to stdout and ``log_dir``, the other ranks
+    warnings only) → (device, logger)."""
+    device = rank_device(device_from_cfg(cfg))
+    init_distributed(device=device)
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+    logger = setup_logger("mpreid_tpu_torch", log_dir if is_main() else "", if_train=if_train)
+    if not is_main():
+        logger.setLevel(logging.WARNING)
+    return device, logger
 
 
 def main(argv=None):
@@ -52,13 +78,9 @@ def main(argv=None):
     cfg.SOLVER.STAGE2.IMS_PER_BATCH = cfg.SOLVER.IMS_PER_BATCH
     cfg.freeze()
 
-    device = device_from_cfg(cfg)
+    device, logger = start(cfg, cfg.OUTPUT_DIR, if_train=True)
     clip_file = pretrain_path(cfg)
     set_seed(cfg.SOLVER.SEED)
-    output_dir = cfg.OUTPUT_DIR
-    if output_dir:
-        os.makedirs(output_dir, exist_ok=True)
-    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=True)
     logger.info(f"Saving model in the path :{cfg.OUTPUT_DIR}")
     if args.config_file:
         logger.info(f"Loaded configuration file {args.config_file}")

@@ -12,7 +12,9 @@ replaces both towers with the OpenAI CLIP weights of a local file, loaded
 through the dense stage-1 config (nothing is downloaded: ``MODEL.PRETRAIN_AUTO``
 without a path raises). Stage 1 trains the dense model; with
 ``MODEL.MOE.ENABLED`` it is upcycled to the MoE vision tower after stage 1b
-(``models.switch_to_moe``), and stages 2a and 2b train that.
+(``models.switch_to_moe``), and stages 2a and 2b train that. Under
+torchrun stage 2 trains data parallel over the ranks (stage 1 runs alike on
+every rank), as ``python -m mpreid_tpu_torch.train`` does.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ from mpreid_tpu_torch.models import (
     load_pretrained, make_model_uniprompt, pretrain_path, switch_to_moe,
 )
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
-from mpreid_tpu_torch.train import set_seed
-from mpreid_tpu_torch.utils import device_from_cfg, setup_logger
+from mpreid_tpu_torch.train import set_seed, start
 
 
 def main(argv=None):
@@ -48,14 +49,10 @@ def main(argv=None):
     cfg.merge_from_list(args.opts)
     cfg.freeze()
 
-    device = device_from_cfg(cfg)
+    output_dir = cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, cfg.DATASETS.EXP_SETTING)
+    device, logger = start(cfg, output_dir, if_train=True)
     clip_file = pretrain_path(cfg)
     set_seed(cfg.SOLVER.SEED)
-    output_dir = cfg.OUTPUT_DIR
-    if output_dir:
-        output_dir = os.path.join(output_dir, cfg.DATASETS.EXP_SETTING)
-        os.makedirs(output_dir, exist_ok=True)
-    logger = setup_logger("mpreid_tpu_torch", output_dir, if_train=True)
     logger.info(f"Saving model in the path :{cfg.OUTPUT_DIR}")
     logger.info(f"Running on {device} with config:\n{cfg}")
 

@@ -7,6 +7,13 @@ layout), the optimizer's step and moments, the center-loss centers and the
 epoch, so ``SOLVER.RESUME`` continues a run exactly where it stopped.
 ``models/convert.py::load_param`` also reads the weights out of such a
 file, so ``python -m mpreid_tpu_torch.test TEST.WEIGHT`` takes it.
+
+A ZeRO-1 run (``parallel/zero.py``) writes its moments gathered to the
+parameters' shapes (``engine/processor.py::checkpoint_state``), the layout
+of a replicated run, from rank 0 alone; ``restore_state`` with the ZeRO
+optimizer cuts them back to each rank's slices. So one file resumes a run
+with or without ZeRO, at any number of ranks, and a resumed ZeRO run stays
+bitwise with an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -54,9 +61,12 @@ def load_checkpoint(path: str) -> dict:
     return payload
 
 
-def restore_state(state, payload: dict) -> int:
+def restore_state(state, payload: dict, optimizer=None) -> int:
     """Load ``payload`` into ``state`` in place (model, moments, step,
-    centers) on the state's devices → the epoch it was saved after."""
+    centers) on the state's devices → the epoch it was saved after. With a
+    ZeRO ``optimizer`` each ZeRO'd moment takes this rank's slice of the
+    file's whole one."""
+    shard = getattr(optimizer, "sharded", None)
     state.model.load_state_dict(payload["model"], strict=True)
     opt = payload["opt_state"]
     for key in ("mu", "nu"):
@@ -64,7 +74,7 @@ def restore_state(state, payload: dict) -> int:
         if set(mine) != set(theirs):
             raise ValueError(f"checkpoint moments {key} cover other parameters than the optimizer's")
         for name, t in mine.items():
-            t.copy_(theirs[name])
+            t.copy_(theirs[name] if shard is None else shard(name, theirs[name]))
     state.opt_state = OptState(step=int(opt["step"]), mu=state.opt_state.mu,
                                nu=state.opt_state.nu)
     if payload["centers"] is not None:

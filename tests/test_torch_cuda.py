@@ -724,3 +724,172 @@ def test_tiny_margin_head_step_on_the_card_matches_the_cpu(card, kind):
     floor = 1e-3 * max(g.norm().item() for g in cpu_g.values())
     for name, g in card_g.items():
         assert (g - cpu_g[name]).norm().item() <= 1e-4 * max(cpu_g[name].norm().item(), floor), name
+
+
+# ---------------------------------------------------------------------------
+# the data axis on the card (mpreid_tpu_torch.parallel): two ranks sharing
+# the one card over gloo (NCCL refuses two ranks on one device), and NCCL at
+# a world of 1
+# ---------------------------------------------------------------------------
+
+def _tiny_dp_cfg(device: str, dtype: str = "float32", **solver):
+    from mpreid_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME, cfg.MODEL.DEBUG_TINY, cfg.MODEL.DEVICE = "ViT-B-16", True, device
+    cfg.INPUT.SIZE_TRAIN = [64, 32]
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    for key, value in solver.items():
+        cfg.SOLVER[key] = value
+    return cfg
+
+
+def _dp_batch(device, n=16):
+    rng = np.random.default_rng(4)
+    return {"images": torch.from_numpy(rng.integers(0, 256, (n, 64, 32, 3), dtype=np.uint8))
+            .to(device), "pids": torch.arange(n, device=device) // 4}
+
+
+def _card_dp_job(n_steps: int, **solver):
+    """Two ranks on cuda:0: the data-parallel gradients and ``n_steps``
+    steps, replicated and ZeRO'd → rank's results on the CPU."""
+    from mpreid_tpu_torch.engine import initial_state, loss_and_grads, make_train_step
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model
+    from mpreid_tpu_torch.ops import adam
+    from mpreid_tpu_torch.parallel import make_mesh, shard_batch, zero_sharded
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    torch.cuda.set_device(0)
+    card, mesh = torch.device("cuda", 0), make_mesh()
+    cfg = _tiny_dp_cfg("cuda", **solver)
+    cfg.INPUT.PROB = cfg.INPUT.RE_PROB = 0.0
+    model = make_model(cfg, 8, 2, 1, device=card)
+    w0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = shard_batch(_dp_batch(card), mesh)
+    loss_fn, _ = make_loss(cfg, 8)
+    opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    from mpreid_tpu_torch.ops.augment import eval_preprocess
+
+    x = eval_preprocess(batch["images"], mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD)
+    loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x, batch["pids"], mesh=mesh)
+    out = {"loss": float(loss), "grads": {k: g.cpu() for k, g in grads.items()}}
+    for zero in (False, True):
+        model.load_state_dict(w0)
+        o = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        o = zero_sharded(o, mesh) if zero else o
+        state = initial_state(model, o)
+        step = make_train_step(model, cfg, loss_fn, o, mesh=mesh)
+        before = adam.fused_adam_leaf.launches
+        for _ in range(n_steps):
+            state, _ = step(state, batch, 1e-3, torch.Generator(device=card).manual_seed(0))
+        torch.cuda.synchronize()
+        out[zero] = {"params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                     "adam": adam.fused_adam_leaf.launches - before}
+    return out
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_the_card_equal_one_process_and_zero_is_bitwise(card):
+    from mpreid_tpu_torch.engine import loss_and_grads
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model
+    from mpreid_tpu_torch.ops.augment import eval_preprocess
+    from mpreid_tpu_torch.parallel.launch import spawn
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    ranks = spawn(_card_dp_job, 2, (2,), timeout=300)
+    cfg = _tiny_dp_cfg("cuda")
+    model = make_model(cfg, 8, 2, 1, device=card)
+    batch = _dp_batch(card)
+    x = eval_preprocess(batch["images"], mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD)
+    opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    loss, _, grads, _ = loss_and_grads(model, cfg, make_loss(cfg, 8)[0], opt, x, batch["pids"])
+    floor = 1e-3 * max(g.norm().item() for g in grads.values())
+    for out in ranks:
+        assert abs(out["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+        for k, g in grads.items():
+            assert (out["grads"][k] - g.cpu()).norm().item() <= 1e-5 * max(g.norm().item(), floor)
+        for k, p in out[False]["params"].items():
+            assert torch.equal(out[True]["params"][k], p), k
+
+
+def _card_zero_kernel_job():
+    """Two fused-Adam updates of three card leaves (MIN_FUSED_SIZE, one
+    less, 5 elements), replicated and ZeRO'd → (parameters, kernel launches)
+    of each."""
+    from mpreid_tpu_torch.ops import adam
+    from mpreid_tpu_torch.parallel import make_mesh, zero_sharded
+    from mpreid_tpu_torch.solver import optim
+
+    torch.cuda.set_device(0)
+    out = {}
+    for zero in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        module = torch.nn.Module()
+        for name, n in (("big", adam.MIN_FUSED_SIZE), ("odd", adam.MIN_FUSED_SIZE - 1),
+                        ("small", 5)):
+            module.register_parameter(name, torch.nn.Parameter(
+                torch.randn(n, device="cuda", generator=gen)))
+        cfg = _tiny_dp_cfg("cuda", FUSED_ADAM=True)
+        opt = optim.Optimizer("Adam", module, cfg.SOLVER, stage="baseline")
+        opt = zero_sharded(opt, make_mesh()) if zero else opt
+        state = opt.init(module)
+        train, _ = opt.partition(module)
+        before = adam.fused_adam_leaf.launches
+        for _ in range(2):
+            grads = {k: torch.randn(p.shape, device="cuda", generator=gen)
+                     for k, p in train.items()}
+            state = opt.update(grads, state, train, 1e-3)
+        torch.cuda.synchronize()
+        out[zero] = ({k: p.detach().cpu() for k, p in module.named_parameters()},
+                     adam.fused_adam_leaf.launches - before)
+    return out
+
+
+@pytest.mark.cuda
+def test_zero_slices_take_the_kernel_the_whole_leaf_takes(card):
+    """ZeRO on the card with the fused Adam kernel: each rank's half of a
+    MIN_FUSED_SIZE leaf launches the kernel, the leaf one element smaller
+    takes the plain path, and the parameters equal the replicated update's
+    bit for bit."""
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    for out in spawn(_card_zero_kernel_job, 2, timeout=180):
+        (p_rep, n_rep), (p_zero, n_zero) = out[False], out[True]
+        assert n_rep == n_zero == 2
+        for k, p in p_rep.items():
+            assert torch.equal(p_zero[k], p), k
+
+
+def _card_gather_job():
+    from mpreid_tpu_torch.parallel import collectives as C
+
+    r = torch.distributed.get_rank()
+    x = torch.arange(6, device="cuda", dtype=torch.float32).reshape(3, 2) + 10 * r
+    return {"gathered": C.all_gather(x).cpu(), "bf16": C.all_gather(x.bfloat16()).cpu(),
+            "through_all_reduce": C.gathers_through_all_reduce(x)}
+
+
+@pytest.mark.cuda
+def test_gather_of_card_tensors_under_gloo(card):
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    want = torch.cat([torch.arange(6.0).reshape(3, 2) + 10 * r for r in range(2)])
+    for out in spawn(_card_gather_job, 2, timeout=120):
+        assert out["through_all_reduce"]
+        assert torch.equal(out["gathered"], want) and torch.equal(out["bf16"], want.bfloat16())
+
+
+def _nccl_job():
+    t = torch.full((4,), 2.0, device="cuda")
+    torch.distributed.all_reduce(t)
+    return torch.distributed.get_backend(), t.cpu()
+
+
+@pytest.mark.cuda
+def test_nccl_at_a_world_of_one(card):
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    backend, t = spawn(_nccl_job, 1, backend="nccl", timeout=120)[0]
+    assert backend == "nccl" and torch.equal(t, torch.full((4,), 2.0))

@@ -49,7 +49,11 @@ def test_every_module_imports_without_jax_or_optional_packages():
             "mpreid_tpu_torch.models.tokenizer", "mpreid_tpu_torch.models.text",
             "mpreid_tpu_torch.models.uniprompt", "mpreid_tpu_torch.losses.supcon",
             "mpreid_tpu_torch.engine.uniprompt", "mpreid_tpu_torch.ops.batch_hard",
-            "mpreid_tpu_torch.engine.ttpt", "mpreid_tpu_torch.losses.margin"} <= set(MODULES)
+            "mpreid_tpu_torch.engine.ttpt", "mpreid_tpu_torch.losses.margin",
+            "mpreid_tpu_torch.parallel", "mpreid_tpu_torch.parallel.dist",
+            "mpreid_tpu_torch.parallel.collectives", "mpreid_tpu_torch.parallel.mesh",
+            "mpreid_tpu_torch.parallel.zero", "mpreid_tpu_torch.parallel.sharded_eval",
+            "mpreid_tpu_torch.parallel.launch"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax_and_builds_every_source():

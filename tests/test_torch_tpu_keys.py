@@ -1,4 +1,4 @@
-"""Single-device TPU keys in the port (ROADMAP §C 1).
+"""The TPU keys in the port: no-ops on one device, acting over two ranks.
 
 The JAX package acts on ``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and
 ``TPU.TP_TOWERS`` only over a mesh of more than one device
@@ -10,6 +10,17 @@ the results of it off, and a log line says it does nothing.
 (a trace; stage 2 ignores it, as the JAX package's does) run, and in stage
 2 each gives the results of it off, so ``configs/tpu/uniprompt_tuned.yml``
 runs to its end, dense and with the MoE tower.
+
+Over two gloo ranks on the CPU (one job for the module,
+``parallel.launch.spawn``) the keys act as in the JAX package's mesh
+branch: ``do_train`` trains data parallel (each rank its block of every
+global batch) and ends where the single-process run ends (SGD; parameters
+to 1e-4 relative, 1e-6 absolute); ``TPU.ZERO_OPT_STATE`` shards the moments
+(1-D slices) and gives the replicated run's weights bit for bit, in
+``do_train`` and ``do_train_stage2``; ``TPU.EVAL_SHARDED`` takes the
+gallery-sharded metrics, equal to the dense ones; ``TPU.TP_TOWERS`` logs
+that it does nothing with a model axis of 1; rank 0 alone logs and writes
+the checkpoint, whose moments are whole.
 """
 
 import logging
@@ -27,6 +38,7 @@ from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.models import make_model, make_model_uniprompt
 from mpreid_tpu_torch.solver import make_optimizer
 
+from mpreid_tpu_torch.parallel.launch import spawn
 from tiny import tiny_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -174,3 +186,157 @@ def test_the_tuned_tpu_config_fails_only_on_device_dataset(mmmp, device_dataset,
                  "MODEL.MOE.TOP_K", "2", "MODEL.MOE.MOE_LAYERS", "2"]
     rank1, rank5 = train_uniprompt.main(args)
     assert 0.0 <= rank1 <= rank5 <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# two ranks: the keys act
+# ---------------------------------------------------------------------------
+
+WORLD2 = 2
+
+
+def _record_logs():
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append((record.levelno, record.getMessage()))
+
+    root = logging.getLogger("mpreid_tpu_torch")
+    root.setLevel(logging.INFO)
+    root.addHandler(Keep())
+    return records
+
+
+def _train_run(cfg, epochs=2):
+    tl, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
+    model = make_model(cfg, ncls, ncam, nview)
+    loss_fn, _ = make_loss(cfg, ncls)
+    opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    state, history = do_train(cfg, model, tl, None, opt, lambda e: 1e-3, loss_fn, nq,
+                              max_epochs=epochs)
+    return history, _state(model), {k: tuple(v.shape) for k, v in state.opt_state.mu.items()}
+
+
+def _stage2_run(cfg):
+    tl2, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
+    model = make_model_uniprompt(cfg, ncls, ncam, nview)
+    loss_fn, _ = make_loss(cfg, ncls)
+    opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    _, history = do_train_stage2(cfg, model, tl2, None, opt, lambda e: 1e-3, loss_fn, nq, ncls,
+                                 max_epochs=1)
+    return history, _state(model)
+
+
+def _validation_run(cfg, sharded_calls):
+    _, _, val, nq, ncls, ncam, nview = make_dataloader(cfg)
+    model = make_model(cfg, ncls, ncam, nview)
+    before = len(sharded_calls)
+    cmc, mAP = run_validation(cfg, model, val, nq, logging.getLogger("mpreid_tpu_torch.keys"))
+    return cmc, mAP, len(sharded_calls) > before
+
+
+def _two_rank_job(cfgs):
+    from mpreid_tpu_torch.engine import processor
+
+    records = _record_logs()
+    calls = []
+    sharded = processor.sharded_gallery_metrics
+
+    def spy(evaluator):
+        calls.append(1)
+        return sharded(evaluator)
+
+    processor.sharded_gallery_metrics = spy
+    out = {name: _train_run(cfg) for name, cfg in cfgs["train"].items()}
+    out.update({name: _stage2_run(cfg) for name, cfg in cfgs["stage2"].items()})
+    out.update({name: _validation_run(cfg, calls) for name, cfg in cfgs["eval"].items()})
+    out["logs"] = records
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_ranks(market, mmmp, tmp_path_factory):
+    def train(**tpu):
+        cfg = _cfg(market, **tpu)
+        cfg.SOLVER.OPTIMIZER_NAME = "SGD" if tpu.get("ZERO_OPT_STATE") is None else "Adam"
+        return cfg
+
+    ckpt = train(ZERO_OPT_STATE=True)
+    ckpt.OUTPUT_DIR = str(tmp_path_factory.mktemp("ckpt"))
+    ckpt.SOLVER.CHECKPOINT_PERIOD = 2
+
+    def stage2(**tpu):
+        cfg = _cfg(mmmp, "mmmp", **tpu)
+        cfg.SOLVER.STAGE2.IMS_PER_BATCH = 8
+        return cfg
+
+    cfgs = {"train": {"dp": train(), "tp_towers": train(TP_TOWERS=True),
+                      "zero_off": train(ZERO_OPT_STATE=False),
+                      "zero_on": train(ZERO_OPT_STATE=True), "checkpoint": ckpt},
+            "stage2": {"s2_zero_off": stage2(ZERO_OPT_STATE=False),
+                       "s2_zero_on": stage2(ZERO_OPT_STATE=True)},
+            "eval": {"dense": _cfg(market, EVAL_SHARDED=False),
+                     "sharded": _cfg(market, EVAL_SHARDED=True)}}
+    return cfgs, spawn(_two_rank_job, WORLD2, (cfgs,), timeout=300, threads=2)
+
+
+def test_two_ranks_train_as_one_process(two_ranks):
+    cfgs, ranks = two_ranks
+    history, state, _ = _train_run(cfgs["train"]["dp"])
+    for out in ranks:
+        got_history, got_state, _ = out["dp"]
+        for got, want in zip(got_history, history):
+            assert got["epoch"] == want["epoch"]
+            assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        for k, v in state.items():
+            np.testing.assert_allclose(got_state[k].float().numpy(), v.float().numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
+    assert all(torch.equal(v, ranks[1]["dp"][1][k]) for k, v in ranks[0]["dp"][1].items())
+
+
+def test_zero_opt_state_acts_over_two_ranks(two_ranks):
+    _, ranks = two_ranks
+    for out in ranks:
+        (h0, s0, shapes0), (h1, s1, shapes1) = out["zero_off"], out["zero_on"]
+        assert h0 == h1
+        assert all(torch.equal(v, s1[k]) for k, v in s0.items())
+        sliced = [k for k, shape in shapes1.items() if shape != shapes0[k]]
+        assert sliced and all(len(shapes1[k]) == 1 for k in sliced)
+        (h0, s0), (h1, s1) = out["s2_zero_off"], out["s2_zero_on"]
+        assert h0 == h1
+        assert all(torch.equal(v, s1[k]) for k, v in s0.items())
+
+
+def test_eval_sharded_acts_over_two_ranks(two_ranks):
+    _, ranks = two_ranks
+    for out in ranks:
+        (cmc0, map0, took0), (cmc1, map1, took1) = out["dense"], out["sharded"]
+        assert (took0, took1) == (False, True)
+        np.testing.assert_array_equal(cmc0[:len(cmc1)], cmc1[:len(cmc0)])
+        assert abs(map0 - map1) <= 1e-6
+
+
+def test_tp_towers_does_nothing_with_a_model_axis_of_one(two_ranks):
+    _, ranks = two_ranks
+    for out in ranks:
+        assert out["tp_towers"][0] == out["dp"][0]
+        assert all(torch.equal(v, out["dp"][1][k]) for k, v in out["tp_towers"][1].items())
+    messages = [m for _, m in ranks[0]["logs"]]
+    assert "TPU.TP_TOWERS does nothing with a model axis of 1" in messages
+    assert any(m.startswith("Training over mesh {'data': 2, 'model': 1}") for m in messages)
+    assert "ZeRO-1: optimizer moments sharded over 'data'" in messages
+
+
+def test_rank_zero_alone_logs_and_writes_whole_moments(two_ranks):
+    from mpreid_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfgs, ranks = two_ranks
+    assert not [m for level, m in ranks[1]["logs"] if level < logging.WARNING]
+    assert any("Epoch 2 done" in m for _, m in ranks[0]["logs"])
+    out_dir = cfgs["train"]["checkpoint"].OUTPUT_DIR
+    assert sorted(os.listdir(out_dir)) == ["ViT-B-16_2.pth"]
+    payload = load_checkpoint(os.path.join(out_dir, "ViT-B-16_2.pth"))
+    shapes = ranks[0]["checkpoint"][1]
+    for k, m in payload["opt_state"]["mu"].items():
+        assert tuple(m.shape) == tuple(shapes[k].shape), k
