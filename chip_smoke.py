@@ -117,7 +117,25 @@ Phases, in order; any failure raises and the exit code is not 0:
    bit, each rank's optimizer-state bytes; (d) one fp32 Uni-Prompt stage-2a
    step and one MoE stage-2b step (aux loss included) against one process;
    (e) gallery-sharded CMC / mAP at Market-1501's scale against the dense
-   evaluator, with rows duplicated across the shard boundary.
+   evaluator, with rows duplicated across the shard boundary;
+15. the model axis of the mesh, GPipe and the sharded sparse re-ranking
+   (``mpreid_tpu_torch/parallel``), ranks sharing the card over gloo: (a)
+   configs/person/vit_base.yml at full width and depth (751 classes: 376 +
+   375 rows a rank) on a 1 × 2 mesh with tensor-parallel towers: the fp32
+   step against one process (loss, every gathered gradient, the parameters
+   after an Adam step, plain and ``SOLVER.FUSED_ADAM``), bf16 steps' loss,
+   launches per rank (12 + 12 attention a step at 6 local heads, all "tc";
+   52 Adam a fused step) and step time beside one process's (not a scaling
+   number); (b) the MoE stage-2b step (configs/tpu/uniprompt_tuned.yml, 4
+   experts, top-2, 2 MoE layers) under expert parallelism and TP towers,
+   fp32, aux loss included, against one process; (c)
+   ``parallel.dryrun.dryrun_multichip(4)`` (its tiny shapes) on a 2 × 2 mesh,
+   the L1 and min-sum kernels launched on every rank; (d) a 2-stage GPipe
+   over a full-width text tower (12 × 512, L 77, causal, B 64, 4
+   microbatches, fp32), forward and gradients against the blocks in
+   sequence; (e) ``re_ranking_sparse_sharded`` over two ranks at
+   Market-1501's scale against ``re_ranking_sparse``, with the min-sum
+   kernel's launches per rank.
 
 Phase 12 runs after phase 8 (on its model) and phase 13 after phase 6.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
@@ -128,7 +146,9 @@ dense shape, one MSMT17 query block × gallery chunk, and a ragged dense
 case (the plain versions compared and timed on the first 256 query rows at
 full G and N), and the batch-hard kernel at the PK batch (64 × 768) in fp32
 and bf16, a ragged 60-row batch, a batch with a singleton identity and a
-single-identity batch.
+single-identity batch; and the attention kernels at one rank's heads under
+a model axis of 2 (vision B 64, L 129, 6 × 64; text L 77, 4 × 64, causal;
+bf16, timed).
 
 The last two lines of standard output are one JSON object with the kernels'
 numbers and one with the run's verdict and device. Every bf16 attention
@@ -179,6 +199,7 @@ from mpreid_tpu_torch.models import (
     RN50, VIT_B16, build_model, build_model_uniprompt, load_balancing_loss, load_pretrained,
     make_model, make_model_uniprompt, switch_to_moe, topk_routing,
 )
+from mpreid_tpu_torch.models.layers import MultiHeadAttention
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
 from mpreid_tpu_torch.ops import batch_hard as bh
@@ -2946,7 +2967,7 @@ def dp_train_job(plan: dict) -> dict:
         c = cfg16.clone()
         c.SOLVER.FUSED_ADAM, c.SOLVER.MOMENT_DTYPE = fused, moment_dtype
         opt = make_optimizer(c.SOLVER, model, stage="baseline")
-        return (zero_sharded(opt, mesh) if zero else opt), c
+        return (zero_sharded(opt, mesh, model) if zero else opt), c
 
     opt, c = opt_for()
     dp = dp_steps(model, c, opt, plan, mesh, 1 + DP_TIMED_STEPS, w0)
@@ -3170,6 +3191,361 @@ def run_data_parallel(plan: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the model axis (tensor and expert parallelism), GPipe, the
+# gallery-sharded sparse re-ranking and the multi-rank dry run
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2  # a 1 × 2 mesh: the model axis over two ranks sharing the card (gloo)
+TP_TIMED_STEPS = 4
+# fp32 model-axis step against one process on the same card (15a, 15b): only
+# the order of the sums across ranks differs (measured: loss ~2e-7 relative,
+# gradients <= 7.1e-6 norm-relative), well below the card-vs-CPU limits
+TP_LOSS_RTOL = 1e-6
+TP_GRAD_RTOL = 5e-5
+VISION_TP = dict(name="vision_tp", b=BATCH, l=129, heads=6, dh=64, masked=False)
+TEXT_TP = dict(name="text_tp", b=BATCH, l=77, heads=4, dh=64, masked=True)
+DRYRUN_RANKS = 4  # dryrun_multichip's (world/2) × 2 mesh
+PP_STAGES, PP_MICRO, PP_LAYERS = 2, 4, 12  # the text tower (12 × 512, L 77, causal, B 64)
+PP_TOL = 1e-5  # fp32 GPipe against the blocks in sequence, norm-relative: the card's
+#                GEMMs over a microbatch of 16 rows may sum in another order than over 64
+SPARSE_SHARD_TOL = 1e-5  # max abs, re_ranking_sparse_sharded against re_ranking_sparse
+
+
+def tp_rank_setup(plan: dict) -> tuple:
+    """A spawned rank of phase 15: the card as ``dp_rank_setup`` sets it,
+    and the 1 × TP_RANKS mesh → (device, mesh)."""
+    from mpreid_tpu_torch.parallel import make_mesh
+
+    device, _ = dp_rank_setup(plan)
+    return device, make_mesh(data=1, model=TP_RANKS)
+
+
+def tp_run(model, cfg, stage_cfg, stage: str, plan: dict, mesh, w0: dict, text,
+           loss_fn) -> tuple:
+    """From the whole weights ``w0``: the loss and the whole gradients of
+    one forward (augmentation on), then one Adam step through
+    ``make_train_step`` → (loss, gradients, parameters after the step,
+    launches and routes of the step, optimizer). ``mesh`` None: one process
+    on an unsliced model."""
+    from mpreid_tpu_torch.engine.steps import augment_args
+    from mpreid_tpu_torch.ops.augment import train_augment
+    from mpreid_tpu_torch.parallel import gather_whole, load_full_state_dict
+
+    device = torch.device(plan["device"])
+    batch = dp_batch(plan, device)
+    load_full_state_dict(model, w0)
+    gen = torch.Generator(device=device).manual_seed(DP_SEED)
+    x = train_augment(batch["images"], gen, **augment_args(cfg))
+    opt = make_optimizer(stage_cfg, model, stage=stage)
+    loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x, batch["pids"].long(),
+                                       text_features=text, gen=gen, mesh=mesh)
+    grads = {k: g.float().cpu() for k, g in gather_whole(grads, model).items()}
+    load_full_state_dict(model, w0)
+    state = initial_state(model, opt)
+    step = make_train_step(model, cfg, loss_fn, opt, uniprompt=text is not None,
+                           text_features=text, mesh=mesh)
+    reset_counts()
+    state, _ = step(state, batch, DP_LR, torch.Generator(device=device).manual_seed(DP_SEED))
+    dp_sync(device)
+    counts, routes = read_counts(), read_routes()
+    train, _ = opt.partition(model)
+    params = {k: p.detach().float().cpu() for k, p in gather_whole(
+        {k: p.detach() for k, p in train.items()}, model).items()}
+    return float(loss), grads, params, dict(launches=counts, launches_by_route=routes), opt
+
+
+def tp_against_one_process(build, cfg, stage: str, plan: dict, mesh, with_text: bool,
+                           classes: int, fused: bool = False) -> dict:
+    """One fp32 step of the model ``build()`` makes, sliced over the model
+    axis (tensor-parallel towers, the classifiers by class, the experts and
+    ``ctx_generic`` where it has them), against one process on an unsliced
+    copy: the loss, every gathered gradient and the parameters after one
+    Adam step (plain, or with ``SOLVER.FUSED_ADAM``). Both ranks run the
+    sliced step; rank 0 then the unsliced one (rank 1 waits) → this rank's
+    launches, and on rank 0 the checks."""
+    from mpreid_tpu_torch.parallel import replicated, shard_module
+
+    device = torch.device(plan["device"])
+    cfg = cfg.clone()
+    cfg.SOLVER.FUSED_ADAM = cfg.SOLVER.STAGE2.FUSED_ADAM = fused
+    stage_cfg = cfg.SOLVER if stage == "baseline" else cfg.SOLVER.STAGE2
+    model = build()
+    replicated(model)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    weights = {k: p.detach().float().cpu().clone() for k, p in model.named_parameters()}
+    text = precompute_text_features(cfg, model, classes) if with_text else None
+    loss_fn, _ = make_loss(cfg, classes)
+    shard_module(model, mesh, tp_towers=True)
+    local_heads = sorted({m.num_heads // m.tp.size for m in model.modules()
+                          if isinstance(m, MultiHeadAttention)})
+    l_g, g_g, p_g, runs, opt = tp_run(model, cfg, stage_cfg, stage, plan, mesh, w0, text,
+                                      loss_fn)
+    res = dict(runs, local_heads=local_heads)
+    if mesh.model_rank == 0:
+        del model
+        ref = build()
+        l_w, g_w, p_w, _, _ = tp_run(ref, cfg, stage_cfg, stage, plan, None, w0, text, loss_fn)
+        res.update(loss=l_w, loss_rel=abs(l_g - l_w) / abs(l_w),
+                   worst_grad_rel=worst_grad_rel(g_g, g_w), leaves=len(g_w),
+                   **adam_step_errors(p_g, p_w, g_g, g_w, weights, opt, DP_LR))
+        del ref
+    torch.distributed.barrier()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def tp_timed(model, cfg, plan: dict, mesh, n: int, w0: dict) -> dict:
+    """``n`` bf16 baseline steps from ``w0`` through ``make_train_step``
+    (``mesh`` None: one process) → the last loss, launches, median step s."""
+    from mpreid_tpu_torch.parallel import load_full_state_dict
+
+    device = torch.device(plan["device"])
+    load_full_state_dict(model, w0)
+    loss_fn, _ = make_loss(cfg, plan["classes"])
+    opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    state = initial_state(model, opt)
+    step = make_train_step(model, cfg, loss_fn, opt, mesh=mesh)
+    batch = dp_batch(plan, device)
+    gen = torch.Generator(device=device).manual_seed(DP_SEED)
+    reset_counts()
+    seconds = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, DP_LR, gen)
+        dp_sync(device)
+        seconds.append(time.perf_counter() - t0)
+    return dict(loss=float(metrics["loss"]), launches=read_counts(),
+                launches_by_route=read_routes(), step_s=float(np.median(seconds)))
+
+
+def tp_train_job(plan: dict) -> dict:
+    """Phase 15a on one rank: configs/person/vit_base.yml at full width and
+    depth (751 classes: 376 + 375 rows a rank) on the 1 × 2 mesh with
+    tensor-parallel towers: the fp32 step against one process, plain and
+    fused Adam; then bf16 steps, their loss, launches and step time beside
+    one process's; then 15b: the MoE stage-2b step (4 experts, top-2, 2 MoE
+    layers) under expert parallelism and TP towers, fp32, against one process."""
+    from mpreid_tpu_torch.parallel import replicated, shard_module
+
+    device, mesh = tp_rank_setup(plan)
+    out = {"rank": mesh.model_rank}
+    cfg32, cfg16 = plan["cfg32"], plan["cfg16"]
+
+    def vit(cfg):
+        return lambda: make_model(cfg, plan["classes"], 6, 1, device=device)
+
+    for fused in (False, True):
+        out[f"fp32_fused_{fused}"] = tp_against_one_process(
+            vit(cfg32), cfg32, "baseline", plan, mesh, False, plan["classes"], fused)
+
+    model = vit(cfg16)()
+    replicated(model)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out["depth"] = len(model.image_encoder.transformer.resblocks)
+    shard_module(model, mesh, tp_towers=True)
+    out["bf16"] = tp_timed(model, cfg16, plan, mesh, 1 + TP_TIMED_STEPS, w0)
+    del model
+    if mesh.model_rank == 0:
+        one = tp_timed(vit(cfg16)(), cfg16, plan, None, 1 + TP_TIMED_STEPS, w0)
+        out["bf16"].update(one_process_loss=one["loss"], one_process_step_s=one["step_s"])
+    torch.distributed.barrier()
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+
+    moe = plan["moe32"]
+    out["moe_stage2b"] = tp_against_one_process(
+        lambda: make_model_uniprompt(moe, plan["uni_classes"], 14, UNI_VIEWS, device=device),
+        moe, "stage2b", plan, mesh, True, plan["uni_classes"])
+    return out
+
+
+def pp_job(plan: dict) -> dict:
+    """Phase 15d on one rank: a PP_STAGES-stage GPipe over a full-width text
+    tower's blocks (seeded, fp32, causal, B 64, L 77, PP_MICRO
+    microbatches), forward and gradients against the blocks applied in
+    sequence in one process, and both times."""
+    from mpreid_tpu_torch.models.layers import ResidualAttentionBlock
+    from mpreid_tpu_torch.models.text import causal_mask
+    from mpreid_tpu_torch.parallel import collectives as C
+    from mpreid_tpu_torch.parallel.pipeline import pipe_mesh, pipelined_blocks
+
+    device, _ = dp_rank_setup(plan)
+    width, heads, length = VIT_B16.transformer_width, VIT_B16.transformer_heads, 77
+    gen = torch.Generator().manual_seed(5)
+    blocks = torch.nn.ModuleList(ResidualAttentionBlock(width, heads) for _ in range(PP_LAYERS))
+    for blk in blocks:
+        blk.init_(gen)
+    blocks = blocks.to(device)
+    x = torch.randn(plan["batch"], length, width, generator=gen).to(device)
+    w = torch.randn(plan["batch"], length, width, generator=gen).to(device)
+    mask = causal_mask(length, device)
+    params = {f"resblocks.{i}.{k}": p for i, b in enumerate(blocks)
+              for k, p in b.named_parameters()}
+    pipe = pipe_mesh(PP_STAGES)
+
+    def pipelined():
+        xi = x.clone().requires_grad_(True)
+        y = pipelined_blocks(blocks[0], params, PP_LAYERS, xi, pipe, microbatches=PP_MICRO,
+                             mask=mask)
+        (y * w).sum().backward()
+        return y.detach(), xi.grad
+
+    def sequential():
+        xi = x.clone().requires_grad_(True)
+        h = xi
+        for blk in blocks:
+            h = blk(h, mask)
+        (h * w).sum().backward()
+        return h.detach(), xi.grad
+
+    pipelined()  # warm-up
+    blocks.zero_grad(set_to_none=True)
+    reset_counts()
+    dp_sync(device)
+    t0 = time.perf_counter()
+    y, dx = pipelined()
+    dp_sync(device)
+    pp_s = time.perf_counter() - t0
+    counts, routes = read_counts(), read_routes()
+    # the stage's gradients; the other stage's blocks have none here
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+             for k, p in params.items()}
+    for g in grads.values():
+        C.all_reduce_sum(g)
+    res = dict(stage=pipe.stage, launches=counts, launches_by_route=routes, pipelined_s=pp_s)
+    blocks.zero_grad(set_to_none=True)
+    sequential()  # warm-up
+    blocks.zero_grad(set_to_none=True)
+    dp_sync(device)
+    t0 = time.perf_counter()
+    y_s, dx_s = sequential()
+    dp_sync(device)
+    res.update(sequential_s=time.perf_counter() - t0, y_rel=_rel_err(y, y_s),
+               dx_rel=_rel_err(dx, dx_s),
+               worst_grad_rel=worst_grad_rel({k: g for k, g in grads.items()},
+                                             {k: p.grad for k, p in params.items()}))
+    return res
+
+
+def sparse_sharded_job(plan: dict) -> dict:
+    """Phase 15e on one rank: ``re_ranking_sparse_sharded`` over the two
+    ranks' gallery halves at Market-1501's scale (seeded clustered features)
+    → its time and this rank's min-sum launches; rank 0 also runs
+    ``re_ranking_sparse`` on the whole gallery and compares."""
+    from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse, re_ranking_sparse_sharded
+    from mpreid_tpu_torch.parallel import make_mesh
+
+    device, mesh = dp_rank_setup(plan)
+    mesh = make_mesh(data=TP_RANKS)
+    m = plan["market"]
+    feats = torch.from_numpy(clustered_feats(m["q"], m["g"], m["ids"])[0]).to(device)
+    qf, gf = feats[:m["q"]], feats[m["q"]:]
+    re_ranking_sparse_sharded(qf[:256], gf[:1024], mesh)  # warm-up
+    reset_counts()
+    dp_sync(device)
+    t0 = time.perf_counter()
+    d_sh = re_ranking_sparse_sharded(qf, gf, mesh)
+    dp_sync(device)
+    res = dict(rank=mesh.rank, sharded_s=time.perf_counter() - t0, launches=read_counts(),
+               shape=list(d_sh.shape))
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        d_one = re_ranking_sparse(qf, gf)
+        dp_sync(device)
+        res.update(one_rank_s=time.perf_counter() - t0,
+                   max_abs_diff=(d_sh - d_one).abs().max().item())
+    del d_sh
+    torch.distributed.barrier()
+    return res
+
+
+def run_model_axis(plan: dict) -> dict:
+    """Phase 15: (a, b) the model axis at full width, (c) the dry run over
+    four ranks, (d) GPipe over the text tower, (e) the gallery-sharded
+    sparse re-ranking, each a spawned gloo job of ranks sharing the card
+    with its own timeout; every check raises on failure."""
+    from mpreid_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    res = {}
+    t0 = time.perf_counter()
+    ranks = spawn(tp_train_job, TP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    a = ranks[0]
+    res["15a"] = {k: a[k] for k in ("fp32_fused_False", "fp32_fused_True", "bf16")}
+    res["15a"]["seconds"] = time.perf_counter() - t0
+    log(f"  15a configs/person/vit_base.yml on a 1x2 mesh, TP towers {json.dumps(res['15a'])}")
+    for fused in (False, True):
+        c = a[f"fp32_fused_{fused}"]
+        if not (c["loss_rel"] <= TP_LOSS_RTOL and c["worst_grad_rel"] <= TP_GRAD_RTOL
+                and c["params_ok"]):
+            raise AssertionError(f"15a fused {fused}: the model-axis step differs from one "
+                                 f"process's: {c}")
+    bf = a["bf16"]
+    if not abs(bf["loss"] - bf["one_process_loss"]) <= DP_BF16_LOSS_RTOL * abs(bf["one_process_loss"]):
+        raise AssertionError(f"15a: the bf16 model-axis loss differs from one process's: {bf}")
+    depth, n = a["depth"], 1 + TP_TIMED_STEPS
+    for r, out in enumerate(ranks):
+        if out["fp32_fused_False"]["local_heads"] != [VISION_TP["heads"]]:
+            raise AssertionError(f"15a rank {r}: local heads {out['fp32_fused_False']['local_heads']}")
+        expect_dp_counts(f"15a rank {r} bf16 steps", out["bf16"], {
+            "attention_fwd": depth * n, "attention_bwd": depth * n})
+        fused = out["fp32_fused_True"]
+        if plan["device"] != "cpu" and fused["launches"]["adam"] != ADAM_LEAVES:
+            raise AssertionError(f"15a rank {r}: fused Adam launches {fused['launches']}, "
+                                 f"expected {ADAM_LEAVES}")
+    rates = dict(two_ranks_img_per_s=plan["batch"] / bf["step_s"],
+                 one_process_img_per_s=plan["batch"] / bf["one_process_step_s"], note=RATE_NOTE)
+    rate_line("model-axis (TP towers, 1x2 mesh) train img/s (configs/person/vit_base.yml, "
+              f"batch 64, median of {TP_TIMED_STEPS + 1} steps; {RATE_NOTE})", rates)
+    res["15a"].update(rates=rates, launches={r: out["bf16"]["launches"]
+                                              for r, out in enumerate(ranks)},
+                      adam_launches={r: out["fp32_fused_True"]["launches"]["adam"]
+                                     for r, out in enumerate(ranks)})
+    b = a["moe_stage2b"]
+    log(f"  15b MoE stage 2b, EP + TP towers, fp32 {json.dumps(b)}")
+    if not (b["loss_rel"] <= TP_LOSS_RTOL and b["worst_grad_rel"] <= TP_GRAD_RTOL
+            and b["params_ok"]):
+        raise AssertionError(f"15b: the EP + TP step differs from one process's: {b}")
+    res["15b"] = b
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DRYRUN_RANKS, device=plan["device"], timeout=DP_TIMEOUT)
+    c = dict(seconds=time.perf_counter() - t0, lines=dry[0]["lines"],
+             launches={r["rank"] * 2 + r["model_rank"]: r["launches"] for r in dry})
+    log(f"  15c dryrun_multichip({DRYRUN_RANKS}) {json.dumps(c)}")
+    for r, out in c["launches"].items():
+        if plan["device"] != "cpu" and not (out["l1_cross"] > 0 and out["minsum_cross"] > 0):
+            raise AssertionError(f"15c rank {r}: no re-ranking kernel launch: {out}")
+    res["15c"] = c
+
+    t0 = time.perf_counter()
+    pp = spawn(pp_job, PP_STAGES, (plan,), timeout=DP_TIMEOUT)
+    d = dict(seconds=time.perf_counter() - t0, ranks=pp)
+    log(f"  15d GPipe, {PP_STAGES} stages over the text tower {json.dumps(d)}")
+    for out in pp:
+        if not (out["y_rel"] <= PP_TOL and out["dx_rel"] <= PP_TOL
+                and out["worst_grad_rel"] <= PP_TOL):
+            raise AssertionError(f"15d stage {out['stage']}: GPipe differs from sequential: {out}")
+        per = PP_LAYERS // PP_STAGES * PP_MICRO
+        if plan["device"] != "cpu" and not (out["launches"]["attention_fwd"] == per
+                                            and out["launches"]["attention_bwd"] == per):
+            raise AssertionError(f"15d stage {out['stage']}: attention launches {out['launches']}, "
+                                 f"expected {per} each way")
+    res["15d"] = d
+
+    t0 = time.perf_counter()
+    e = spawn(sparse_sharded_job, TP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    res["15e"] = dict(seconds=time.perf_counter() - t0, ranks=e)
+    log(f"  15e re_ranking_sparse_sharded at Market-1501's scale {json.dumps(res['15e'])}")
+    if not e[0]["max_abs_diff"] <= SPARSE_SHARD_TOL:
+        raise AssertionError(f"15e: the sharded sparse re-ranking differs: {e[0]}")
+    for out in e:
+        if plan["device"] != "cpu" and not out["launches"]["minsum_cross"] > 0:
+            raise AssertionError(f"15e rank {out['rank']}: no min-sum launch: {out}")
+    return res
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -3200,7 +3576,7 @@ def main() -> None:
     rows, bwd_rows = [], []
     cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
              (VEHICLE, torch.bfloat16), (SYSU, torch.float32), (VEHICLE, torch.float32),
-             (TTPT_TEXT, torch.bfloat16)]
+             (TTPT_TEXT, torch.bfloat16), (VISION_TP, torch.bfloat16), (TEXT_TP, torch.bfloat16)]
     for case, dtype in cases:
         for layout in attn.LAYOUTS:
             timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
@@ -3316,6 +3692,13 @@ def main() -> None:
         "attention_fwd": 12 * dp_res["14a"]["steps"], "attention_bwd": 12 * dp_res["14a"]["steps"]})
     log(f"  data-parallel phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("the model axis, GPipe and the sharded sparse re-ranking (15a-b, d-e: ranks sharing "
+        "the card over gloo; 15c: dryrun_multichip over four):")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mp_res = run_model_axis(dp_plan())
+    log(f"  model-axis phase seconds {time.perf_counter() - t0:.1f}")
+
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
@@ -3348,6 +3731,11 @@ def main() -> None:
                 "nccl_world_one_step": dp_res["14a"]["launches"][name],
                 "per_rank_dp_step": dp_res["14b"]["bf16"]["launches"][name] // (1 + DP_TIMED_STEPS),
                 "per_rank_zero_3_steps": dp_res["14c"]["launches"][0][name]},
+            "launches_model_axis": {
+                "per_rank_tp_step_bf16": mp_res["15a"]["launches"][0][name] // (1 + TP_TIMED_STEPS),
+                "per_rank_tp_step_routes": mp_res["15a"]["launches"],
+                "per_stage_gpipe_fp32": [r["launches"][name] for r in mp_res["15d"]["ranks"]],
+                "per_rank_dryrun_fp32": {r: v[name] for r, v in mp_res["15c"]["launches"].items()}},
             "max_abs_err": max(r["max_abs_err"] for r in bf16),
             **timing(pick(found, "vision")),
             "shape": "B64 L129 12x64 bf16 packed, no mask",
@@ -3355,6 +3743,10 @@ def main() -> None:
             "vehicle": timing(pick(found, "vehicle")),
             "ttpt_text": {"shape": "B1000 L77 8x64 bf16 packed, causal",
                           **timing(pick(found, "ttpt_text"))},
+            "vision_tp": {"shape": "B64 L129 6x64 bf16 packed, no mask (a rank's heads at "
+                                   "model 2)", **timing(pick(found, "vision_tp"))},
+            "text_tp": {"shape": "B64 L77 4x64 bf16 packed, causal (a rank's heads at model 2)",
+                        **timing(pick(found, "text_tp"))},
             "ptxas": ptxas[f"{name}_tc"],
             "simt_fp32": {"source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
                           "max_abs_err": max(r["max_abs_err"] for r in found
@@ -3377,6 +3769,7 @@ def main() -> None:
         "launches_data_parallel": {
             "per_rank_fused_dp_step": dp_res["14b"]["fused"]["launches"]["adam"],
             "per_rank_zero_slices_3_steps": dp_res["14c"]["launches"][0]["adam"]},
+        "launches_model_axis": {"per_rank_fused_tp_step": mp_res["15a"]["adam_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",
@@ -3387,6 +3780,7 @@ def main() -> None:
         "replaces": "mpreid_tpu/ops/pallas_kernels.py:192",
         "launches": entry_res["launches"]["l1_cross"],
         "launches_market_dense": market_res["launches"]["l1_cross"],
+        "launches_dryrun": {r: v["l1_cross"] for r, v in mp_res["15c"]["launches"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in l1_rows),
         **timing(l1_rows[0]),
         "plain_rows": l1_rows[0]["plain_rows"],
@@ -3398,6 +3792,8 @@ def main() -> None:
         "source": "mpreid_tpu_torch/kernels/csrc/pairwise_cross.cu",
         "replaces": "mpreid_tpu/ops/pallas_kernels.py:262",
         "launches": msmt_res["launches"]["minsum_cross"],
+        "launches_sparse_sharded": [r["launches"]["minsum_cross"] for r in mp_res["15e"]["ranks"]],
+        "launches_dryrun": {r: v["minsum_cross"] for r, v in mp_res["15c"]["launches"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in minsum_rows),
         **timing(minsum_rows[0]),
         "plain_rows": minsum_rows[0]["plain_rows"],

@@ -20,22 +20,27 @@ writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
 steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
 the whole second epoch, into that directory.
 
-Data parallelism (ref processor.py:186-201, :69-100): under a process group
-of more than one rank (``parallel.init_distributed``, torchrun) and
-``TPU.MESH_DATA`` other than 1, ``do_train`` builds the mesh, feeds each
-rank its block of every global batch (``data/loader.py::ShardedLoader``),
-runs the data-parallel step from rank 0's broadcast state, and under
-``TPU.ZERO_OPT_STATE`` shards the optimizer moments (``parallel/zero.py``).
-``TPU.DEVICE_DATASET`` is off there, as in the JAX package. Rank 0 alone
-logs metrics and writes checkpoints (a ZeRO run's moments gathered first).
-``run_validation`` extracts the features on every rank; under
-``TPU.EVAL_SHARDED`` without ``TEST.RE_RANKING`` each rank then takes one
-block of the gallery and ``parallel.sharded_cmc_map`` computes the metrics.
-On one rank ``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and
-``TPU.TP_TOWERS`` do nothing, as in the JAX package (``check_tpu_keys``
-logs so); over the data axis ``TPU.TP_TOWERS`` does nothing either (a
-model axis of 1), and ``TPU.MESH_MODEL`` above 1 raises: the model axis is
-the next parallel slice.
+The mesh (ref processor.py:186-201, :69-100): under a process group of
+more than one rank (``parallel.init_distributed``, torchrun) and
+``TPU.MESH_DATA`` other than 1, ``do_train`` builds the ``('data',
+'model')`` mesh of ``TPU.MESH_DATA`` × ``TPU.MESH_MODEL``. With a model
+axis above 1 it slices the model over it (``parallel.shard_module``: the
+classifiers, the MoE experts, ``ctx_generic`` and, under
+``TPU.TP_TOWERS``, the towers' Megatron pairs). Each data group's ranks
+feed their blocks of every global batch (``data/loader.py::ShardedLoader``,
+by data index), the step runs from rank 0's broadcast state, and under
+``TPU.ZERO_OPT_STATE`` the replicated leaves' moments are sharded over the
+data axis (``parallel/zero.py``). ``TPU.DEVICE_DATASET`` is off there, as
+in the JAX package. Rank 0 alone logs metrics and writes checkpoints,
+whole: a ZeRO run's moments and the model axis's slices are gathered first
+(every rank takes part), and ``SOLVER.RESUME`` slices them again, so a
+checkpoint moves between meshes and one process. ``run_validation``
+extracts the features on every rank; under ``TPU.EVAL_SHARDED`` without
+``TEST.RE_RANKING`` each rank of a data group then takes one block of the
+gallery and ``parallel.sharded_cmc_map`` computes the metrics. On one rank
+``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` do
+nothing, as in the JAX package (``check_tpu_keys`` logs so), and so does
+``TPU.TP_TOWERS`` with a model axis of 1.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ import torch
 
 from mpreid_tpu_torch.data.loader import ShardedLoader
 from mpreid_tpu_torch.parallel import (
-    ZeroOptimizer, is_main, make_mesh, mesh_from_cfg, rank, replicated, sharded_cmc_map,
-    world_size, zero_sharded,
+    ZeroOptimizer, full_state_dict, gather_whole, is_main, make_mesh, mesh_from_cfg, rank,
+    replicated, shard_module, sharded_cmc_map, sharded_params, world_size, zero_sharded,
 )
 from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state, save_checkpoint
 from mpreid_tpu_torch.utils.meter import AverageMeter
@@ -87,21 +92,28 @@ def rank_logger(logger: logging.Logger) -> logging.Logger:
     return quiet
 
 
-def data_parallel(cfg, optimizer, logger):
+def data_parallel(cfg, optimizer, logger, model):
     """(mesh, optimizer) of a training loop (ref processor.py:186-201): over
     a group of more than one rank with ``TPU.MESH_DATA`` other than 1, the
     mesh and, under ``TPU.ZERO_OPT_STATE``, the ZeRO-1 optimizer; else
-    (None, ``optimizer``), the mesh keys logged as doing nothing."""
+    (None, ``optimizer``), the mesh keys logged as doing nothing. With a
+    model axis ``model`` is first made equal on every rank (rank 0's) and
+    then sliced over it (``shard_module``): build the state after this."""
     if world_size() == 1 or cfg.TPU.MESH_DATA == 1:
         check_tpu_keys(cfg, TRAIN_TPU_KEYS, logger)
         return None, optimizer
     mesh = mesh_from_cfg(cfg)
-    logger.info(f"Training over mesh {mesh.shape}: each rank feeds its block of every "
-                "global batch")
-    if cfg.TPU.TP_TOWERS:
+    tp_towers = bool(cfg.TPU.TP_TOWERS) and mesh.model > 1
+    logger.info(f"Training over mesh {mesh.shape}"
+                + (" with tensor-parallel towers" if tp_towers else "")
+                + ": each data group's ranks feed their blocks of every global batch")
+    if cfg.TPU.TP_TOWERS and mesh.model == 1:
         logger.info("TPU.TP_TOWERS does nothing with a model axis of 1")
+    if mesh.model > 1:
+        replicated(model)
+        shard_module(model, mesh, tp_towers)
     if cfg.TPU.ZERO_OPT_STATE:
-        optimizer = zero_sharded(optimizer, mesh, tp_towers=cfg.TPU.TP_TOWERS)
+        optimizer = zero_sharded(optimizer, mesh, model, tp_towers=tp_towers)
         logger.info("ZeRO-1: optimizer moments sharded over 'data'")
     if cfg.TPU.DEVICE_DATASET:
         logger.info("TPU.DEVICE_DATASET is off under data parallelism (as in the JAX package)")
@@ -112,17 +124,24 @@ def start_data_parallel(state, optimizer, train_loader, mesh):
     """Rank 0's model, replicated moments and centers on every rank (ZeRO's
     moment slices are each rank's own) → this rank's view of the loader."""
     zero = isinstance(optimizer, ZeroOptimizer)
-    replicated(state.model, None if zero else state.opt_state, state.centers)
+    replicated(state.model, None if zero else state.opt_state, state.centers, mesh)
     return ShardedLoader(train_loader, mesh.data, mesh.rank)
 
 
 def checkpoint_state(state, optimizer):
-    """``state`` with the optimizer moments at the parameters' shapes (a ZeRO
-    optimizer gathers them: every rank must call this)."""
+    """``state`` with the optimizer moments at the whole parameters' shapes
+    and the model's whole state dict as ``model_state``: a ZeRO optimizer
+    gathers its slices over the data axis, and a model sliced over a model
+    axis its own (``full_state_dict``, ``gather_whole``): every rank must
+    call this."""
     if isinstance(optimizer, ZeroOptimizer):
-        return dataclasses.replace(state, opt_state=optimizer.gathered(state.opt_state,
-                                                                       state.model))
-    return state
+        state = dataclasses.replace(state, opt_state=optimizer.gathered(state.opt_state,
+                                                                        state.model))
+    opt = state.opt_state
+    opt = opt._replace(mu=gather_whole(opt.mu, state.model),
+                       nu=gather_whole(opt.nu, state.model))
+    whole = full_state_dict(state.model) if sharded_params(state.model) else None
+    return dataclasses.replace(state, opt_state=opt, model_state=whole)
 
 
 def build_device_dataset(train_loader, device: torch.device):
@@ -181,11 +200,14 @@ def stop_trace(prof, directory: str, logger) -> None:
 
 
 def run_validation(cfg, model, val_loader, num_query, logger=None,
-                   epoch: Optional[int] = None):
+                   epoch: Optional[int] = None, mesh=None):
     """Shared eval loop (ref processor.py:117-158 / 187-208) → (cmc, mAP).
     Under ``TPU.EVAL_SHARDED`` over more than one rank, without
-    ``TEST.RE_RANKING``, the metrics come from ``sharded_gallery_metrics``."""
-    sharded = cfg.TPU.EVAL_SHARDED and world_size() > 1 and not cfg.TEST.RE_RANKING
+    ``TEST.RE_RANKING``, the metrics come from ``sharded_gallery_metrics``
+    over the data group of ``mesh`` (the training mesh; none with a data
+    axis of 1) or, without one, over every rank."""
+    sharded = (cfg.TPU.EVAL_SHARDED and world_size() > 1 and not cfg.TEST.RE_RANKING
+               and (mesh is None or mesh.data > 1))
     logger = rank_logger(logger) if logger else None
     if world_size() == 1:
         check_tpu_keys(cfg, ("EVAL_SHARDED",), logger or logging.getLogger("mpreid_tpu_torch"))
@@ -206,7 +228,7 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
         n = batch["count"]
         evaluator.update((feat[:n], batch["pids"][:n], batch["camids"][:n]))
     if sharded:
-        cmc, mAP, distmat = (*sharded_gallery_metrics(evaluator), None)
+        cmc, mAP, distmat = (*sharded_gallery_metrics(evaluator, mesh), None)
     else:
         cmc, mAP, distmat, *_ = evaluator.compute()
     if cfg.TEST.DIST_MAT and cfg.OUTPUT_DIR and distmat is not None and is_main():
@@ -221,9 +243,10 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
     return cmc, mAP
 
 
-def sharded_gallery_metrics(evaluator: R1mAPEvaluator):
+def sharded_gallery_metrics(evaluator: R1mAPEvaluator, mesh=None):
     """(cmc, mAP) of the evaluator's features with the gallery split over
-    the ranks (ref processor.py:69-100): every rank holds every feature; the
+    the ranks of ``mesh``'s data group (every rank without one; ref
+    processor.py:69-100): every rank holds every feature; the
     gallery, padded to a multiple of the ranks with far-away dummies (pid
     −1, features 1e6: ranked last and never relevant, so the metrics are
     exact), is cut into one contiguous block per rank for
@@ -234,7 +257,7 @@ def sharded_gallery_metrics(evaluator: R1mAPEvaluator):
     if evaluator.feat_norm:
         feats = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
     nq, device = evaluator.num_query, feats.device
-    mesh = make_mesh(data=world_size(), model=1)
+    mesh = mesh or make_mesh(data=world_size(), model=1)
     gf, g_pids, g_camids = feats[nq:], pids[nq:], camids[nq:]
     pad = (-len(g_pids)) % mesh.data
     if pad:
@@ -365,7 +388,7 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
             if is_main():
                 save_checkpoint(path, saved, epoch)
         if epoch % eval_period == 0 and val_loader is not None:
-            run_validation(cfg, model, val_loader, num_query, logger, epoch)
+            run_validation(cfg, model, val_loader, num_query, logger, epoch, mesh=mesh)
     return state, history
 
 
@@ -380,7 +403,7 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
     epochs = max_epochs or solver.MAX_EPOCHS
     logger = rank_logger(logging.getLogger("mpreid_tpu_torch.train"))
     logger.info("start training")
-    mesh, optimizer = data_parallel(cfg, optimizer, logger)
+    mesh, optimizer = data_parallel(cfg, optimizer, logger, model)
 
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
     center = dict(center_weight=solver.CENTER_LOSS_WEIGHT if with_center else None,

@@ -16,7 +16,14 @@ no weight gradient for a frozen tower (the JAX package differentiates with
 respect to the trainable partition only). A trainable parameter that the
 loss does not reach gets a zero gradient, as under ``jax.value_and_grad``,
 so the optimizer's coupled L2 still moves it (an MoE tower's unused gates
-under shared routing, for one). The whole-epoch scans of
+under shared routing, for one).
+
+Over a mesh with a model axis (``parallel/mesh.py::shard_module`` has
+sliced the model) the layers meet through the Megatron pair, so the ranks
+of a model group compute the same replicated loss; a replicated parameter's
+gradient comes out whole and equal on each of them, and a sliced one's is
+the rank's slice. Gradients are then summed over the data group only. The
+whole-epoch scans of
 ``TPU.DEVICE_DATASET`` (``make_train_epoch``) and of stage 1
 (``make_stage1_epoch``) are Python loops over the steps here.
 """
@@ -28,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from mpreid_tpu_torch.losses import center_loss, supcon_loss
+from mpreid_tpu_torch.models.layers import class_split
 from mpreid_tpu_torch.models.moe import load_balancing_loss
 from mpreid_tpu_torch.ops.augment import eval_preprocess, train_augment
 from mpreid_tpu_torch.parallel import collectives as C
@@ -80,7 +88,8 @@ def gather_outputs(out: dict, mesh) -> dict:
     def cat(t):
         return C.all_gather_cat(t, mesh.group)
 
-    full = dict(out, scores=[cat(t) for t in out["scores"]], feats=[cat(t) for t in out["feats"]])
+    full = dict(out, scores=[cat(t) for t in out["scores"]],
+                feats=[cat(t) for t in out["feats"]])
     if "img_feature_proj" in out:
         full["img_feature_proj"] = full["feats"][2]
     full.pop("image_features_proj_raw", None)
@@ -117,8 +126,15 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
     gradients of the parameters, all upstream of that gather, are this
     rank's share and are summed over the ranks (``all_reduce_buckets``);
     the centers sit after it, so their gradient is already the global one
-    on every rank and is not summed."""
+    on every rank and is not summed. With a model axis, all of that runs
+    over the mesh's data group (``mesh.group``): the losses take the
+    classifiers' split (``class_split``) for their class-parallel form, and
+    the accuracy of class-sharded logits is taken from their columns
+    gathered (``collectives.gather_columns``)."""
+    if mesh is not None and mesh.data == 1:
+        mesh = None  # a model axis alone: nothing to gather or sum over data
     train = trainable_params(model, optimizer)
+    split = class_split(model.classifier)  # both classifiers split alike
     aux_coeff = cfg.MODEL.MOE.AUX_LOSS_COEFF if cfg.MODEL.MOE.ENABLED else 0.0
     with torch.enable_grad():
         with global_batch(mesh):
@@ -129,10 +145,11 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
             cam = None if cam is None else C.all_gather(cam, mesh.group)
         if text_features is not None:
             logits = torch.matmul(out["img_feature_proj"].float(), text_features.float().t())
-            loss = loss_fn(out["scores"][0], out["feats"][1], target, cam, logits)
+            loss = loss_fn(out["scores"][0], out["feats"][1], target, cam, logits,
+                           class_split=split)
         else:
             logits = out["scores"][0]
-            loss = loss_fn(out["scores"], out["feats"], target, cam)
+            loss = loss_fn(out["scores"], out["feats"], target, cam, class_split=split)
         if aux_coeff and "router_logits" in out:
             top_k = cfg.MODEL.MOE.TOP_K
             aux = torch.stack([load_balancing_loss(rl, top_k, mesh)
@@ -144,6 +161,8 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
             loss = loss + center_weight * center_loss(centers, out["feats"][1], target)
             inputs.append(centers)
         grads = _grads(loss, inputs)
+    if split is not None and text_features is None:
+        logits = C.gather_columns(logits, split.sizes, split.axis.index, split.axis.group)
     acc = (logits.detach().argmax(dim=-1) == target).float().mean()
     named = dict(zip(train, grads))
     if mesh is not None:
@@ -165,8 +184,8 @@ def _make_step_body(model, cfg, loss_fn: Callable, optimizer, center_weight, cen
     ``loss_and_grads``, so from one state and generator state the ranks
     together take the single-process step of the global batch. The loss and
     accuracy are the global batch's, the same on every rank."""
-    mesh = mesh if mesh is not None and mesh.data > 1 else None
-    shard = None if mesh is None else (mesh.data, mesh.rank)
+    mesh = mesh if mesh is not None and (mesh.data > 1 or mesh.model > 1) else None
+    shard = None if mesh is None or mesh.data == 1 else (mesh.data, mesh.rank)
     aug = augment_args(cfg)
     device = _device_of(model)
     center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None

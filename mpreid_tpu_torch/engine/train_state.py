@@ -21,6 +21,9 @@ class TrainState:
     model: torch.nn.Module
     opt_state: OptState
     centers: Optional[torch.Tensor] = None
+    # the model's whole state dict, where a checkpoint needs it gathered
+    # (engine/processor.py::checkpoint_state); else the model's own is taken
+    model_state: Optional[dict] = None
 
 
 def initial_state(model, optimizer, centers: Optional[torch.Tensor] = None) -> TrainState:

@@ -23,11 +23,11 @@ files: ``{NAME}_stage{1a,1b}_{epoch}.pth`` under ``OUTPUT_DIR`` and
 nothing: the JAX package's stage 2 never reads ``TPU.PROFILE_DIR``, and
 here it is logged as doing nothing.
 
-Data parallelism (ref mpreid_tpu/engine/uniprompt.py:191-215): stage 2
-takes the baseline's mesh branch (``processor.data_parallel``), dense and
-MoE alike, with the text features computed on every rank; stage 1 has no
-mesh in the JAX package, so every rank runs it alike (rank 0 alone writes
-its checkpoints).
+The mesh (ref mpreid_tpu/engine/uniprompt.py:187-215): stage 2 takes the
+baseline's mesh branch (``processor.data_parallel``), dense and MoE alike,
+model axis included, with the text features computed on every rank before
+the model is sliced; stage 1 has no mesh in the JAX package, so every rank
+runs it alike, unsliced (rank 0 alone writes its checkpoints).
 """
 
 from __future__ import annotations
@@ -162,7 +162,7 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
     log.info("start training")
     all_start = time.monotonic()
     text_features = precompute_text_features(cfg, model, num_classes)
-    mesh, optimizer = data_parallel(cfg, optimizer, log)
+    mesh, optimizer = data_parallel(cfg, optimizer, log, model)
     with_center = "center" in cfg.MODEL.METRIC_LOSS_TYPE
     kwargs = dict(center_weight=s2.CENTER_LOSS_WEIGHT if with_center else None,
                   center_lr=s2.CENTER_LR if with_center else None,

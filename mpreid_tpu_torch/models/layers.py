@@ -23,6 +23,15 @@ into the fp32 parameter's ``.grad`` through the cast), db summed in fp32.
 
 Parameters are created empty; ``init_`` methods fill them from an explicit
 ``torch.Generator`` (models/factory.py seeds it).
+
+Over a model axis (``parallel/mesh.py::shard_module``) a ``Linear`` whose
+weight is sliced is told its ``tp``: ``"col"`` (``c_fc``, the classifiers:
+its output rows) runs ``copy_to_model`` then its local product;
+``"row"`` (``out_proj``, ``c_proj``: its input columns) sums its fp32
+partial product over the model group (``reduce_from_model``) before the
+bias and the single cast, so the sums round as one process's do. A
+``MultiHeadAttention`` whose ``in_proj`` is sliced computes its rank's q, k
+and v rows and runs the attention kernel over its local heads.
 """
 
 from __future__ import annotations
@@ -41,7 +50,11 @@ from mpreid_tpu_torch.parallel import collectives as C
 from mpreid_tpu_torch.parallel.mesh import batch_mesh
 
 
-def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
+def _linear_fwd(x, w, bias, accum_f32: bool, keep_f32: bool = False) -> torch.Tensor:
+    if keep_f32:  # fp32 sums, no bias, no cast: a row-parallel partial product
+        if x.dtype == torch.float32 or not x.is_cuda:
+            return F.linear(x.float(), w.float())
+        return mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
     if not accum_f32:
         return F.linear(x, w, bias.to(x.dtype) if bias is not None else None)
     if x.dtype == torch.float32 or not x.is_cuda:
@@ -53,13 +66,13 @@ def _linear_fwd(x, w, bias, accum_f32: bool) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def linear_bias_act(x, w, bias, accum_f32: bool) -> torch.Tensor:
+def linear_bias_act(x, w, bias, accum_f32: bool, keep_f32: bool = False) -> torch.Tensor:
     """``_LinearBiasAct`` where a gradient is wanted, its forward alone
     otherwise (the eval path skips the autograd Function's overhead)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias)):
-        return _LinearBiasAct.apply(x, w, bias, accum_f32)
-    return _linear_fwd(x, w, bias, accum_f32)
+        return _LinearBiasAct.apply(x, w, bias, accum_f32, keep_f32)
+    return _linear_fwd(x, w, bias, accum_f32, keep_f32)
 
 
 class _LinearBiasAct(torch.autograd.Function):
@@ -67,22 +80,24 @@ class _LinearBiasAct(torch.autograd.Function):
 
     ``x`` and ``w`` arrive in the activation dtype, ``bias`` in fp32. The
     forward is the caller's (``accum_f32``: fp32 sums plus the fp32 bias,
-    then one cast; else everything in the activation dtype)."""
+    then one cast; else everything in the activation dtype; ``keep_f32``:
+    the fp32 sums alone, whose cotangent, coming back through the cast
+    after the model-axis sum, holds activation-dtype values exactly)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, accum_f32):
+    def forward(ctx, x, w, bias, accum_f32, keep_f32=False):
         ctx.save_for_backward(x, w)
-        return _linear_fwd(x, w, bias, accum_f32)
+        return _linear_fwd(x, w, bias, accum_f32, keep_f32)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
-        dy2 = dy.reshape(-1, dy.shape[-1])
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dy2 = dy.to(x.dtype).reshape(-1, dy.shape[-1])
         dx = mm_f32(dy2, w).to(x.dtype).reshape(x.shape) if need_x else None
         dw = mm_f32(dy2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if need_w else None
         db = dy2.float().sum(0) if need_b else None
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def linear_f32acc(x: torch.Tensor, weight: torch.Tensor,
@@ -92,13 +107,35 @@ def linear_f32acc(x: torch.Tensor, weight: torch.Tensor,
     return linear_bias_act(x.to(dtype), weight.to(dtype), bias, True)
 
 
+def row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                 dtype: torch.dtype, split) -> torch.Tensor:
+    """A row-parallel ``(x @ weight.T) + bias`` over the model axis:
+    ``weight`` is this rank's (out, in/M) column block (``split``, its
+    ``parallel.mesh.Split``); ``x`` is this rank's input columns, or the
+    whole input, of which it takes them. The fp32 partial products are
+    summed over the model group, then the fp32 bias is added once and the
+    sum cast to ``dtype``."""
+    if x.shape[-1] != weight.shape[1]:  # the whole input: this rank's columns of it
+        lo = split.offset
+        x = C.copy_to_model(x, split.axis)[..., lo:lo + weight.shape[1]]
+    y = linear_bias_act(x.to(dtype), weight.to(dtype), None, True, keep_f32=True)
+    y = C.reduce_from_model(y, split.axis)
+    if bias is not None:
+        y = y + bias
+    return y.to(dtype)
+
+
 def init_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
     with torch.no_grad():
         t.normal_(0.0, std, generator=gen)
 
 
 class Linear(nn.Module):
-    """Weight (out, in) and optional bias (out,), fp32 (the ``nn.Linear`` layout)."""
+    """Weight (out, in) and optional bias (out,), fp32 (the ``nn.Linear``
+    layout). ``tp`` is None, or over a model axis ``("col", split)`` /
+    ``("row", split)`` (the module docstring)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -113,6 +150,11 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Everything in the activation dtype (the flax ``Dense`` convention)."""
+        if self.tp is not None:
+            kind, split = self.tp
+            if kind == "row":
+                return row_parallel(x, self.weight, self.bias, x.dtype, split)
+            x = C.copy_to_model(x, split.axis)
         return linear_bias_act(x, self.weight.to(x.dtype), self.bias, False)
 
 
@@ -143,7 +185,14 @@ class MultiHeadAttention(nn.Module):
     ``lora_b`` (r, 3d) in [q|k|v] packing, and qkv += (α/r)·((x·A)·B), with
     x·A summed in fp32 and rounded to the activation dtype, ·B summed in
     fp32, scaled in fp32, then rounded. The reference state_dict has no
-    such keys (models/convert.py folds adapters into in_proj for it)."""
+    such keys (models/convert.py folds adapters into in_proj for it).
+
+    ``tp`` (a ``parallel.mesh.ModelAxis``, set by ``shard_module``): the
+    parameters hold this rank's q, k and v rows, so the local QKV is the
+    packed [q|k|v] of ``num_heads / M`` whole heads; ``lora_a`` stays whole
+    behind ``copy_to_model``; ``out_proj`` is row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  lora_rank: int = 0, lora_alpha: float = 16.0):
@@ -172,12 +221,18 @@ class MultiHeadAttention(nn.Module):
             nn.init.zeros_(self.lora_b)  # the adapter starts as the identity
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        qkv = linear_f32acc(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+        tp = self.tp
+        qkv = linear_f32acc(C.copy_to_model(x, tp), self.in_proj_weight, self.in_proj_bias,
+                            self.dtype)
         if self.lora_rank:
-            h = linear_f32acc(x, self.lora_a.t(), None, self.dtype)
+            h = C.copy_to_model(linear_f32acc(x, self.lora_a.t(), None, self.dtype), tp)
             delta = torch.matmul(h.float(), self.lora_b.to(self.dtype).float())
             qkv = qkv + ((self.lora_alpha / self.lora_rank) * delta).to(self.dtype)
-        out = fused_attention(qkv, self.num_heads, mask, layout="packed")
+        heads = self.num_heads if tp is None else self.num_heads // tp.size
+        out = fused_attention(qkv, heads, mask, layout="packed")
+        if self.out_proj.tp is not None:
+            return row_parallel(out, self.out_proj.weight, self.out_proj.bias, self.dtype,
+                                self.out_proj.tp[1])
         return linear_f32acc(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
 
 
@@ -343,7 +398,17 @@ def classifier_scores(classifier: nn.Module, feats: torch.Tensor,
                       labels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Train-time logits in fp32 on the BN features (ref
     ``classifier_scores``): a margin head takes the labels, the plain
-    classifier does not."""
+    classifier does not. A classifier split by class over a model axis gives
+    this rank's columns (``class_split``)."""
     if isinstance(classifier, MarginHead):
         return classifier(feats.float(), labels)
     return classifier(feats.float())
+
+
+def class_split(classifier: nn.Module):
+    """The ``Split`` of ``classifier``'s class rows over a model axis, None
+    when it is whole (a margin head always is). The losses take it to put
+    this rank's columns of logits in their class-parallel form
+    (``losses/softmax.py``)."""
+    tp = getattr(classifier, "tp", None)
+    return None if tp is None else tp[1]

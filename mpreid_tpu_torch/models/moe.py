@@ -24,6 +24,16 @@ them in the reference layout (``experts.{m}.c_fc.weight`` …, what
 mpreid_tpu/models/convert.py writes and reads), split and stacked by state
 dict hooks. The gate is ``gate.weight`` (E, D), no bias.
 
+Expert parallelism (``parallel/mesh.py::shard_module``, a model axis of
+M ranks): ``ExpertMLPs`` holds its E/M experts of the stacked tensors
+(``ep``). The dispatch stays dense: every token goes through each local
+expert, weighted by that expert's combine column, and the fp32 mixes are
+summed over the model group (``reduce_from_model``) before the one cast.
+The tokens and the combine weights enter behind ``copy_to_model``, so the
+gradients of the replicated attention, LayerNorm and router come out whole.
+Dropout draws the whole (tokens, E, 4D) mask and keeps the local experts'
+part, as one process draws it. The router and the aux loss stay replicated.
+
 Expert selection: ``lax.top_k`` returns tied values lowest index first.
 After ``switch_to_moe`` the gates are zero, so every token's probabilities
 tie, and ``torch.topk`` promises no order among ties: experts are picked by
@@ -87,26 +97,38 @@ def load_balancing_loss(router_logits: torch.Tensor, top_k: int, mesh=None) -> t
     return (tokens_per_expert * prob_per_expert).sum() * num_experts
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            experts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with 1 - ``rate``,
     scale the kept values by 1 / (1 - ``rate``); draws from ``gen`` (in a
     data-parallel forward, the global batch's mask, of which this rank keeps
-    its rows)."""
+    its rows). ``experts`` = (first, all): ``x`` (N, E/M, 4D) holds the
+    local experts from ``first`` of ``all``, and the mask is drawn for all
+    of them, this rank keeping its experts' part."""
     if gen is None:
         raise ValueError("MoE dropout in training needs the step's torch.Generator")
     keep_prob = 1.0 - rate
     mesh = batch_mesh()
+    n = x.shape[0]
+    shape = list(x.shape)
+    if experts is not None:
+        shape[1] = experts[1]
     if mesh is None:
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        draw = torch.rand(shape, generator=gen, device=x.device)
     else:  # the global batch's draw (rank-major rows), this rank's rows of it
-        n = x.shape[0]
-        draw = torch.rand((n * mesh.data, *x.shape[1:]), generator=gen, device=x.device)
-        keep = draw[mesh.rank * n:(mesh.rank + 1) * n] < keep_prob
+        shape[0] = n * mesh.data
+        draw = torch.rand(shape, generator=gen, device=x.device)[mesh.rank * n:(mesh.rank + 1) * n]
+    if experts is not None:
+        draw = draw[:, experts[0]:experts[0] + x.shape[1]]
+    keep = draw < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ExpertMLPs(nn.Module):
-    """E stacked transformer MLPs (D → 4D → D)."""
+    """E stacked transformer MLPs (D → 4D → D). ``ep``: the experts' model
+    axis ``Split`` when this rank holds E/M of them (``num_experts`` stays E)."""
+
+    ep = None
 
     def __init__(self, dim: int, num_experts: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
@@ -133,25 +155,34 @@ class ExpertMLPs(nn.Module):
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (N, D) in the activation dtype, combine (N, E) → (N, D)."""
         n, dt = x.shape[0], self.dtype
-        e, hidden = self.num_experts, 4 * self.dim
+        e, hidden = self.c_fc_weight.shape[0], 4 * self.dim  # the local experts
+        experts = None
+        if self.ep is not None:
+            experts = (self.ep.offset, self.num_experts)
+            x = C.copy_to_model(x, self.ep.axis)
+            combine = C.copy_to_model(combine, self.ep.axis)[:, experts[0]:experts[0] + e]
         # every expert's c_fc in one (N, D) × (D, E·4D) product, fp32 sums
         h = linear_bias_act(x, self.c_fc_weight.to(dt).reshape(e * hidden, self.dim), None, True)
         h = quick_gelu(h.reshape(n, e, hidden) + self.c_fc_bias.to(dt))
         if train and self.dropout > 0:
-            h = dropout(h, self.dropout, gen)
+            h = dropout(h, self.dropout, gen, experts)
         y = bmm_f32(h.transpose(0, 1), self.c_proj_weight.to(dt).transpose(1, 2), dt)
         y = y + self.c_proj_bias[:, None, :].to(dt)                       # (E, N, D)
         # mix by routing weight: products of two dt values are exact in fp32
         mixed = (y.float() * combine.to(dt).float().t()[:, :, None]).sum(dim=0)
+        if self.ep is not None:
+            mixed = C.reduce_from_model(mixed, self.ep.axis)
         return mixed.to(dt)
 
 
 def _split_experts(module, state_dict, prefix, local_metadata):
-    """The stacked leaves → the reference's ``experts.{m}.c_fc.weight`` …"""
+    """The stacked leaves → the reference's ``experts.{m}.c_fc.weight`` …
+    (a rank of an expert-parallel model: its own experts, by global index)."""
     for stacked, leaf in _EXPERT_LEAVES:
         t = state_dict.pop(prefix + stacked)
-        for m in range(module.num_experts):
-            state_dict[f"{prefix}{m}.{leaf}"] = t[m]
+        first = module.ep.offset if t.shape[0] < module.num_experts else 0
+        for m in range(t.shape[0]):
+            state_dict[f"{prefix}{first + m}.{leaf}"] = t[m]
     return state_dict
 
 

@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpreid_tpu_torch.parallel import collectives as C
+
 from .clip_model import CLIPConfig, make_text_tower
 from .layers import Linear, init_normal_
 from .reid import ReIDModel
@@ -81,7 +83,15 @@ class MLP2(nn.Module):
 class PromptLearner(nn.Module):
     """``feat_dim`` is the width of the features ``visual_enhanced`` takes
     (the CLIP embedding width, which the reference writes as 512, as it does
-    ``ctx_dim``: the two coincide for ViT-B/16)."""
+    ``ctx_dim``: the two coincide for ViT-B/16).
+
+    ``class_split``: over a model axis ``ctx_generic`` holds this rank's
+    class rows (``parallel/mesh.py::shard_module``); a label's row then comes
+    from the rank that owns it, summed over the model group with zeros from
+    the others (``reduce_from_model``, exact), so every rank has every row
+    and the gradient reaches the owner's."""
+
+    class_split = None
 
     def __init__(self, num_classes: int, ctx_dim: int, feat_dim: int,
                  dtype: torch.dtype = torch.float32, n_modalities: int = 2,
@@ -99,6 +109,14 @@ class PromptLearner(nn.Module):
             init_normal_(p, 0.02, gen)
         self.visual_enhanced_net.init_(gen)
 
+    def _owned_rows(self, label: torch.Tensor) -> torch.Tensor:
+        split = self.class_split
+        local = label - split.offset
+        mine = (local >= 0) & (local < self.ctx_generic.shape[0])
+        rows = self.ctx_generic[local.clamp(0, self.ctx_generic.shape[0] - 1)]
+        rows = torch.where(mine[:, None, None], rows, torch.zeros_like(rows))
+        return C.reduce_from_model(rows, split.axis)
+
     def visual_enhanced(self, image_feature: torch.Tensor) -> torch.Tensor:
         return self.visual_enhanced_net(image_feature)
 
@@ -107,7 +125,10 @@ class PromptLearner(nn.Module):
         """The (B, 16, ctx_dim) fp32 context block; ``ctx_generic`` stands in
         for the parameter of that name (the TTPT tuner's context)."""
         b = label.shape[0]
-        generic = (self.ctx_generic if ctx_generic is None else ctx_generic)[label]
+        if ctx_generic is None and self.class_split is not None:
+            generic = self._owned_rows(label)
+        else:
+            generic = (self.ctx_generic if ctx_generic is None else ctx_generic)[label]
         if stage == "1a":
             modal = generic.new_zeros((b, N_MODAL_CTX, self.ctx_dim))
             plat = generic.new_zeros((b, N_PLAT_CTX, self.ctx_dim))

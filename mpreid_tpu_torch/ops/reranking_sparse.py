@@ -5,7 +5,7 @@ ref mpreid_tpu/ops/reranking_sparse.py::re_ranking_sparse,
 ::re_ranking_sparse_rows, ::_topk_neighbors, ::_reciprocal_mask,
 ::_dedup_compact, ::_expand_rows, ::_query_expand, ::_densify,
 ::_minsum_exact, ::_final_blend_chunks, ::_resolve_params,
-::_build_sparse_v; ::_quantile_thresholds and ::_minsum_quantized_chunk
+::_build_sparse_v, ::re_ranking_sparse_sharded; ::_quantile_thresholds and ::_minsum_quantized_chunk
 are ops/reranking.py's ``quantile_thresholds`` and ``minsum_levels``.
 
 No N×N matrix is ever held:
@@ -30,8 +30,14 @@ block writes into. The last query block and the last gallery chunk start
 at ``Q − q_block`` and ``G − g_chunk``: they overlap the one before and
 recompute the same values, so nothing is padded. Widths overflow
 deterministically (the highest sorted indices drop) and ``return_info``
-counts the rows that did. The mesh-sharded ``re_ranking_sparse_sharded``
-waits for the parallel modes.
+counts the rows that did.
+
+``re_ranking_sparse_sharded`` splits the gallery over the ranks of a mesh's
+data group: the sparse-V build runs replicated on every rank (O(N·W), cheap
+beside the min-sum), each rank blends its contiguous gallery block (padded
+to one length with sentinel rows) against the query rows, the min-sum on the
+hand-written kernel as above, and the blocks are gathered into the whole
+(Q, G) matrix on every rank. Same semantics as ``re_ranking_sparse``.
 """
 
 from __future__ import annotations
@@ -249,6 +255,44 @@ def _build_sparse_v(feat, k1, k2, half, width, width2, block):
     return idx1, val1, colmax, ovf_v, ovf_qe
 
 
+def _rerank_gallery_block(qf, gf, k1, k2, lambda_value, width, width2, minsum, block,
+                          g_chunk, q_block, lo: int, hi: int, cols: int):
+    """The body both entry points share: the sparse V over the whole corpus,
+    then the min-sum → Jaccard → λ-blend of gallery rows ``lo..hi`` into a
+    (Q, ``cols``) matrix, its last ``cols - (hi - lo)`` columns sentinel rows
+    (support n, weight 0, zero features) → (matrix, ovf_v, ovf_qe)."""
+    if minsum not in ("exact", "quantized"):
+        raise ValueError(f"minsum must be 'exact'|'quantized', got {minsum!r}")
+    feat = torch.cat([qf, gf], dim=0).float()
+    num_q = qf.shape[0]
+    n = feat.shape[0]
+    k1, k2, half, width, width2 = _resolve_params(n, k1, k2, width, width2)
+
+    idx1, val1, colmax, ovf_v, ovf_qe = _build_sparse_v(feat, k1, k2, half, width, width2,
+                                                        block)
+    thresholds = (quantile_thresholds(val1[: min(n, 256)].reshape(-1))
+                  if minsum == "quantized" else None)
+    q_dtype = torch.float32 if minsum == "exact" else torch.bfloat16
+    rows_g = slice(num_q + lo, num_q + hi)
+    idxg, valg, gf32 = idx1[rows_g], val1[rows_g], feat[rows_g]
+    pad = cols - (hi - lo)
+    if pad:
+        idxg = torch.cat([idxg, idxg.new_full((pad, idxg.shape[1]), n)])
+        valg = torch.cat([valg, valg.new_zeros((pad, valg.shape[1]))])
+        gf32 = torch.cat([gf32, gf32.new_zeros((pad, gf32.shape[1]))])
+
+    q_block = min(q_block, num_q)
+    out = torch.empty((num_q, cols), dtype=torch.float32, device=feat.device)
+    for i in range(-(-num_q // q_block)):
+        start = min(i * q_block, num_q - q_block)
+        rows = slice(start, start + q_block)
+        vq_dense = _densify(idx1[rows], val1[rows], n, q_dtype)
+        _final_blend_chunks(out, rows, vq_dense, feat[rows], colmax[rows], gf32, idxg, valg,
+                            n, g_chunk, lambda_value, minsum, thresholds)
+        del vq_dense
+    return out, ovf_v, ovf_qe
+
+
 def re_ranking_sparse(qf: torch.Tensor, gf: torch.Tensor, k1: int = 50, k2: int = 15,
                       lambda_value: float = 0.3, width: Optional[int] = None,
                       width2: Optional[int] = None, minsum: str = "exact", block: int = 256,
@@ -262,33 +306,38 @@ def re_ranking_sparse(qf: torch.Tensor, gf: torch.Tensor, k1: int = 50, k2: int 
     query-expanded supports (defaults 8·(k1+1) and 4·width);
     ``return_info=True`` also returns ``{"overflow_v": rows truncated at
     stage 3, "overflow_qe": rows truncated at stage 4}``."""
-    if minsum not in ("exact", "quantized"):
-        raise ValueError(f"minsum must be 'exact'|'quantized', got {minsum!r}")
-    feat = torch.cat([qf, gf], dim=0).float()
-    num_q, num_g = qf.shape[0], gf.shape[0]
-    n = feat.shape[0]
-    k1, k2, half, width, width2 = _resolve_params(n, k1, k2, width, width2)
-
-    idx1, val1, colmax, ovf_v, ovf_qe = _build_sparse_v(feat, k1, k2, half, width, width2,
-                                                        block)
-    thresholds = (quantile_thresholds(val1[: min(n, 256)].reshape(-1))
-                  if minsum == "quantized" else None)
-    q_dtype = torch.float32 if minsum == "exact" else torch.bfloat16
-    idxg, valg, gf32 = idx1[num_q:], val1[num_q:], feat[num_q:]
-
-    q_block = min(q_block, num_q)
-    out = torch.empty((num_q, num_g), dtype=torch.float32, device=feat.device)
-    for i in range(-(-num_q // q_block)):
-        start = min(i * q_block, num_q - q_block)
-        rows = slice(start, start + q_block)
-        vq_dense = _densify(idx1[rows], val1[rows], n, q_dtype)
-        _final_blend_chunks(out, rows, vq_dense, feat[rows], colmax[rows], gf32, idxg, valg,
-                            n, g_chunk, lambda_value, minsum, thresholds)
-        del vq_dense
+    num_g = gf.shape[0]
+    out, ovf_v, ovf_qe = _rerank_gallery_block(qf, gf, k1, k2, lambda_value, width, width2,
+                                               minsum, block, g_chunk, q_block, 0, num_g,
+                                               num_g)
     if return_info:
         return out, {"overflow_v": int((ovf_v > 0).sum()),
                      "overflow_qe": int((ovf_qe > 0).sum())}
     return out
+
+
+def re_ranking_sparse_sharded(qf: torch.Tensor, gf: torch.Tensor, mesh, k1: int = 50,
+                              k2: int = 15, lambda_value: float = 0.3,
+                              width: Optional[int] = None, width2: Optional[int] = None,
+                              minsum: str = "exact", block: int = 256, g_chunk: int = 4096,
+                              q_block: int = 2048) -> torch.Tensor:
+    """``re_ranking_sparse`` with the gallery split over ``mesh``'s data
+    group (ref ``re_ranking_sparse_sharded``, whose ``shard_map`` blends a
+    gallery slab per device) → the whole (Q, G) matrix on every rank (a
+    collective: every rank of the group calls it with the same features).
+    Quantization thresholds come from the replicated sample, so every rank
+    cuts the same levels."""
+    from mpreid_tpu_torch.parallel import collectives as C
+
+    # this rank's gallery block, padded to the same width on every rank
+    num_g = gf.shape[0]
+    per = -(-num_g // mesh.data)
+    lo, hi = min(mesh.rank * per, num_g), min((mesh.rank + 1) * per, num_g)
+    out, _, _ = _rerank_gallery_block(qf, gf, k1, k2, lambda_value, width, width2, minsum,
+                                      block, g_chunk, q_block, lo, hi, per)
+    # the ranks' (Q, per) blocks side by side → (Q, ranks·per), the padding cut
+    whole = C.all_gather(out.t().contiguous(), mesh.group).t()
+    return whole[:, :num_g].contiguous()
 
 
 def re_ranking_sparse_rows(qf: torch.Tensor, gf: torch.Tensor, rows, k1: int = 50,

@@ -1,8 +1,8 @@
-"""The collectives of the data axis over ``torch.distributed``.
+"""The collectives of the mesh over ``torch.distributed``.
 
 In the JAX package GSPMD inserts them (``psum``, ``all_gather`` over the
-mesh's ``data`` axis); the port calls them where the data-parallel step
-needs them:
+mesh's axes); the port calls them where its steps and layers need them.
+The data axis:
 
 * ``all_reduce_sum`` and ``broadcast``, in place;
 * ``all_gather``: ranks' equal blocks concatenated along axis 0, no
@@ -18,6 +18,24 @@ needs them:
   that enter that replicated loss; its backward passes the cotangent
   through unchanged for the same reason.
 
+The model axis (``mesh.ModelAxis``), the Megatron pair (Shoeybi et al.
+2019) and a gather:
+
+* ``copy_to_model``: identity forward; the backward sums the cotangent over
+  the model group. It stands before every layer that computes a part from a
+  replicated input (a column-parallel projection, the local experts, a
+  class-sharded classifier), whose cotangent each rank holds only its part of;
+* ``reduce_from_model``: the forward sums the ranks' partial results over
+  the model group (a row-parallel projection's fp32 partial products, the
+  local experts' mix); the backward is the identity, the cotangent of the
+  replicated sum being the same on every rank;
+* ``gather_columns``: the ranks' column blocks of one row (class-sharded
+  logits, blocks of unequal width) side by side, no gradient (the training
+  loop's accuracy, a global argmax).
+
+Every rank of a model group computes the same replicated loss, so a
+replicated parameter's gradient comes out whole, and equal, on each of them.
+
 gloo reduces and broadcasts CUDA tensors but does not gather them (the
 ``torch.distributed`` backend table: all_gather is CPU-only under gloo), so
 for a CUDA tensor under gloo (two ranks sharing one card) ``all_gather`` is
@@ -31,7 +49,7 @@ reduces no 16-bit type everywhere) and bools as uint8.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
@@ -173,3 +191,62 @@ def all_reduce_buckets(tensors: Mapping[str, torch.Tensor], group=None,
         for k, off in chunk:
             out[k] = buf[off:off + tensors[k].numel()].view(tensors[k].shape)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the model axis
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def copy_to_model(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` as it is; its gradient summed over ``axis``'s ranks (a
+    ``mesh.ModelAxis``; None or one rank: nothing to do)."""
+    if axis is None or axis.size == 1 or not _wants_grad(t):
+        return t
+    return _CopyToModel.apply(t, axis.group)
+
+
+def reduce_from_model(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over ``axis``'s ranks; the gradient passes through."""
+    if axis is None or axis.size == 1:
+        return t
+    if not _wants_grad(t):
+        return all_reduce_sum(t.contiguous().clone(), axis.group)
+    return _ReduceFromModel.apply(t, axis.group)
+
+
+def gather_columns(t: torch.Tensor, sizes: Sequence[int], index: int, group=None
+                   ) -> torch.Tensor:
+    """The ranks' blocks of the last axis, of widths ``sizes`` (this rank's
+    is block ``index``), side by side → (..., sum(sizes)), no gradient:
+    each rank writes its block into a zero-filled whole and the wholes are
+    summed (exact; gloo's form for CUDA tensors as well)."""
+    t = t.detach()
+    lo = sum(sizes[:index])
+    full = torch.zeros((*t.shape[:-1], sum(sizes)), dtype=t.dtype, device=t.device)
+    full[..., lo:lo + t.shape[-1]] = t
+    return all_reduce_sum(full, group)

@@ -27,10 +27,13 @@ The result is bitwise the replicated optimizer's (``tests/test_torch_zero.py``;
 Slices are a multiple of ``collectives.ALIGN`` elements (and so are the
 gradients' offsets in their buckets), so every rank's slice of a parameter,
 a gradient and a moment starts 32-byte aligned, as the Adam kernel's
-16-byte vector loads need. Only leaves that ``param_spec``
+16-byte vector loads need. Only leaves that ``model_specs``
 replicates are ZeRO'd; the others (classifier weights, expert stacks,
-``ctx_generic``, which the model axis would split) keep whole moments, as in
-the JAX package. A checkpoint holds the moments gathered to the parameters'
+``ctx_generic`` and, under ``TPU.TP_TOWERS``, the towers' Megatron pairs,
+which the model axis splits) keep their model-axis layout and hold whole
+moments over the data axis, the JAX package's rule
+(mpreid_tpu/parallel/zero.py:143). On a 2-D mesh everything here runs over
+the data group (``Mesh.group``, ``Mesh.rank``). A checkpoint holds the moments gathered to the parameters'
 shapes (``gathered``, the replicated optimizer's layout), so it resumes
 under ZeRO or not, at any world size; ``sharded`` cuts a loaded one back to
 this rank's slices.
@@ -46,7 +49,7 @@ from mpreid_tpu_torch.solver.optim import Optimizer, OptState
 
 from . import collectives as C
 from .collectives import ALIGN
-from .mesh import Mesh, is_replicated, param_spec
+from .mesh import Mesh, is_replicated, model_specs
 
 
 def shard_length(n: int, ranks: int) -> int:
@@ -151,15 +154,18 @@ class ZeroOptimizer(Optimizer):
         return out
 
 
-def zero_sharded(base: Optimizer, mesh: Mesh, tp_towers: bool = False) -> ZeroOptimizer:
-    """``base`` with its moments ZeRO'd over ``mesh``'s data axis: every
-    configured attribute is shared; only trainable leaves that
-    ``param_spec`` replicates are ZeRO'd (``tp_towers`` as the run's)."""
+def zero_sharded(base: Optimizer, mesh: Mesh, model: torch.nn.Module,
+                 tp_towers: bool = False) -> ZeroOptimizer:
+    """``base`` (built for ``model``) with its moments ZeRO'd over
+    ``mesh``'s data axis: every configured attribute is shared; only
+    trainable leaves that ``model_specs`` replicates are ZeRO'd
+    (``tp_towers`` as the run's)."""
     z = ZeroOptimizer.__new__(ZeroOptimizer)
     z.__dict__.update(base.__dict__)
     z.mesh = mesh
+    specs = model_specs(model, tp_towers)
     z.zero_keys = frozenset(k for k, t in base.trainable.items()
-                            if t and is_replicated(param_spec(k, tp_towers)))
+                            if t and is_replicated(specs[k]))
     return z
 
 

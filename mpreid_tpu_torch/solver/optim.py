@@ -28,6 +28,7 @@ ZeRO-1 (``parallel/zero.py``) updates its slices through.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -168,8 +169,11 @@ class Optimizer:
     def kernel_route(self, p: torch.Tensor) -> bool:
         """Whether leaf ``p``'s update takes the fused Adam kernel: Adam or
         AdamW under ``FUSED_ADAM``, on the card, at least ``MIN_FUSED_SIZE``
-        elements. ZeRO decides it from the whole leaf, never from its slice."""
-        return self.fused_adam and p.is_cuda and p.numel() >= MIN_FUSED_SIZE
+        elements. ZeRO decides it from the whole leaf, never from its slice,
+        and so does a leaf sliced over the model axis (its ``model_split``)."""
+        split = getattr(p, "model_split", None)
+        n = p.numel() if split is None else math.prod(split.full_shape)
+        return self.fused_adam and p.is_cuda and n >= MIN_FUSED_SIZE
 
     @torch.no_grad()
     def update_leaf(self, k: str, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,

@@ -11,9 +11,12 @@ file, so ``python -m mpreid_tpu_torch.test TEST.WEIGHT`` takes it.
 A ZeRO-1 run (``parallel/zero.py``) writes its moments gathered to the
 parameters' shapes (``engine/processor.py::checkpoint_state``), the layout
 of a replicated run, from rank 0 alone; ``restore_state`` with the ZeRO
-optimizer cuts them back to each rank's slices. So one file resumes a run
-with or without ZeRO, at any number of ranks, and a resumed ZeRO run stays
-bitwise with an uninterrupted one.
+optimizer cuts them back to each rank's slices. A model sliced over a model
+axis (``parallel/mesh.py::shard_module``) is written whole the same way,
+its parameters and moments gathered, and ``restore_state`` slices them
+again. So one file resumes a run with or without ZeRO or a model axis, at
+any number of ranks, and a resumed ZeRO run stays bitwise with an
+uninterrupted one.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 
 import torch
 
+from mpreid_tpu_torch.parallel.mesh import load_full_state_dict, local_moment
 from mpreid_tpu_torch.solver.optim import OptState
 
 FORMAT = "mpreid_tpu_torch.train_state.v1"
@@ -37,7 +41,8 @@ def save_checkpoint(path: str, state, epoch: int) -> str:
     payload = {
         "format": FORMAT,
         "epoch": int(epoch),
-        "model": _cpu(state.model.state_dict()),
+        "model": _cpu(state.model_state if state.model_state is not None
+                      else state.model.state_dict()),
         "opt_state": {"step": int(state.opt_state.step), "mu": _cpu(state.opt_state.mu),
                       "nu": _cpu(state.opt_state.nu)},
         "centers": None if state.centers is None else state.centers.detach().cpu(),
@@ -65,16 +70,18 @@ def restore_state(state, payload: dict, optimizer=None) -> int:
     """Load ``payload`` into ``state`` in place (model, moments, step,
     centers) on the state's devices → the epoch it was saved after. With a
     ZeRO ``optimizer`` each ZeRO'd moment takes this rank's slice of the
-    file's whole one."""
+    file's whole one; a model sliced over a model axis takes its slices of
+    the whole parameters and moments."""
     shard = getattr(optimizer, "sharded", None)
-    state.model.load_state_dict(payload["model"], strict=True)
+    load_full_state_dict(state.model, payload["model"], strict=True)
     opt = payload["opt_state"]
     for key in ("mu", "nu"):
         mine, theirs = getattr(state.opt_state, key), opt[key]
         if set(mine) != set(theirs):
             raise ValueError(f"checkpoint moments {key} cover other parameters than the optimizer's")
         for name, t in mine.items():
-            t.copy_(theirs[name] if shard is None else shard(name, theirs[name]))
+            whole = local_moment(name, theirs[name], state.model)
+            t.copy_(whole if shard is None else shard(name, whole))
     state.opt_state = OptState(step=int(opt["step"]), mu=state.opt_state.mu,
                                nu=state.opt_state.nu)
     if payload["centers"] is not None:

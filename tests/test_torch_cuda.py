@@ -777,7 +777,7 @@ def _card_dp_job(n_steps: int, **solver):
     for zero in (False, True):
         model.load_state_dict(w0)
         o = make_optimizer(cfg.SOLVER, model, stage="baseline")
-        o = zero_sharded(o, mesh) if zero else o
+        o = zero_sharded(o, mesh, model) if zero else o
         state = initial_state(model, o)
         step = make_train_step(model, cfg, loss_fn, o, mesh=mesh)
         before = adam.fused_adam_leaf.launches
@@ -833,7 +833,7 @@ def _card_zero_kernel_job():
                 torch.randn(n, device="cuda", generator=gen)))
         cfg = _tiny_dp_cfg("cuda", FUSED_ADAM=True)
         opt = optim.Optimizer("Adam", module, cfg.SOLVER, stage="baseline")
-        opt = zero_sharded(opt, make_mesh()) if zero else opt
+        opt = zero_sharded(opt, make_mesh(), module) if zero else opt
         state = opt.init(module)
         train, _ = opt.partition(module)
         before = adam.fused_adam_leaf.launches
@@ -893,3 +893,152 @@ def test_nccl_at_a_world_of_one(card):
 
     backend, t = spawn(_nccl_job, 1, backend="nccl", timeout=120)[0]
     assert backend == "nccl" and torch.equal(t, torch.full((4,), 2.0))
+
+
+# the model axis, GPipe, the sharded sparse re-ranking and the dry run, with
+# ranks sharing the card over gloo
+
+def _tiny_tp_model(card, seed=0):
+    import dataclasses
+
+    from mpreid_tpu_torch.models import VIT_B16, ReIDModel
+
+    clip = dataclasses.replace(VIT_B16, embed_dim=32, vision_layers=2, vision_width=128,
+                               h_resolution=4, w_resolution=2)
+    model = ReIDModel(clip, 7, camera_num=2, view_num=1)
+    model.init_(torch.Generator().manual_seed(seed))
+    return model.to(card)
+
+
+def _card_tp_step(mesh):
+    """Loss and whole gradients of a tiny fp32 ViT's step (two heads of 64,
+    7 classes), sliced over ``mesh``'s model axis when given."""
+    from mpreid_tpu_torch.engine import loss_and_grads
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.ops import attention as attn
+    from mpreid_tpu_torch.ops.augment import eval_preprocess
+    from mpreid_tpu_torch.parallel import gather_whole, shard_module
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    card = torch.device("cuda", 0)
+    cfg = _tiny_dp_cfg("cuda")
+    model = _tiny_tp_model(card)
+    if mesh is not None:
+        shard_module(model, mesh, tp_towers=True)
+    batch = _dp_batch(card)
+    x = eval_preprocess(batch["images"], mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD)
+    opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
+    before = attn.fused_attention.launches
+    loss, _, grads, _ = loss_and_grads(model, cfg, make_loss(cfg, 7)[0], opt, x,
+                                       batch["pids"] % 7, mesh=mesh)
+    return {"loss": float(loss), "launches": attn.fused_attention.launches - before,
+            "grads": {k: g.cpu() for k, g in gather_whole(grads, model).items()}}
+
+
+def _card_tp_job():
+    from mpreid_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    return _card_tp_step(make_mesh(data=1, model=2))
+
+
+@pytest.mark.cuda
+def test_model_axis_on_the_card_equals_one_process(card):
+    """Two ranks on a 1 × 2 mesh (TP towers, 4 + 3 classes) launch the
+    attention kernel over their one local head and give one process's loss
+    and gradients."""
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    want = _card_tp_step(None)
+    floor = 1e-2 * max(g.norm().item() for g in want["grads"].values())
+    for out in spawn(_card_tp_job, 2, timeout=300):
+        assert out["launches"] == 2
+        assert abs(out["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        for k, g in want["grads"].items():
+            assert (out["grads"][k] - g).norm().item() <= 1e-5 * max(g.norm().item(), floor), k
+
+
+def _card_pipe_blocks(card):
+    from mpreid_tpu_torch.models.layers import ResidualAttentionBlock
+
+    gen = torch.Generator().manual_seed(1)
+    blocks = torch.nn.ModuleList(ResidualAttentionBlock(128, 2) for _ in range(4))
+    for b in blocks:
+        b.init_(gen)
+    x = torch.randn(8, 77, 128, generator=gen)
+    return blocks.to(card), x.to(card), torch.randn(8, 77, 128, generator=gen).to(card)
+
+
+def _card_pipe_job():
+    from mpreid_tpu_torch.models.text import causal_mask
+    from mpreid_tpu_torch.parallel.pipeline import pipe_mesh, pipelined_blocks
+
+    torch.cuda.set_device(0)
+    card = torch.device("cuda", 0)
+    blocks, x, w = _card_pipe_blocks(card)
+    x.requires_grad_(True)
+    params = {f"resblocks.{i}.{k}": p for i, b in enumerate(blocks)
+              for k, p in b.named_parameters()}
+    y = pipelined_blocks(blocks[0], params, 4, x, pipe_mesh(2), microbatches=4,
+                         mask=causal_mask(77, card))
+    (y * w).sum().backward()
+    return y.detach().cpu(), x.grad.cpu()
+
+
+@pytest.mark.cuda
+def test_gpipe_on_the_card_equals_sequential(card):
+    from mpreid_tpu_torch.models.text import causal_mask
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    blocks, x, w = _card_pipe_blocks(card)
+    x.requires_grad_(True)
+    h = x
+    for b in blocks:
+        h = b(h, causal_mask(77, card))
+    (h * w).sum().backward()
+    for y, dx in spawn(_card_pipe_job, 2, timeout=300):
+        assert (y - h.detach().cpu()).norm() <= 1e-5 * h.norm().item()
+        assert (dx - x.grad.cpu()).norm() <= 1e-5 * x.grad.norm().item()
+
+
+def _card_rerank_feats(card):
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((40, 64)).astype(np.float32)
+    feats = centers[rng.integers(0, 40, 700)] + 0.6 * rng.standard_normal((700, 64))
+    feats = torch.from_numpy(feats.astype(np.float32)).to(card)
+    return feats[:200], feats[200:]
+
+
+def _card_sparse_job():
+    from mpreid_tpu_torch.ops import pairwise
+    from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse_sharded
+    from mpreid_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    qf, gf = _card_rerank_feats(torch.device("cuda", 0))
+    before = pairwise.minsum_cross.launches
+    out = re_ranking_sparse_sharded(qf, gf, make_mesh(data=2), k1=20, k2=6, g_chunk=128)
+    return out.cpu(), pairwise.minsum_cross.launches - before
+
+
+@pytest.mark.cuda
+def test_sharded_sparse_re_ranking_on_the_card(card):
+    from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse
+    from mpreid_tpu_torch.parallel.launch import spawn
+
+    qf, gf = _card_rerank_feats(card)
+    want = re_ranking_sparse(qf, gf, k1=20, k2=6, g_chunk=128).cpu()
+    for got, launches in spawn(_card_sparse_job, 2, timeout=300):
+        assert launches == 2  # the rank's 250 gallery rows in chunks of 128
+        assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card(card):
+    from mpreid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    ranks = dryrun_multichip(4, device="cuda", timeout=600)
+    assert len(ranks[0]["lines"]) == 3
+    for out in ranks:
+        assert out["launches"]["l1_cross"] > 0 and out["launches"]["minsum_cross"] > 0
+        assert out["launches"]["attention_fwd"]["simt"] > 0

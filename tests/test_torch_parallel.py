@@ -1,7 +1,8 @@
 """The port's data-axis layer (mpreid_tpu_torch.parallel) against the JAX package's.
 
 Without torchrun's environment ``init_distributed`` is rank 0 of a world of
-1; the mesh refuses sizes that do not cover the ranks and the model axis;
+1; the mesh refuses sizes that do not cover the ranks and places rank r at
+(r // model, r % model);
 ``param_spec`` places every parameter as the JAX package's places its leaf
 (the leaves carried across by the converter); ``ShardedLoader`` feeds each
 rank ``shard_for_host``'s block of every global PK batch; and, on two gloo
@@ -153,8 +154,11 @@ def test_mesh_that_does_not_cover_the_ranks_raises(data, model, world, message):
 def test_mesh_sizes_and_the_model_axis():
     assert make_mesh(-1, 1, world=4).shape == {"data": 4, "model": 1}
     assert make_mesh(world=1).shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="model-axis slice"):
-        make_mesh(-1, 2, world=4)
+    # the model axis: rank r at (r // model, r % model); without a process
+    # group no axis groups are made
+    mesh = make_mesh(-1, 2, world=4)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert (mesh.rank, mesh.model_rank, mesh.group, mesh.model_group) == (0, 0, None, None)
 
 
 def _spec_pairs(kind, tp_towers):

@@ -243,9 +243,9 @@ def _two_rank_job(cfgs):
     calls = []
     sharded = processor.sharded_gallery_metrics
 
-    def spy(evaluator):
+    def spy(evaluator, mesh=None):
         calls.append(1)
-        return sharded(evaluator)
+        return sharded(evaluator, mesh)
 
     processor.sharded_gallery_metrics = spy
     out = {name: _train_run(cfg) for name, cfg in cfgs["train"].items()}

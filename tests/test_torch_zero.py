@@ -77,7 +77,7 @@ def _train(cfg, weights, mesh, zero: bool, steps, state_from=None, first=0):
     model.load_state_dict(weights)
     opt = make_optimizer(cfg.SOLVER, model, stage="baseline")
     if zero:
-        opt = zero_sharded(opt, mesh)
+        opt = zero_sharded(opt, mesh, model)
     state = initial_state(model, opt)
     if state_from is not None:
         restore_state(state, state_from, opt)
@@ -108,7 +108,7 @@ def _route_check(mesh, zero: bool):
     cfg.SOLVER.FUSED_ADAM = True
     opt = toptim.Optimizer("Adam", module, cfg.SOLVER, stage="baseline")
     if zero:
-        opt = zero_sharded(opt, mesh)
+        opt = zero_sharded(opt, mesh, module)
     seen, launched = [], []
     real_plain = toptim.adam_leaf_plain
 
@@ -219,7 +219,7 @@ def test_zero_sharded_takes_the_base_optimizer_settings():
     model = ReIDModel(CLIP, NC, camera_num=14, view_num=1)
     cfg = _cfg("AdamW", "bfloat16")
     base = make_optimizer(cfg.SOLVER, model, stage="baseline")
-    zero = zero_sharded(base, make_mesh(world=1))
+    zero = zero_sharded(base, make_mesh(world=1), model)
     assert isinstance(zero, ZeroOptimizer) and zero.name == "AdamW"
     assert zero.moment_dtype == torch.bfloat16 and zero.lr_mult == base.lr_mult
     state = zero.init(model)  # one rank: every slice is the whole leaf, padded
