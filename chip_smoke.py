@@ -135,7 +135,23 @@ Phases, in order; any failure raises and the exit code is not 0:
    microbatches, fp32), forward and gradients against the blocks in
    sequence; (e) ``re_ranking_sparse_sharded`` over two ranks at
    Market-1501's scale against ``re_ranking_sparse``, with the min-sum
-   kernel's launches per rank.
+   kernel's launches per rank;
+16. ``TPU.REMAT`` and ``TPU.ASYNC_CHECKPOINT``: (a) configs/person/vit_base.yml
+   at full width and depth, then three steps of configs/veri/vit_base.yml
+   (L 257), each with ``TPU.REMAT`` off and on from one set of weights and
+   one generator state: the loss and every gradient of one step bit for bit
+   (``torch.equal``), 12 + 12 against 24 + 12 attention launches a step
+   (the recompute), all "tc", the parameters after the steps bit for bit,
+   the peak of allocated memory of each mode, and the median step of each
+   timed in turns on one model (with ``--profile`` the device's busy time
+   over three traced steps); (b) one
+   stage-2b step of configs/tpu/uniprompt_tuned.yml with bench.py's MoE and
+   ``MODEL.MOE.DROPOUT`` 0.1, remat on against off bit for bit, the aux loss
+   and the step generator's state after included; (c) ``do_train`` over one
+   short epoch of configs/person/vit_base.yml with a checkpoint, the write
+   blocking and then on a background thread: the seconds the loop spends
+   in ``save_checkpoint``, the file's size, the file equal bit for bit to the
+   state saved, and a failed write raising at ``wait_for_pending_saves``.
 
 Phase 12 runs after phase 8 (on its model) and phase 13 after phase 6.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
@@ -3546,6 +3562,336 @@ def run_model_axis(plan: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: TPU.REMAT (rematerialised vision blocks) and TPU.ASYNC_CHECKPOINT
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 8  # timed steps of each mode at L 129 (L 257: VEHICLE_STEPS)
+REMAT_SEED = 23  # the step generator of both modes
+REMAT_TURNS = 4  # steps a turn when the two modes are timed in turns (off, on, on, off)
+REMAT_MOE_DROPOUT = 0.1
+
+
+def remat_cfg(cfg, on: bool):
+    """``cfg`` with ``TPU.REMAT`` set to ``on``."""
+    cfg = cfg.clone()
+    cfg.TPU.REMAT = on
+    return cfg
+
+
+def host_copy(tensors: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def first_difference(got: dict, want: dict) -> str:
+    """'' when every tensor of ``got`` equals ``want``'s bit for bit, else the
+    largest difference and where it is."""
+    if set(got) != set(want):
+        return f"other keys: {sorted(set(got) ^ set(want))[:5]}"
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if not differ:
+        return ""
+    worst, key = max(((got[k].float() - want[k].float()).abs().max().item(), k) for k in differ)
+    return f"{len(differ)} differ, max |difference| {worst:.3e} in {key}"
+
+
+def remat_grads(model, cfg, loss_fn, optimizer, batch, depth: int, on: bool, what: str,
+                text=None) -> dict:
+    """One forward and its gradients from the seeded step generator
+    (augmentation on, the MoE experts' dropout where the model has it), the
+    attention launches of exactly that, and the generator's state after."""
+    from mpreid_tpu_torch.engine.steps import augment_args
+    from mpreid_tpu_torch.ops.augment import train_augment
+
+    gen = torch.Generator(device=CARD).manual_seed(REMAT_SEED)
+    x = train_augment(batch["images"], gen, **augment_args(cfg))
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, _, grads, _ = loss_and_grads(model, cfg, loss_fn, optimizer, x, batch["pids"].long(),
+                                       text_features=text, gen=gen)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(f"16 {what} remat {'on' if on else 'off'}: one forward and backward", counts,
+                  {"attention_fwd": 2 * depth if on else depth, "attention_bwd": depth})
+    return dict(loss=loss.detach().cpu(), grads=host_copy(grads), gen=gen.get_state(),
+                launches=counts, launches_by_route=read_routes())
+
+
+def remat_steps(model, cfg, loss_fn, optimizer, batches, depth: int, on: bool,
+                what: str, profile: bool = False) -> dict:
+    """A warm-up step, then ``len(batches) - 1`` timed steps through
+    ``make_train_step`` from the seeded generator: their times, the peak of
+    allocated device memory over them and what they leave, with ``profile``
+    then the device's busy time and idle share over three traced steps →
+    (that, the step, its state)."""
+    state = initial_state(model, optimizer)
+    step = make_train_step(model, cfg, loss_fn, optimizer)
+    gen = torch.Generator(device=CARD).manual_seed(REMAT_SEED)
+    state, _ = step(state, batches[0], 1e-4, gen)  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds, losses = [], []
+    for batch in batches[1:]:
+        (state, metrics), secs = timed(lambda: step(state, batch, 1e-4, gen))
+        seconds.append(secs)
+        losses.append(float(metrics["loss"]))
+    n = len(batches) - 1
+    counts = read_counts()
+    expect_counts(f"16 {what} remat {'on' if on else 'off'}: {n} train steps", counts,
+                  {"attention_fwd": (2 if on else 1) * depth * n, "attention_bwd": depth * n})
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"16 {what}: non-finite losses {losses}")
+    res = dict(step_seconds=seconds, losses=losses, peak_mem_gb=peak / 1e9,
+               held_gb=held / 1e9, peak_above_held_gb=(peak - held) / 1e9, launches=counts,
+               launches_by_route=read_routes(),
+               params=host_copy(dict(model.named_parameters())), gen=gen.get_state())
+    if profile:
+        def three_steps():
+            for batch in batches[1:4]:
+                step(state, batch, 1e-4, gen)
+
+        res["profile"] = profile_idle(three_steps, f"3 steps of {what}, remat "
+                                                   f"{'on' if on else 'off'}")
+    return res, step, state
+
+
+def remat_turns(model, step, state, batches) -> dict:
+    """The two modes timed in turns on one model (off, on, on, off), the
+    flag switched between turns, REMAT_TURNS steps a turn over ``batches``
+    → {mode: step seconds}; the model is left rematerialising."""
+    gen = torch.Generator(device=CARD).manual_seed(REMAT_SEED)
+    seconds = {"off": [], "on": []}
+    for on in (False, True, True, False):
+        model.image_encoder.remat = on
+        for i in range(REMAT_TURNS):
+            batch = batches[i % len(batches)]
+            _, secs = timed(lambda: step(state, batch, 1e-4, gen))
+            seconds["on" if on else "off"].append(secs)
+    model.image_encoder.remat = True
+    return seconds
+
+
+def run_remat_vision(settings: dict, classes: int, cameras: int, hw, n_steps: int,
+                     what: str, profile: bool = False) -> dict:
+    """16a: ``settings`` (a ViT-B/16 config at full width and depth) with
+    ``TPU.REMAT`` off, then on, each model built by ``make_model`` from the
+    same seed and alone on the card: one forward and backward (loss and
+    every gradient bit for bit, 12 + 12 against 24 + 12 attention launches,
+    all "tc"), then ``n_steps`` train steps from one state and generator
+    state (every parameter after them bit for bit; the peak memory of each
+    mode), and both modes' steps timed in turns on the second model."""
+    images, pids = train_images(seed=41, hw=hw)
+    batches = pk_batches(images, pids, n_steps + 1, seed=42)
+    del images
+    out = {}
+    for on in (False, True):
+        cfg = remat_cfg(vit_base_cfg(device=CARD, settings=settings), on)
+        model = make_model(cfg, num_class=classes, camera_num=cameras, view_num=1)
+        if model.image_encoder.remat is not on:
+            raise AssertionError(f"16 {what}: TPU.REMAT {on} did not reach the tower")
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, classes)
+        optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        grads = remat_grads(model, cfg, loss_fn, optimizer, batches[0], depth, on, what)
+        steps, step, state = remat_steps(model, cfg, loss_fn, optimizer, batches, depth, on,
+                                         what, profile)
+        if on:  # each model was checked and measured alone; now both modes in turns
+            turns = remat_turns(model, step, state, batches[1:])
+        out[on] = dict(grads=grads, steps=steps)
+        del model, optimizer, step, state
+        torch.cuda.empty_cache()
+    off, on = out[False], out[True]
+    diffs = {"loss": first_difference({"l": on["grads"]["loss"]}, {"l": off["grads"]["loss"]}),
+             "gradients": first_difference(on["grads"]["grads"], off["grads"]["grads"]),
+             "generator": "" if torch.equal(on["grads"]["gen"], off["grads"]["gen"]) else "differs",
+             "parameters_after_steps": first_difference(on["steps"]["params"],
+                                                        off["steps"]["params"])}
+    res = dict(config=what, hw=list(hw), seq_len=hw[0] // 16 * (hw[1] // 16) + 1,
+               classes=classes, batch=BATCH, steps=n_steps,
+               loss=float(off["grads"]["loss"]), gradient_leaves=len(off["grads"]["grads"]),
+               bit_for_bit={k: not v for k, v in diffs.items()},
+               **{f"{mode}_{k}": out[m]["steps"][k] for mode, m in (("off", False), ("on", True))
+                  for k in ("step_seconds", "peak_mem_gb", "peak_above_held_gb")},
+               **{f"turns_{mode}_step_ms_median": float(np.median(turns[mode])) * 1e3
+                  for mode in ("off", "on")},
+               turns_step_seconds=turns,
+               launches_one_step={"off": off["grads"]["launches"],
+                                  "on": on["grads"]["launches"]},
+               launches_by_route_one_step={"off": off["grads"]["launches_by_route"],
+                                           "on": on["grads"]["launches_by_route"]},
+               launches_steps={"off": off["steps"]["launches"], "on": on["steps"]["launches"]})
+    if profile:
+        res.update({f"{mode}_3_steps_{k}": out[m]["steps"]["profile"][k]
+                    for mode, m in (("off", False), ("on", True))
+                    for k in ("device_busy_ms", "device_idle_share", "wall_ms_traced")})
+    res["peak_saved_gb"] = res["off_peak_mem_gb"] - res["on_peak_mem_gb"]
+    res["turns_step_time_ratio"] = (res["turns_on_step_ms_median"]
+                                    / res["turns_off_step_ms_median"])
+    log(f"  16a remat {json.dumps(res)}")
+    rate_line(f"16a TPU.REMAT off/on, {what} (median step, peak allocated memory)",
+              {k: res[k] for k in ("turns_off_step_ms_median", "turns_on_step_ms_median",
+                                   "off_peak_mem_gb", "on_peak_mem_gb", "peak_saved_gb")})
+    bad = {k: v for k, v in diffs.items() if v}
+    if bad:
+        raise AssertionError(f"16a {what}: remat on differs from off: {bad}")
+    return res
+
+
+def run_remat_moe() -> dict:
+    """16b: one stage-2b step of configs/tpu/uniprompt_tuned.yml with
+    bench.py's MoE (4 experts, top-2, 2 MoE layers; distinct random experts
+    and gates) and ``MODEL.MOE.DROPOUT`` 0.1, ``TPU.REMAT`` off then on, from
+    one set of weights and one generator state: the loss (the aux loss in
+    it), the aux loss alone, every gradient (the gates') and the step
+    generator's state after, bit for bit; 12 + 12 against 24 + 12
+    attention launches."""
+    images, pids = train_images(seed=43, hw=HW)
+    batch = pk_batches(images, pids, 1, seed=44)[0]
+    del images
+    out, text, weights = {}, None, None
+    for on in (False, True):
+        cfg = remat_cfg(tuned_cfg(), on)
+        cfg.MODEL.MOE.DROPOUT = REMAT_MOE_DROPOUT
+        if weights is None:
+            model = make_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+            weights = host_copy(model.state_dict())
+            text = precompute_text_features(cfg, model, UNI_CLASSES)
+        else:
+            model = build_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+            model.load_state_dict(weights, strict=True)
+            model = model.to(CARD).eval()
+        if model.image_encoder.remat is not on or not model.image_encoder.use_moe:
+            raise AssertionError(f"16b: the MoE tower with remat {on} was not built")
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, UNI_CLASSES)
+        optimizer = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2b")
+        res = remat_grads(model, cfg, loss_fn, optimizer, batch, depth, on, "MoE stage 2b",
+                          text=text)
+        gen = torch.Generator(device=CARD).manual_seed(REMAT_SEED + 1)
+        x = eval_preprocess(batch["images"], mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD)
+        with torch.enable_grad():
+            logits = model.forward_train(x, batch["pids"].long(), gen=gen)["router_logits"]
+            res["aux"] = torch.stack([load_balancing_loss(rl, cfg.MODEL.MOE.TOP_K)
+                                      for rl in logits]).mean().detach().cpu()
+        out[on] = res
+        del model, optimizer, logits
+        torch.cuda.empty_cache()
+    off, on = out[False], out[True]
+    gates = [k for k in off["grads"] if k.endswith("gate.weight")]
+    diffs = {"loss": first_difference({"l": on["loss"]}, {"l": off["loss"]}),
+             "aux_loss": first_difference({"a": on["aux"]}, {"a": off["aux"]}),
+             "gradients": first_difference(on["grads"], off["grads"]),
+             "generator": "" if torch.equal(on["gen"], off["gen"]) else "differs"}
+    res = dict(config="configs/tpu/uniprompt_tuned.yml + MoE 4/2/2, dropout "
+                      f"{REMAT_MOE_DROPOUT}", classes=UNI_CLASSES, batch=BATCH,
+               loss=float(off["loss"]), aux_loss=float(off["aux"]),
+               gradient_leaves=len(off["grads"]),
+               gate_grad_norms=[off["grads"][k].norm().item() for k in gates],
+               bit_for_bit={k: not v for k, v in diffs.items()},
+               launches={"off": off["launches"], "on": on["launches"]},
+               launches_by_route={"off": off["launches_by_route"], "on": on["launches_by_route"]})
+    log(f"  16b remat MoE stage 2b {json.dumps(res)}")
+    bad = {k: v for k, v in diffs.items() if v}
+    if bad or len(gates) != MOE_BENCH["MOE_LAYERS"]:
+        raise AssertionError(f"16b: remat on differs from off: {bad}, gates {gates}")
+    return res
+
+
+def run_async_checkpoint(tmp: str) -> dict:
+    """16c: ``do_train`` over one short epoch of configs/person/vit_base.yml
+    (512 seeded images, PK 16 × 4) with ``SOLVER.CHECKPOINT_PERIOD`` 1,
+    ``TPU.ASYNC_CHECKPOINT`` off then on: the seconds the loop spends in
+    ``save_checkpoint`` and in the final join, the file's size, the file
+    loaded back equal bit for bit to the state it was saved from (the state
+    ``do_train`` returns: nothing trains after the save); then a write to a
+    path under a file, whose failure must surface at
+    ``wait_for_pending_saves``."""
+    from mpreid_tpu_torch.engine import processor
+    from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from mpreid_tpu_torch.utils.checkpoint import wait_for_pending_saves
+
+    images, pids = train_images(seed=45, hw=HW)
+    real_save, real_wait = processor.save_checkpoint, processor.wait_for_pending_saves
+    res = {}
+    for on in (False, True):
+        cfg = vit_base_cfg(device=CARD)
+        cfg.SOLVER.CHECKPOINT_PERIOD = 1
+        cfg.TPU.ASYNC_CHECKPOINT = on
+        cfg.OUTPUT_DIR = os.path.join(tmp, "async" if on else "blocking")
+        model = make_model(cfg, num_class=NUM_CLASSES, camera_num=6, view_num=1)
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, NUM_CLASSES)
+        optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
+        sampler = RandomIdentitySampler(list(zip(range(len(pids)), pids)), BATCH, K_INST,
+                                        seed=int(cfg.SOLVER.SEED))
+        loader = TrainLoader(MemoryBatcher(images, pids, BATCH), sampler)
+        n_epoch = len(sampler.epoch_indices(1)) // BATCH
+        spent = {"save": 0.0, "join": 0.0}
+
+        def clocked(fn, key):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return run
+
+        processor.save_checkpoint = clocked(real_save, "save")
+        processor.wait_for_pending_saves = clocked(real_wait, "join")
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            state, history = do_train(cfg, model, loader, None, optimizer, lambda e: 1e-4,
+                                      loss_fn, QUERY, max_epochs=1)
+        finally:
+            processor.save_checkpoint, processor.wait_for_pending_saves = real_save, real_wait
+        loop_s = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(f"16c do_train epoch, async {on}", counts,
+                      {"attention_fwd": depth * n_epoch, "attention_bwd": depth * n_epoch})
+        path = os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_1.pth")
+        payload = load_checkpoint(path)
+        want = {"model": host_copy(model.state_dict()), "mu": host_copy(state.opt_state.mu),
+                "nu": host_copy(state.opt_state.nu)}
+        got = {"model": payload["model"], "mu": payload["opt_state"]["mu"],
+               "nu": payload["opt_state"]["nu"]}
+        diffs = {k: first_difference(got[k], want[k]) for k in want}
+        mode = "async" if on else "blocking"
+        res[mode] = dict(batches=n_epoch, loop_seconds=loop_s, in_save_seconds=spent["save"],
+                         final_join_seconds=spent["join"], file_bytes=os.path.getsize(path),
+                         loss=history[0]["loss"], bit_for_bit=not any(diffs.values()),
+                         launches=counts)
+        if any(diffs.values()) or payload["opt_state"]["step"] != state.opt_state.step:
+            raise AssertionError(f"16c {mode}: the file differs from the state saved: {diffs}")
+        if on:  # a write that fails surfaces at the join
+            blocker = os.path.join(tmp, "blocker")
+            with open(blocker, "w") as f:
+                f.write("x")
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(blocker, "ckpt.pth"), state, 1, cfg)
+            res[mode]["failing_save_returned_seconds"] = time.perf_counter() - t0
+            try:
+                wait_for_pending_saves()
+            except RuntimeError as e:
+                if "async checkpoint write" not in str(e):
+                    raise
+                res[mode]["failed_write_raised"] = str(e).replace(tmp, "<tmp>")
+            else:
+                raise AssertionError("16c: a failed async write did not raise at the join")
+        os.remove(path)
+        del model, optimizer, state, payload, want, got
+        torch.cuda.empty_cache()
+    log(f"  16c async checkpoint {json.dumps(res)}")
+    rate_line("16c TPU.ASYNC_CHECKPOINT off/on: seconds inside save_checkpoint in the epoch loop",
+              {f"{m}_{k}": res[m][k] for m in ("blocking", "async")
+               for k in ("in_save_seconds", "final_join_seconds", "file_bytes")})
+    return res
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -3699,6 +4045,20 @@ def main() -> None:
     mp_res = run_model_axis(dp_plan())
     log(f"  model-axis phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("TPU.REMAT and TPU.ASYNC_CHECKPOINT (16a vit_base.yml and veri/vit_base.yml, 16b MoE "
+        "stage 2b, 16c do_train with checkpoints), full width:")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    remat_res = {"16a": run_remat_vision(VIT_BASE, NUM_CLASSES, 6, HW, REMAT_STEPS,
+                                         "configs/person/vit_base.yml", args.profile),
+                 "16a_vehicle": run_remat_vision(VERI, VEHICLE_CLASSES, VEHICLE_CAMERAS,
+                                                 VEHICLE_HW, VEHICLE_STEPS,
+                                                 "configs/veri/vit_base.yml", args.profile),
+                 "16b": run_remat_moe()}
+    with tempfile.TemporaryDirectory() as tmp:
+        async_res = run_async_checkpoint(tmp)
+    log(f"  remat and async-checkpoint phase seconds {time.perf_counter() - t0:.1f}")
+
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
@@ -3731,6 +4091,12 @@ def main() -> None:
                 "nccl_world_one_step": dp_res["14a"]["launches"][name],
                 "per_rank_dp_step": dp_res["14b"]["bf16"]["launches"][name] // (1 + DP_TIMED_STEPS),
                 "per_rank_zero_3_steps": dp_res["14c"]["launches"][0][name]},
+            "launches_remat": {
+                "vision_step_off": remat_res["16a"]["launches_one_step"]["off"][name],
+                "vision_step_on": remat_res["16a"]["launches_one_step"]["on"][name],
+                "vehicle_step_on": remat_res["16a_vehicle"]["launches_one_step"]["on"][name],
+                "moe_2b_step_on": remat_res["16b"]["launches"]["on"][name],
+                "do_train_epoch_async_checkpoint": async_res["async"]["launches"][name]},
             "launches_model_axis": {
                 "per_rank_tp_step_bf16": mp_res["15a"]["launches"][0][name] // (1 + TP_TIMED_STEPS),
                 "per_rank_tp_step_routes": mp_res["15a"]["launches"],

@@ -41,6 +41,11 @@ gallery and ``parallel.sharded_cmc_map`` computes the metrics. On one rank
 ``TPU.EVAL_SHARDED``, ``TPU.ZERO_OPT_STATE`` and ``TPU.TP_TOWERS`` do
 nothing, as in the JAX package (``check_tpu_keys`` logs so), and so does
 ``TPU.TP_TOWERS`` with a model axis of 1.
+
+``TPU.ASYNC_CHECKPOINT`` writes each checkpoint on a background thread
+(``utils/checkpoint.py``); ``do_train`` joins the last write before it
+returns. ``TPU.COMPILE_CACHE_DIR`` and ``DATALOADER.NATIVE_DECODE`` mean
+nothing here: the entry points log them (``log_inert_keys``).
 """
 
 from __future__ import annotations
@@ -60,7 +65,9 @@ from mpreid_tpu_torch.parallel import (
     ZeroOptimizer, full_state_dict, gather_whole, is_main, make_mesh, mesh_from_cfg, rank,
     replicated, shard_module, sharded_cmc_map, sharded_params, world_size, zero_sharded,
 )
-from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state, save_checkpoint
+from mpreid_tpu_torch.utils.checkpoint import (
+    load_checkpoint, restore_state, save_checkpoint, wait_for_pending_saves,
+)
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
 from .evaluator import R1mAPEvaluator
@@ -73,6 +80,16 @@ from .train_state import initial_state
 TRAIN_TPU_KEYS = ("TP_TOWERS", "ZERO_OPT_STATE")
 TRACE_FILE = "trace.json"  # the profiler trace's name in TPU.PROFILE_DIR
 
+# Keys the JAX package acts on that mean nothing in the port: (node, key,
+# default, why). Each logs once, at the entry points, when set to another
+# value than its default (``log_inert_keys``).
+INERT_KEYS = (
+    ("TPU", "COMPILE_CACHE_DIR", "",
+     "it is XLA's compile cache; the port's kernels build into mpreid_tpu_torch/kernels/_build/"),
+    ("DATALOADER", "NATIVE_DECODE", "auto",
+     "the JAX package's native image decoder is not carried over; PIL decodes"),
+)
+
 
 def check_tpu_keys(cfg, keys, logger) -> None:
     """Log each set key of ``keys`` (mesh keys) as doing nothing on one device."""
@@ -80,6 +97,13 @@ def check_tpu_keys(cfg, keys, logger) -> None:
         if cfg.TPU[key]:
             logger.info(f"TPU.{key} does nothing on one device (the JAX package acts on it "
                         "only over a mesh of more than one)")
+
+
+def log_inert_keys(cfg, logger) -> None:
+    """Log each key of ``INERT_KEYS`` that ``cfg`` sets as doing nothing."""
+    for node, key, default, why in INERT_KEYS:
+        if cfg[node][key] != default:
+            logger.info(f"{node}.{key} does nothing in the port: {why}")
 
 
 def rank_logger(logger: logging.Logger) -> logging.Logger:
@@ -386,7 +410,7 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
         if path and epoch % checkpoint_period == 0:
             saved = checkpoint_state(state, optimizer)
             if is_main():
-                save_checkpoint(path, saved, epoch)
+                save_checkpoint(path, saved, epoch, cfg)
         if epoch % eval_period == 0 and val_loader is not None:
             run_validation(cfg, model, val_loader, num_query, logger, epoch, mesh=mesh)
     return state, history
@@ -426,4 +450,5 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
         lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
         logger, train_epoch, cfg.TPU.PROFILE_DIR, optimizer, mesh)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
+    wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

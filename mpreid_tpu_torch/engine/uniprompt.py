@@ -41,7 +41,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mpreid_tpu_torch.utils.checkpoint import save_checkpoint
+from mpreid_tpu_torch.utils.checkpoint import save_checkpoint, wait_for_pending_saves
 from mpreid_tpu_torch.utils.meter import AverageMeter
 
 from mpreid_tpu_torch.parallel import is_main
@@ -130,9 +130,10 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
         history.append({"epoch": epoch, "loss": loss_meter.avg})
         if cfg.OUTPUT_DIR and epoch % stage_cfg.CHECKPOINT_PERIOD == 0 and is_main():
             name = f"{cfg.MODEL.NAME}_stage{stage}_{epoch}.pth"
-            save_checkpoint(os.path.join(cfg.OUTPUT_DIR, name), state, epoch)
+            save_checkpoint(os.path.join(cfg.OUTPUT_DIR, name), state, epoch, cfg)
 
     log.info(f"Stage {stage} running time: {timedelta(seconds=time.monotonic() - all_start)}")
+    wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history
 
 
@@ -181,4 +182,5 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
         lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger,
         train_epoch, optimizer=optimizer, mesh=mesh)
     log.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
+    wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

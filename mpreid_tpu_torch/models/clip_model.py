@@ -104,8 +104,11 @@ RN50 = CLIPConfig(
 )
 
 
-def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32
-                      ) -> Union[VisionTransformer, ModifiedResNet]:
+def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                      remat: bool = False) -> Union[VisionTransformer, ModifiedResNet]:
+    """The visual tower of ``cfg``. ``remat`` (``TPU.REMAT``) rematerialises
+    the ViT's blocks; the RN50 tower is built without it, as in the JAX
+    package (ref clip_model.py:109-132)."""
     if not cfg.is_vit:
         return ModifiedResNet(
             layers=tuple(cfg.vision_layers),
@@ -132,6 +135,7 @@ def make_visual_tower(cfg: CLIPConfig, dtype: torch.dtype = torch.float32
         moe_layers=cfg.moe_layers,
         dropout=cfg.dropout,
         shared_routing=cfg.shared_routing,
+        remat=remat,
     )
 
 

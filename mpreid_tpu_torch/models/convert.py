@@ -210,9 +210,11 @@ def load_param(path: str, model: torch.nn.Module) -> torch.nn.Module:
     holds no ``text_encoder.token_embedding.weight`` (that stays as
     initialised, as the JAX package's overlay leaves it) and may hold the
     prompt learner's ``token_prefix``/``token_suffix`` buffers, which the port
-    derives from the token embedding and ignores."""
-    from mpreid_tpu_torch.utils.checkpoint import is_checkpoint
+    derives from the token embedding and ignores. A checkpoint write in
+    flight (``TPU.ASYNC_CHECKPOINT``) is joined first."""
+    from mpreid_tpu_torch.utils.checkpoint import is_checkpoint, wait_for_pending_saves
 
+    wait_for_pending_saves()
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if is_checkpoint(sd):
         sd = sd["model"]

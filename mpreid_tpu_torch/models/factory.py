@@ -81,6 +81,7 @@ def _common_kwargs(cfg, num_class: int, camera_num: int, view_num: int) -> dict:
         neck_feat=cfg.TEST.NECK_FEAT,
         cos_layer=cfg.MODEL.COS_LAYER_TYPE if cfg.MODEL.COS_LAYER else "",
         dtype=compute_dtype(cfg),
+        remat=bool(cfg.TPU.REMAT),
     )
 
 
@@ -123,7 +124,8 @@ def switch_to_moe(cfg, model: ReIDModel) -> ReIDModel:
     ``switch_to_moe``): the model rebuilt with ``MODEL.MOE``'s experts, each
     expert of block i a copy of the dense block i's MLP, the gates zero (so
     every token ties and routes uniformly at step 0), everything else copied,
-    LoRA adapters and BatchNorm statistics included. On the model's device,
+    LoRA adapters and BatchNorm statistics included, and the model's margin
+    head (``cos_layer``) and ``remat`` kept. On the model's device,
     in eval mode. A no-op (the same model back) when ``MODEL.MOE.ENABLED`` is
     off or the model is MoE already."""
     moe = cfg.MODEL.MOE
@@ -144,7 +146,7 @@ def switch_to_moe(cfg, model: ReIDModel) -> ReIDModel:
     device = next(model.parameters()).device
     new = type(model)(clip, model.classifier.weight.shape[0], model.camera_num, model.view_num,
                       model.sie_camera, model.sie_view, model.sie_coe, model.neck_feat,
-                      dtype=model.dtype).to(device)
+                      model.cos_layer, model.dtype, model.remat).to(device)
     old = model.state_dict()
     sd = {}
     for key, t in new.state_dict().items():

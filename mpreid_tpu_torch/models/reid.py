@@ -40,9 +40,11 @@ class ReIDModel(nn.Module):
     def __init__(self, clip_config: CLIPConfig, num_classes: int, camera_num: int = 0,
                  view_num: int = 0, sie_camera: bool = False, sie_view: bool = False,
                  sie_coe: float = 3.0, neck_feat: str = "after", cos_layer: str = "",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.clip_config = clip_config
+        self.cos_layer = cos_layer
+        self.remat = remat
         self.camera_num = camera_num
         self.view_num = view_num
         self.sie_camera = sie_camera
@@ -52,7 +54,7 @@ class ReIDModel(nn.Module):
         self.dtype = dtype
         self.in_planes = clip_config.vision_width * (1 if clip_config.is_vit else 32)
         self.in_planes_proj = clip_config.embed_dim
-        self.image_encoder = make_visual_tower(clip_config, dtype)
+        self.image_encoder = make_visual_tower(clip_config, dtype, remat)
         self.bottleneck = BNNeck(self.in_planes)
         self.bottleneck_proj = BNNeck(self.in_planes_proj)
         self.classifier = make_classifier(num_classes, self.in_planes, cos_layer)

@@ -146,9 +146,9 @@ class UniPromptReID(ReIDModel):
     def __init__(self, clip_config: CLIPConfig, num_classes: int, camera_num: int = 0,
                  view_num: int = 0, sie_camera: bool = False, sie_view: bool = False,
                  sie_coe: float = 3.0, neck_feat: str = "after", cos_layer: str = "",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__(clip_config, num_classes, camera_num, view_num, sie_camera, sie_view,
-                         sie_coe, neck_feat, cos_layer, dtype)
+                         sie_coe, neck_feat, cos_layer, dtype, remat)
         self.ctx_dim = clip_config.transformer_width
         self.text_encoder = make_text_tower(clip_config, dtype)
         self.prompt_learner = PromptLearner(num_classes, self.ctx_dim, self.in_planes_proj, dtype)

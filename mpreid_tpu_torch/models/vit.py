@@ -16,6 +16,20 @@ the last block's output (ref model.py:450-454), not the penultimate one's.
 ``train`` and ``gen`` reach the experts' dropout only.
 ``resize_pos_embed`` carries a CLIP file's square grid of positions to the
 model's (h, w) grid.
+
+``remat`` (``TPU.REMAT``, ref ``vit.py:150-152``, ``nn.remat`` on every
+block) runs each block, dense and MoE alike, under
+``torch.utils.checkpoint`` while gradients are on: the backward recomputes
+the block's forward from its input instead of keeping its activations.
+Results are unchanged, bit for bit; under ``no_grad`` (eval, the stage-1
+bank) the blocks run plainly. The recompute draws the MoE experts' dropout
+again from a copy of the step generator taken before the block, so it
+draws the forward's mask and leaves the step's generator where the plain
+forward leaves it, and it re-enters the forward's
+``parallel.mesh.global_batch`` (the backward runs outside it), so a
+data-parallel recompute draws the global batch's mask too. Collectives
+inside a block (tensor-parallel towers, expert parallelism) run again in
+the recompute, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +40,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from mpreid_tpu_torch.parallel.mesh import batch_mesh, global_batch
 
 from .layers import LayerNorm, ResidualAttentionBlock, init_normal_, linear_f32acc
 from .moe import MoEResidualAttentionBlock
@@ -83,10 +100,12 @@ class VisionTransformer(nn.Module):
                  stride_size: int, width: int, layers: int, heads: int,
                  output_dim: int, dtype: torch.dtype = torch.float32, lora_rank: int = 0,
                  lora_alpha: float = 16.0, num_experts: int = 0, top_k: int = 0,
-                 moe_layers: int = 0, dropout: float = 0.0, shared_routing: bool = True):
+                 moe_layers: int = 0, dropout: float = 0.0, shared_routing: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.width = width
         self.dtype = dtype
+        self.remat = remat
         self.use_moe = num_experts > 0 and top_k > 0
         self.n_moe = (layers if moe_layers == -1 else min(moe_layers, layers)) \
             if self.use_moe else 0
@@ -125,27 +144,57 @@ class VisionTransformer(nn.Module):
         x = x + self.positional_embedding.to(self.dtype)
         x = self.ln_pre(x)
         blocks = self.transformer.resblocks
+        run = rematerialised if self.remat and torch.is_grad_enabled() else _plain
         router_logits = None
         if self.use_moe:
             routing, gating = None, []
             for i, block in enumerate(blocks[:self.n_moe]):
-                x, logits, combine = block(x, routing=routing, train=train, gen=gen)
+                x, logits, combine = run(block, x, routing=routing, train=train, gen=gen)
                 if logits is not None:
                     gating.append(logits)
                 if i == 0 and self.shared_routing:
                     routing = combine
             router_logits = torch.stack(gating) if gating else None
             for block in blocks[self.n_moe:]:
-                x = block(x)
+                x = run(block, x)
             x11 = x12 = x
         else:
             for block in blocks[:-1]:
-                x = block(x)
+                x = run(block, x)
             x11 = x
-            x12 = blocks[-1](x11)
+            x12 = run(blocks[-1], x11)
         x12 = self.ln_post(x12)
         xproj = linear_f32acc(x12, self.proj.t(), None, self.dtype)
         return x11, x12, xproj, router_logits
+
+
+def _plain(block: nn.Module, x: torch.Tensor, **kw):
+    return block(x, **kw)
+
+
+def rematerialised(block: nn.Module, x: torch.Tensor, **kw):
+    """``block(x, **kw)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward. A ``gen`` in ``kw`` (the
+    MoE experts' dropout) is snapshot first; the recompute draws from a
+    generator restored to the snapshot, so the step's own generator advances
+    once, as without remat. The recompute runs under the forward's
+    ``global_batch`` mesh. No global RNG is touched, so none is stashed."""
+    mesh = batch_mesh()
+    gen = kw.get("gen")
+    snapshot = None if gen is None else gen.get_state()
+    forwarded = False
+
+    def run(x):
+        nonlocal forwarded
+        args = kw
+        if forwarded and gen is not None:  # the recompute: the forward's draws again
+            args = dict(kw, gen=torch.Generator(device=gen.device))
+            args["gen"].set_state(snapshot)
+        forwarded = True
+        with global_batch(mesh):
+            return block(x, **args)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def resize_pos_embed(posemb: torch.Tensor, gs_new_h: int, gs_new_w: int) -> torch.Tensor:

@@ -35,6 +35,7 @@ import torch
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import make_dataloader
 from mpreid_tpu_torch.engine import do_train
+from mpreid_tpu_torch.engine.processor import log_inert_keys
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.models import load_pretrained, make_model, pretrain_path
 from mpreid_tpu_torch.parallel import init_distributed, is_main, rank_device
@@ -52,7 +53,8 @@ def start(cfg, log_dir: str, if_train: bool):
     """The entry points' common start: this rank's device, the process
     group when torchrun launched the run (``parallel.init_distributed``), and
     the logger (rank 0 logs to stdout and ``log_dir``, the other ranks
-    warnings only) → (device, logger)."""
+    warnings only), which then names the keys of ``cfg`` that do nothing in
+    the port (``log_inert_keys``) → (device, logger)."""
     device = rank_device(device_from_cfg(cfg))
     init_distributed(device=device)
     if log_dir:
@@ -60,6 +62,7 @@ def start(cfg, log_dir: str, if_train: bool):
     logger = setup_logger("mpreid_tpu_torch", log_dir if is_main() else "", if_train=if_train)
     if not is_main():
         logger.setLevel(logging.WARNING)
+    log_inert_keys(cfg, logger)
     return device, logger
 
 

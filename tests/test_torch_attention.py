@@ -18,6 +18,8 @@ from mpreid_tpu.models.text import causal_mask
 from mpreid_tpu.ops import attention as jattn
 from mpreid_tpu_torch.ops import attention as tattn
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 HEADS, DH, B = 2, 32, 2
 D = HEADS * DH
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=0)}

@@ -28,6 +28,8 @@ from mpreid_tpu.ops import attention as jattn
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.ops import attention as tattn
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = Path(__file__).resolve().parent.parent
 HEADS, DH, B, L = 2, 32, 2, 257
 D = HEADS * DH

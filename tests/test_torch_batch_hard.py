@@ -25,6 +25,8 @@ from mpreid_tpu.ops import pallas_kernels as pk
 from mpreid_tpu_torch.losses import triplet as ttriplet
 from mpreid_tpu_torch.ops import batch_hard as bh
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 
 def _np(x):
     if isinstance(x, torch.Tensor):

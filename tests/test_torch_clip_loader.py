@@ -35,6 +35,8 @@ from mpreid_tpu_torch.models.vit import resize_pos_embed
 
 from tiny import tiny_cfg
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC = 6
 HW = (64, 32)  # (h, w) token grid (4, 2): the file's square grid is resized

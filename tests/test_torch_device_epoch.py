@@ -52,6 +52,8 @@ from mpreid_tpu_torch.solver import make_optimizer
 from test_torch_moe import _seeded
 from tiny import tiny_cfg, tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 NC = 8
 
 

@@ -25,6 +25,8 @@ from mpreid_tpu_torch.parallel import make_mesh
 from mpreid_tpu_torch.parallel.dryrun import dryrun_multichip
 from mpreid_tpu_torch.parallel.launch import spawn
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 TOL = 1e-5
 # name: (queries, gallery, dims, ids, keyword arguments)
 SPARSE = {

@@ -32,6 +32,8 @@ from mpreid_tpu_torch.ops import cmc_map, cosine_distmat, euclidean_squared_dist
 
 from tiny import tiny_cfg
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 
 def _feats(nq=12, ng=30, dim=16, seed=0):
     rng = np.random.default_rng(seed)

@@ -56,6 +56,8 @@ from mpreid_tpu_torch.solver import make_optimizer
 from test_torch_moe import _seeded
 from tiny import tiny_cfg, tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("arcface", "cosface", "amsoftmax", "circle")
 NC = 8

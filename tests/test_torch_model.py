@@ -22,6 +22,8 @@ from mpreid_tpu_torch.models import CLIPConfig, ReIDModel, from_jax_variables
 
 from tiny import tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 CAMS, VIEWS, CLASSES = 14, 1, 8
 H, W = 64, 32  # 4 × 2 patches + the class token
 

@@ -51,6 +51,8 @@ from mpreid_tpu_torch.solver import make_optimizer, stage_trainable
 
 from tiny import tiny_cfg, tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 NC = 8
 E, TOP_K = 4, 2
 MOE = {"MODEL.MOE.ENABLED": True, "MODEL.MOE.NUM_EXPERTS": E, "MODEL.MOE.TOP_K": TOP_K,

@@ -30,6 +30,8 @@ from mpreid_tpu_torch.parallel import dist as tdist
 from mpreid_tpu_torch.parallel import make_mesh, param_spec
 from mpreid_tpu_torch.parallel.launch import spawn
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 WORLD = 2
 MAX_RANK = 20
 

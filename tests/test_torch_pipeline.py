@@ -27,6 +27,8 @@ from mpreid_tpu_torch.parallel.pipeline import (
     unstack_block_params,
 )
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 WIDTH, HEADS, LAYERS, BATCH, LENGTH = 64, 2, 4, 8, 6
 TOL = 2e-6
 CASES = [(s, m, masked, False) for s in (1, 2) for m in (1, 4) for masked in (False, True)] \

@@ -40,6 +40,8 @@ from mpreid_tpu_torch.ops import (
 )
 from mpreid_tpu_torch.ops import reranking as treranking
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 EXACT_TOL, QUANT_TOL = 1e-5, 1e-4
 
 

@@ -45,6 +45,8 @@ from mpreid_tpu_torch.solver import optim as toptim
 
 from tiny import tiny_cfg
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC = 8
 HW = (64, 32)

@@ -41,6 +41,8 @@ from mpreid_tpu_torch.solver import make_optimizer
 from mpreid_tpu_torch.parallel.launch import spawn
 from tiny import tiny_cfg
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOOPS = ("EVAL_SHARDED", "ZERO_OPT_STATE", "TP_TOWERS")
 

@@ -61,6 +61,8 @@ from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state
 
 from tiny import tiny_cfg, tiny_model
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC = 8
 

@@ -43,6 +43,8 @@ from mpreid_tpu_torch.models import CLIPConfig, UniPromptReID, from_jax_variable
 from test_torch_moe import _seeded
 from tiny import tiny_cfg, tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 NC = 6
 
 

@@ -55,6 +55,8 @@ from mpreid_tpu_torch.solver import make_optimizer, make_scheduler, stage_traina
 
 from tiny import tiny_cfg, tiny_clip_config
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC = 8
 SEED = 0

@@ -42,6 +42,8 @@ from mpreid_tpu_torch.solver import make_optimizer
 from mpreid_tpu_torch.solver import optim as toptim
 from mpreid_tpu_torch.utils.checkpoint import load_checkpoint, restore_state, save_checkpoint
 
+from cpu_threads import one_thread  # noqa: F401  (autouse fixture)
+
 WORLD, BATCH, NC, LR = 2, 16, 8, 1e-3
 CLIP = dataclasses.replace(VIT_B16, embed_dim=32, vision_layers=2, vision_width=64,
                            h_resolution=2, w_resolution=1, transformer_width=64,
