@@ -11,10 +11,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    the plain version, one library call computing the same function, and the
    bound (the least time the card could take for the same work): the
    attention forward and backward (bf16 on the tensor-core kernels at the
-   vision, text and 256×256 vehicle shapes, fp32 on the CUDA-core kernels
-   at the vision shape and, for the backward that once refused them, at L
-   163 (configs/cross/sysu_rgb2ir.yml) and L 257, both layouts; the ptxas
-   report of the tensor-core sources, which must show no spills at dh 64)
+   vision, text and 256×256 vehicle shapes, fp32 on the kernels that take
+   each product on the tensor cores in three TF32 passes at the vision and
+   causal text shapes, at L 163 (configs/cross/sysu_rgb2ir.yml), L 257 and
+   L 442 (256×256 at stride 12), both layouts, each fp32 launch repeated
+   and held bit-equal to the first, with a second bound at the TF32 rate
+   (``bound_tc_ms``); the ptxas report of the attention sources, which must
+   show no spills: the fp32 sources at any head width, the bf16 ones at dh
+   64)
    and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW);
 4. the baseline eval path (ViT-B/16, 256×128, bf16, batch 64) at full width
    on seeded random weights through ``engine.processor.do_inference``,
@@ -27,7 +31,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    ``TrainLoader``; then steps with ``SOLVER.FUSED_ADAM`` on, counting the
    Adam kernel's launches, and one fused update against the plain one; then
    three train steps of configs/veri/vit_base.yml (ViT-B/16 at 256×256, L
-   257, 576 classes), whose attention backward the CUDA-core kernel refused;
+   257, 576 classes), whose attention backward an earlier fp32 kernel refused;
 6. cross-checks: eval features and a train step's loss and gradients in
    fp32 on the card against fp32 on the CPU, and bf16 against fp32 on the
    card;
@@ -228,6 +232,9 @@ from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 and bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# TF32 tensor cores, dense; the fp32 attention kernels take three TF32
+# products for each multiply-add (bound_tc_ms)
+PEAK_TF32_FLOPS = 495e12
 # fp32 instructions other than the FMA (a min, a subtract, an add) issue at
 # one per lane a clock: 132 SMs x 128 lanes x 1.98 GHz (the FMA rate above
 # counts each FMA as two operations)
@@ -259,6 +266,9 @@ TEXT = dict(name="text", b=BATCH, l=77, heads=8, dh=64, masked=True)
 VEHICLE = dict(name="vehicle", b=BATCH, l=257, heads=12, dh=64, masked=False)
 # configs/cross/sysu_rgb2ir.yml: 288x144 at stride 16, so L 163 (fp32 backward)
 SYSU = dict(name="sysu", b=BATCH, l=163, heads=12, dh=64, masked=False)
+# 256x256 at MODEL.STRIDE_SIZE [12, 12]: 21 x 21 patches + 1, L 442 (fp32 only:
+# the bf16 kernels stop at L 384)
+STRIDE12 = dict(name="stride12", b=BATCH, l=442, heads=12, dh=64, masked=False)
 VEHICLE_HW, VEHICLE_CLASSES, VEHICLE_CAMERAS = (256, 256), 576, 20  # VeRi-776
 VEHICLE_STEPS = 3
 # re-ranking: Market-1501 (dense route) and MSMT17 (sparse-V route) query and
@@ -359,15 +369,31 @@ def cuda_ms(fn, runs: int = 30, warmup: int = 3, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(b, l, heads, dh, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, flops_per_s: float) -> tuple:
+    """(ms, bound_by): the larger of the bytes over the memory rate and the
+    operations over ``flops_per_s``."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound_ms(b, l, heads, dh, dtype, tf32x3: bool = False) -> tuple:
     """(ms, bound_by): qkv read once and out written once over the memory
-    rate, against QKᵀ and P·V's multiply-adds over the type's peak rate."""
+    rate, against QKᵀ and P·V's multiply-adds over the type's peak rate, or
+    with ``tf32x3`` three TF32 products each at the TF32 peak."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = b * l * 3 * heads * dh * size + b * l * heads * dh * size
     flops = 4 * b * heads * l * l * dh
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if tf32x3:
+        return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+    return bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+
+
+def repeat_equal(fn, first: torch.Tensor) -> bool:
+    """A second launch of ``fn`` gives the same bits as ``first``."""
+    again = fn()
+    torch.cuda.synchronize()
+    return torch.equal(first, again)
 
 
 CARD_LINE = ""  # the card's name and power limit, as nvidia-smi gives them
@@ -407,6 +433,10 @@ def check_attention(case: dict, dtype: torch.dtype, layout: str, timed: bool) ->
     row = dict(case=case["name"], dtype=str(dtype).split(".")[-1], layout=layout,
                shape=[b, l, heads, dh], masked=case["masked"], max_abs_err=err,
                tol=TOL[dtype], ok=ok)
+    if dtype == torch.float32:
+        row["bit_equal_repeat"] = repeat_equal(
+            lambda: attn.fused_attention(qkv, heads, mask, layout=layout), out)
+        row["ok"] = ok = ok and row["bit_equal_repeat"]
     if timed:
         d = heads * dh
         if layout == "packed":
@@ -419,22 +449,26 @@ def check_attention(case: dict, dtype: torch.dtype, layout: str, timed: bool) ->
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         row["bound_ms"], row["bound_by"] = attention_bound_ms(b, l, heads, dh, dtype)
+        if dtype == torch.float32:
+            row["bound_tc_ms"], row["bound_tc_by"] = attention_bound_ms(b, l, heads, dh, dtype,
+                                                                        tf32x3=True)
     log(f"  attention {json.dumps(row)}")
     if not ok:
         raise AssertionError(f"attention kernel disagrees with its plain version: {row}")
     return row
 
 
-def attention_bwd_bound_ms(b, l, heads, dh, dtype) -> tuple:
+def attention_bwd_bound_ms(b, l, heads, dh, dtype, tf32x3: bool = False) -> tuple:
     """(ms, bound_by): qkv and dO read once and dqkv written once over the
-    memory rate, against the five L×L×dh products over the type's peak."""
+    memory rate, against the five L×L×dh products over the type's peak, or
+    with ``tf32x3`` three TF32 products each at the TF32 peak."""
     size = torch.tensor([], dtype=dtype).element_size()
     d = heads * dh
     nbytes = b * l * (3 * d + d + 3 * d) * size
     flops = 5 * 2 * b * heads * l * l * dh
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if tf32x3:
+        return bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+    return bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
 def check_attention_bwd(case: dict, dtype: torch.dtype, layout: str, timed: bool) -> dict:
@@ -454,6 +488,10 @@ def check_attention_bwd(case: dict, dtype: torch.dtype, layout: str, timed: bool
     row = dict(case=case["name"], dtype=str(dtype).split(".")[-1], layout=layout,
                shape=[b, l, heads, dh], masked=case["masked"], max_abs_err=err,
                tol=BWD_TOL[dtype] * scale, ok=ok)
+    if dtype == torch.float32:
+        row["bit_equal_repeat"] = repeat_equal(
+            lambda: attn.fused_attention_bwd(qkv, do, heads, mask, layout=layout), got)
+        row["ok"] = ok = ok and row["bit_equal_repeat"]
     if timed:
         d = heads * dh
         leaf = qkv.detach().clone().requires_grad_(True)
@@ -470,28 +508,43 @@ def check_attention_bwd(case: dict, dtype: torch.dtype, layout: str, timed: bool
         row["library_ms"] = cuda_ms(
             lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True))
         row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(b, l, heads, dh, dtype)
+        if dtype == torch.float32:
+            row["bound_tc_ms"], row["bound_tc_by"] = attention_bwd_bound_ms(
+                b, l, heads, dh, dtype, tf32x3=True)
     log(f"  attention_bwd {json.dumps(row)}")
     if not ok:
         raise AssertionError(f"attention backward kernel disagrees with its plain version: {row}")
     return row
 
 
-def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc")) -> dict:
+# sources that must show no spill at any head width; the bf16 ones are held
+# to that at dh 64 only (the bf16 backward spills 52 bytes at dh 128)
+SPILL_FREE = ("attention_fwd", "attention_bwd")
+
+
+def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) -> dict:
     """Registers, spills and static shared memory that ptxas reported for each
-    kernel of ``names`` built in this process, by head width; raises where a
-    kernel at dh 64 spills."""
+    kernel of ``names`` built in this process, by head width (``dh64``), or
+    by kernel and head width (``mha_bwd_rows_dh64``) where a source holds
+    several kernels; raises where a kernel of ``SPILL_FREE`` spills, or
+    another at dh 64."""
     out = {}
     for name in names:
         text = build.LOGS.get(name)
         if text is None:
             out[name] = "built before this process: not reported"
             continue
-        kernels, current = {}, None
+        found, current = [], None
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                dh = re.search(r"ILi(\d+)E", m.group(1)).group(1)
-                current = kernels.setdefault(f"dh{dh}", {})
+                mangled, pos, kernel = m.group(1), 3, ""
+                while (n := re.match(r"\d+", mangled[pos:])):  # _ZN <len><name>... I
+                    pos += n.end() + int(n.group())
+                    kernel = mangled[pos - int(n.group()):pos]
+                dh = re.search(r"ILi(\d+)E", mangled).group(1)
+                current = {}
+                found.append((kernel, dh, current))
                 continue
             if current is None:
                 continue
@@ -504,12 +557,20 @@ def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc")) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             if m:
                 current["static_smem_bytes"] = int(m.group(1))
-        out[name] = kernels
+        several = len({kernel for kernel, _, _ in found}) > 1
+        out[name] = {f"{kernel}_dh{dh}" if several else f"dh{dh}": props
+                     for kernel, dh, props in found}
     log(f"  ptxas {json.dumps(out)}")
     for name, kernels in out.items():
-        dh64 = kernels.get("dh64", {}) if isinstance(kernels, dict) else {}
-        if dh64.get("spill_stores") or dh64.get("spill_loads"):
-            raise AssertionError(f"{name} spills registers at dh 64: {dh64}")
+        if not isinstance(kernels, dict):
+            continue
+        for key, props in kernels.items():
+            if not (props.get("spill_stores") or props.get("spill_loads")):
+                continue
+            if name in SPILL_FREE:
+                raise AssertionError(f"{name} spills registers in {key}: {props}")
+            if key.endswith("dh64"):
+                raise AssertionError(f"{name} spills registers at dh 64: {props}")
     return out
 
 
@@ -3921,13 +3982,16 @@ def main() -> None:
     log("kernels against their plain versions on the card:")
     rows, bwd_rows = [], []
     cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
-             (VEHICLE, torch.bfloat16), (SYSU, torch.float32), (VEHICLE, torch.float32),
-             (TTPT_TEXT, torch.bfloat16), (VISION_TP, torch.bfloat16), (TEXT_TP, torch.bfloat16)]
+             (TEXT, torch.float32), (VEHICLE, torch.bfloat16), (SYSU, torch.float32),
+             (VEHICLE, torch.float32), (STRIDE12, torch.float32), (TTPT_TEXT, torch.bfloat16),
+             (VISION_TP, torch.bfloat16), (TEXT_TP, torch.bfloat16)]
+    t0 = time.perf_counter()
     for case, dtype in cases:
         for layout in attn.LAYOUTS:
             timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
             rows.append(check_attention(case, dtype, layout, timed=timed_here))
             bwd_rows.append(check_attention_bwd(case, dtype, layout, timed=timed_here))
+    log(f"  attention kernels {time.perf_counter() - t0:.1f} s")
     adam_rows = [check_adam(md, decoupled, timed=md == torch.float32 and not decoupled)
                  for md in (torch.float32, torch.bfloat16) for decoupled in (False, True)]
     t0 = time.perf_counter()
@@ -3950,8 +4014,15 @@ def main() -> None:
     vehicle_res = run_vehicle_train()
 
     log("cross-checks:")
+    t0 = time.perf_counter()
+    reset_counts()
     cross_checks(model)
     train_cross_checks(train_res.pop("model"))
+    fp32_routes = read_routes()
+    if not all(fp32_routes[name]["tf32x3"] > 0 for name in ROUTED):
+        raise AssertionError(f"the fp32 checks launched no fp32 attention kernel: {fp32_routes}")
+    log(f"  cross-check phase seconds {time.perf_counter() - t0:.1f}, launches by route "
+        f"{json.dumps(fp32_routes)}")
     torch.cuda.empty_cache()
 
     log("margin heads (MODEL.COS_LAYER), configs/person/vit_base.yml at full width:")
@@ -4114,18 +4185,41 @@ def main() -> None:
             "text_tp": {"shape": "B64 L77 4x64 bf16 packed, causal (a rank's heads at model 2)",
                         **timing(pick(found, "text_tp"))},
             "ptxas": ptxas[f"{name}_tc"],
-            "simt_fp32": {"source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
-                          "max_abs_err": max(r["max_abs_err"] for r in found
-                                             if r["dtype"] == "float32"),
-                          **timing(pick(found, "vision", "float32")),
-                          "sysu": timing(pick(found, "sysu", "float32")),
-                          "vehicle": timing(pick(found, "vehicle", "float32"))},
+        }
+
+    def fp32_entry(direction, found):
+        """The fp32 kernel of ``direction`` (route "tf32x3"): launched by the
+        fp32 card-vs-CPU checks of phase 6, not by the bf16 main path."""
+        name = f"attention_{direction}"
+        fp32 = [r for r in found if r["dtype"] == "float32"]
+        return {
+            "name": f"fused_attention_{direction}_fp32",
+            "route": "cuda",
+            "source": f"mpreid_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": "mpreid_tpu/ops/attention.py:" + ("229" if direction == "fwd" else "250"),
+            "also_replaces": "mpreid_tpu/ops/attention.py:" + ("488" if direction == "fwd"
+                                                               else "514"),
+            "launches": fp32_routes[name]["tf32x3"],
+            "launches_from": "the fp32 eval and train-step checks on the card (phase 6)",
+            "launches_model_axis": {
+                "per_stage_gpipe_fp32": [r["launches"][name] for r in mp_res["15d"]["ranks"]],
+                "per_rank_dryrun_fp32": {r: v[name] for r, v in mp_res["15c"]["launches"].items()}},
+            "max_abs_err": max(r["max_abs_err"] for r in fp32),
+            "bit_equal_repeats": all(r["bit_equal_repeat"] for r in fp32),
+            **timing(pick(found, "vision", "float32")),
+            "bound_tc_ms": pick(found, "vision", "float32")["bound_tc_ms"],
+            "shape": "B64 L129 12x64 fp32 packed, no mask",
+            **{case: {**timing(pick(found, case, "float32")),
+                      "bound_tc_ms": pick(found, case, "float32")["bound_tc_ms"]}
+               for case in ("text", "sysu", "vehicle", "stride12")},
+            "ptxas": ptxas[name],
         }
 
     train_counts = train_res["train"]["launches"]
     uni_launches = {"stage1a_epoch": uni_res["stage1a"]["launches"],
                     "stage2a_steps": uni_res["stage2a"]["launches"]}
-    kernels = [attention_entry("fwd", rows), attention_entry("bwd", bwd_rows), {
+    kernels = [attention_entry("fwd", rows), attention_entry("bwd", bwd_rows),
+               fp32_entry("fwd", rows), fp32_entry("bwd", bwd_rows), {
         "name": "fused_adam_leaf",
         "route": "cuda",
         "source": "mpreid_tpu_torch/kernels/csrc/adam.cu",

@@ -17,10 +17,12 @@ layouts, one kernel:
 
 On a CUDA tensor the wrappers launch a hand-written Hopper kernel or
 raise; ``attention_route`` picks it before the launch from the dtype alone:
-bf16 goes to the tensor-core kernels (route ``"tc"``,
-``kernels/csrc/attention_{fwd,bwd}_tc.cu``), fp32 to the CUDA-core kernels
-(route ``"simt"``, ``kernels/csrc/attention_{fwd,bwd}.cu``), which keep fp32
-exact to 1e-5 where TF32 tensor cores could not. On a CPU tensor they
+bf16 goes to the bf16 tensor-core kernels (route ``"tc"``,
+``kernels/csrc/attention_{fwd,bwd}_tc.cu``), fp32 to the kernels that take
+each fp32 product on the tensor cores in three TF32 passes (route
+``"tf32x3"``, ``kernels/csrc/attention_{fwd,bwd}.cu``), which hold fp32 to
+1e-5 where one TF32 pass could not; they stream their tiles, so they take
+any length. On a CPU tensor they
 compute ``attention_plain`` and ``attention_bwd_plain``, the same functions
 in plain PyTorch. Numerics, as in the JAX package: q is scaled in the
 activation dtype, logits and softmax are fp32, probabilities are rounded to
@@ -46,7 +48,7 @@ import torch
 LAYOUTS = ("packed", "head_major")
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_WIDTHS = (64, 128)
-ROUTES = ("tc", "simt")
+ROUTES = ("tc", "tf32x3")
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,13 +156,14 @@ def attention_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
 
 def attention_route(dtype: torch.dtype, dh: int) -> str:
     """The kernel family a CUDA tensor of ``dtype`` at head width ``dh``
-    launches: ``"tc"`` (bf16 on the tensor cores) or ``"simt"`` (fp32 on the
-    CUDA cores). Raises for what neither takes."""
+    launches: ``"tc"`` (bf16 on the tensor cores) or ``"tf32x3"`` (fp32 on
+    the tensor cores, three TF32 passes a product). Raises for what neither
+    takes."""
     if dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"the attention kernels take {SUPPORTED_DTYPES}, got {dtype}")
     if dh not in HEAD_WIDTHS:
         raise ValueError(f"the attention kernels take head widths {HEAD_WIDTHS}, got {dh}")
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,16 +171,17 @@ def _library(direction: str, route: str) -> ctypes.CDLL:
     """The library of ``csrc/attention_<direction>[_tc].cu`` (``fwd`` or
     ``bwd``; ``_tc`` on the ``"tc"`` route), built at first use, with its C
     signatures declared on ``lib.launch``, ``lib.smem_bytes`` and
-    ``lib.max_smem_bytes``."""
+    ``lib.max_smem_bytes``; the fp32 backward adds ``lib.scratch_floats``."""
     from mpreid_tpu_torch.kernels import build
 
     suffix = "_tc" if route == "tc" else ""
     lib = build.load(f"attention_{direction}{suffix}")
     symbol = f"mpreid_mha_{direction}{suffix}"
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # qkv, mask, out; the backward adds dout, and the CUDA-core backward a
-    # scratch array for its row statistics
-    tensors = [p] * ({"fwd": 3, "bwd": 4}[direction] + (direction == "bwd" and route == "simt"))
+    # qkv, mask, out; the backward adds dout, and the fp32 backward a scratch
+    # array for its row statistics
+    scratch = direction == "bwd" and route == "tf32x3"
+    tensors = [p] * ({"fwd": 3, "bwd": 4}[direction] + scratch)
     lib.launch = getattr(lib, symbol)
     lib.launch.argtypes = tensors + [i, i, i, i, ll, i, i, i, i, ctypes.c_float, p]
     lib.launch.restype = i
@@ -185,6 +189,9 @@ def _library(direction: str, route: str) -> ctypes.CDLL:
     lib.smem_bytes.argtypes, lib.smem_bytes.restype = [i, i], ctypes.c_size_t
     lib.max_smem_bytes = getattr(lib, f"{symbol}_max_smem_bytes")
     lib.max_smem_bytes.argtypes, lib.max_smem_bytes.restype = [], ctypes.c_size_t
+    if scratch:
+        lib.scratch_floats = getattr(lib, f"{symbol}_scratch_floats")
+        lib.scratch_floats.argtypes, lib.scratch_floats.restype = [i, i, i], ll
     return lib
 
 
@@ -257,8 +264,8 @@ def _launch_bwd_cuda(qkv, do, num_heads, mask, layout):
         return dqkv
     q_base, k_base, v_base, head_stride = _column_offsets(d, dh, layout)
     scratch = []
-    if route == "simt":  # m, 1/l and delta of every row, from phase 1 to phase 2
-        scratch = [torch.empty(3 * b * num_heads * l, dtype=torch.float32,
+    if route == "tf32x3":  # m, 1/l and delta of every row, from one launch to the next
+        scratch = [torch.empty(lib.scratch_floats(b, l, num_heads), dtype=torch.float32,
                                device=qkv.device).data_ptr()]
     rc = lib.launch(
         qkv.data_ptr(), mask.data_ptr() if mask is not None else None,

@@ -30,6 +30,8 @@ struct dim3 {
 };
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 
@@ -43,6 +45,16 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 using std::max;
 using std::min;
 inline float __expf(float x) { return std::exp(x); }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 
 namespace emu {
 inline thread_local dim3 tid;

@@ -1,20 +1,21 @@
 """The attention kernels' CUDA sources built for the CPU: the shared home of
 ``tests/test_torch_kernel_emulation*.py``.
 
-``kernels/csrc/attention_{fwd,bwd}_tc.cu`` are compiled with g++ against
-the host emulation in ``tests/cuda_emulation/`` (one thread per CUDA
-thread; ``ldmatrix``, ``mma.sync`` and the shuffles as the PTX ISA defines
-them, in place of the inline PTX of ``mma_bf16.cuh``) and called through
-their C interface on CPU tensors, then held to ``attention_plain`` and
-``attention_bwd_plain`` at the card's tolerances: forward 2e-2 max abs,
-backward 3e-2 · max(1, max |plain|) (``check_tc_case``). The CUDA-core
-fp32 backward (``kernels/csrc/attention_bwd.cu``) builds the same way
-(``simt_bwd``).
+``kernels/csrc/attention_{fwd,bwd}_tc.cu`` (bf16) and
+``kernels/csrc/attention_{fwd,bwd}.cu`` (fp32 in three TF32 passes) are
+compiled with g++ against the host emulation in ``tests/cuda_emulation/``
+(one thread per CUDA thread; ``ldmatrix``, ``mma.sync`` in bf16 and tf32
+and the shuffles as the PTX ISA defines them, in place of the inline PTX of
+``mma_bf16.cuh`` and ``mma_tf32.cuh``) and called
+through their C interface on CPU tensors, then held to ``attention_plain``
+and ``attention_bwd_plain`` at the card's tolerances: bf16 forward 2e-2 max
+abs, backward 3e-2 · max(1, max |plain|) (``check_tc_case``); fp32 forward
+1e-5 max abs, backward 1e-5 · max(1, max |plain|) (``check_fp32_case``).
 
 The cases are spread over several test files, by length, because
 ``pytest --dist loadfile`` runs each file on one worker and the emulator's
-barriers make the long lengths slow: ``CASES`` lists them all and
-``SHARES`` gives each file its part. Each file
+barriers make the long lengths slow: ``CASES`` and ``FP32_CASES`` list them
+all and ``SHARES`` and ``FP32_SHARES`` give each file its part. Each file
 builds its own libraries (the fixtures are module-scoped).
 """
 
@@ -24,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import numpy as np
@@ -34,44 +36,55 @@ from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.ops import attention as tattn
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
-PRIMITIVES = ("smem_addr", "cp_async_16", "cp_async_wait_all", "ldmatrix_x4",
-              "ldmatrix_x4_trans", "mma")
+# the inline-PTX functions of each shared header, replaced by warp_prims.h
+PRIMITIVES = {
+    "mma_bf16.cuh": ("smem_addr", "cp_async_16", "cp_async_wait_all", "ldmatrix_x4",
+                     "ldmatrix_x4_trans", "mma"),
+    "mma_tf32.cuh": ("smem_addr", "cp_async_16", "cp_async_wait_all", "mma_m16n8k8"),
+}
 
 
-def _emulated_header() -> str:
-    """mma_bf16.cuh with its inline-PTX primitives replaced by warp_prims.h."""
-    text = (build.CSRC / "mma_bf16.cuh").read_text()
-    for name in PRIMITIVES:
-        pattern = r"(//[^\n]*\n)*__device__ __forceinline__ \w+ " + name + r"\(.*?\n}\n"
+def _emulated_header(name: str) -> str:
+    """``csrc/<name>`` with its inline-PTX primitives cut out and
+    ``warp_prims.h``, which defines them at global scope, included."""
+    text = (build.CSRC / name).read_text()
+    for prim in PRIMITIVES[name]:
+        pattern = r"(//[^\n]*\n)*__device__ __forceinline__ \w+ " + prim + r"\(.*?\n}\n"
         text, n = re.subn(pattern, "", text, count=1, flags=re.S)
-        assert n == 1, f"mma_bf16.cuh has no {name} to replace"
-    anchor = "__host__ __device__ constexpr int round16"
+        assert n == 1, f"{name} has no {prim} to replace"
+    anchor = "\nnamespace "
     assert anchor in text
-    return text.replace(anchor, (EMULATION / "warp_prims.h").read_text() + "\n" + anchor)
+    return text.replace(anchor, '\n#include "warp_prims.h"\n' + anchor, 1)
+
+
+def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1) -> ctypes.CDLL:
+    """``csrc/<source>.cu`` built for the CPU against the emulated ``header``,
+    its kernel launches (``launches`` of them) turned into ``emu::launch``
+    calls and ``shared`` declaring the shared memory its kernels use."""
+    (out / header).write_text(_emulated_header(header))
+    src, n = re.subn(r"(\w+<DH>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
+                     r"emu::launch(\2, \3, \1, ", (build.CSRC / f"{source}.cu").read_text())
+    assert n == launches
+    (out / f"{source}.cpp").write_text('#include "cuda_runtime.h"\n' + shared + "\n" + src)
+    lib = out / f"lib{source}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
+                    "-o", str(lib), str(out / f"{source}.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def kernels(tmp_path_factory):
-    """{"fwd": fn, "bwd": fn}: the emulated libraries' C entry points."""
+    """{"fwd": fn, "bwd": fn}: the emulated tensor-core libraries' C entry points."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation")
     out = tmp_path_factory.mktemp("emulated")
-    (out / "mma_bf16.cuh").write_text(_emulated_header())
     fns = {}
     for direction in ("fwd", "bwd"):
-        src = (build.CSRC / f"attention_{direction}_tc.cu").read_text()
-        src, n = re.subn(r"(\w+<DH>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
-                         r"emu::launch(\2, \3, \1, ", src)
-        assert n == 1
-        src = ('#include "cuda_runtime.h"\n'
-               "namespace { alignas(16) unsigned char smem_raw[232448]; }\n" + src)
-        (out / f"{direction}.cpp").write_text(src)
-        lib = out / f"lib{direction}.so"
-        subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                        "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
-                        "-o", str(lib), str(out / f"{direction}.cpp")],
-                       check=True, capture_output=True, timeout=300)
-        fn = getattr(ctypes.CDLL(str(lib)), f"mpreid_mha_{direction}_tc")
+        lib = _compile(out, "mma_bf16.cuh", f"attention_{direction}_tc",
+                       "namespace { alignas(16) unsigned char smem_raw[232448]; }")
+        fn = getattr(lib, f"mpreid_mha_{direction}_tc")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * (3 if direction == "fwd" else 4) + [
             i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float, p]
@@ -147,41 +160,77 @@ def check_tc_case(kernels, length, dh, masked, layout):
     assert err <= 3e-2 * max(1.0, want.abs().max().item())
 
 
-def _compile(out, src: str, name: str) -> ctypes.CDLL:
-    src, n = re.subn(r"(\w+<DH>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
-                     r"emu::launch(\2, \3, \1, ", src)
-    assert n == 1
-    (out / f"{name}.cpp").write_text(src)
-    lib = out / f"lib{name}.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
-                    "-o", str(lib), str(out / f"{name}.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(str(lib))
-
-
 @pytest.fixture(scope="module")
-def simt_bwd(tmp_path_factory):
-    """The emulated CUDA-core backward's C entry point and its scratch size."""
+def fp32(tmp_path_factory):
+    """The emulated fp32 libraries: ``.fwd`` and ``.bwd`` (``ctypes.CDLL``),
+    their C signatures declared."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the host emulation")
-    src = ('#include "cuda_runtime.h"\n'
-           "namespace { float smem[232448 / 4]; }\n"
-           + (build.CSRC / "attention_bwd.cu").read_text())
-    lib = _compile(tmp_path_factory.mktemp("emulated_simt"), src, "bwd")
+    out = tmp_path_factory.mktemp("emulated_fp32")
+    shared = "namespace { alignas(16) float smem[232448 / 4]; }"
+    fwd = _compile(out, "mma_tf32.cuh", "attention_fwd", shared)
+    bwd = _compile(out, "mma_tf32.cuh", "attention_bwd", shared, launches=2)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.mpreid_mha_bwd
-    fn.argtypes = [p] * 5 + [i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float, p]
-    fn.restype = i
-    lib.mpreid_mha_bwd_scratch_floats.argtypes = [i, i, i]
-    lib.mpreid_mha_bwd_scratch_floats.restype = ctypes.c_longlong
-    lib.mpreid_mha_bwd_smem_bytes.argtypes = [i, i]
-    lib.mpreid_mha_bwd_smem_bytes.restype = ctypes.c_size_t
-    return lib
+    shape = [i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float, p]
+    fwd.mpreid_mha_fwd.argtypes = [p] * 3 + shape
+    bwd.mpreid_mha_bwd.argtypes = [p] * 5 + shape
+    bwd.mpreid_mha_bwd_scratch_floats.argtypes = [i, i, i]
+    bwd.mpreid_mha_bwd_scratch_floats.restype = ctypes.c_longlong
+    for lib, name in ((fwd, "mpreid_mha_fwd"), (bwd, "mpreid_mha_bwd")):
+        getattr(lib, name).restype = i
+        getattr(lib, f"{name}_smem_bytes").argtypes = [i, i]
+        getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
+        getattr(lib, f"{name}_max_smem_bytes").restype = ctypes.c_size_t
+    return types.SimpleNamespace(fwd=fwd, bwd=bwd)
 
 
-SIMT_CASES = [(1, 64, False, "packed"), (33, 64, True, "head_major"), (77, 64, True, "packed"),
+# lengths at the 8-row edges of the tiles, the text tower's 77,
+# configs/cross/sysu_rgb2ir.yml's 163 (288x144), the vehicle configs' 257,
+# the 417 and 214 the CUDA-core kernels stopped at, and 442 (256x256 at
+# stride 12), which no fp32 kernel took before the tiles streamed
+FP32_CASES = [(1, 64, False, "packed"), (33, 64, True, "head_major"), (77, 64, True, "packed"),
               (163, 64, False, "packed"), (163, 64, True, "head_major"),
               (257, 64, False, "packed"), (257, 64, False, "head_major"),
               (417, 64, False, "packed"), (163, 128, False, "packed"),
-              (214, 128, True, "head_major")]
+              (214, 128, True, "head_major"), (442, 64, False, "packed")]
+
+# each file's share of FP32_CASES, by the suffix of its name: about 40 s or
+# less of emulation each on one core
+FP32_SHARES = {
+    "": [c for c in FP32_CASES if c[0] <= 77],
+    "_fp32_l163": [c for c in FP32_CASES if c[0] == 163],
+    "_fp32_l214": [c for c in FP32_CASES if c[0] == 214],
+    "_fp32_l257": [c for c in FP32_CASES if c[0] == 257],
+    "_fp32_l417": [c for c in FP32_CASES if c[0] == 417],
+    "_fp32_l442": [c for c in FP32_CASES if c[0] == 442],
+}
+assert sorted(c for share in FP32_SHARES.values() for c in share) == sorted(FP32_CASES)
+
+
+def check_fp32_case(fp32, direction, length, dh, masked, layout):
+    """One case of ``FP32_CASES``: the emulated fp32 kernel of ``direction``
+    (``"fwd"`` or ``"bwd"``) against its plain version, at the seed
+    ``length + dh``, B 1, 2 heads (1 above L 400: the emulation's time grows
+    as L squared)."""
+    heads, b = (2 if length <= 400 else 1), 1
+    d = heads * dh
+    rng = np.random.default_rng(length + dh)
+    qkv = torch.from_numpy(rng.standard_normal((b, length, 3 * d)).astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, length, d)).astype(np.float32))
+    mask = torch.full((length, length), float("-inf")).triu(1) if masked else None
+    m = mask.data_ptr() if masked else None
+    args = (b, length, heads, dh, 3 * d, *tattn._column_offsets(d, dh, layout), dh ** -0.5, None)
+    if direction == "fwd":
+        got = torch.full((b, length, d), float("nan"))
+        with one_core():
+            assert fp32.fwd.mpreid_mha_fwd(qkv.data_ptr(), m, got.data_ptr(), *args) == 0
+        want = tattn.attention_plain(qkv, heads, mask, layout)
+        assert (got - want).abs().max().item() <= 1e-5
+        return
+    got = torch.full_like(qkv, float("nan"))
+    stats = torch.empty(fp32.bwd.mpreid_mha_bwd_scratch_floats(b, length, heads))
+    with one_core():
+        assert fp32.bwd.mpreid_mha_bwd(qkv.data_ptr(), m, do.data_ptr(), got.data_ptr(),
+                                       stats.data_ptr(), *args) == 0
+    want = tattn.attention_bwd_plain(qkv, do, heads, mask, layout)
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())

@@ -3,7 +3,7 @@
 
 ``attention_route`` decides the kernel family from (dtype, head width)
 alone, before any launch: bf16 goes to the tensor-core kernels ("tc"),
-fp32 to the CUDA-core kernels ("simt"). The plain versions are what the
+fp32 to the three-pass TF32 kernels ("tf32x3"). The plain versions are what the
 kernels are held to on the card, so at L 257 (configs/veri/vit_base.yml,
 configs/VehicleID/vit_base.yml) they are held here to the JAX einsum
 reference and to the Pallas kernels in interpret mode, tiny heads (B 2,
@@ -38,7 +38,7 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
 @pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "simt")])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "tf32x3")])
 def test_route_is_a_function_of_dtype_and_head_width(dtype, route, dh):
     assert tattn.attention_route(dtype, dh) == route
     assert route in tattn.ROUTES
@@ -147,3 +147,33 @@ def test_chip_smoke_reads_ptxas_and_refuses_spills_at_dh64(monkeypatch, spill64,
         "dh128": {"spill_stores": spill128, "spill_loads": spill128, "registers": 200},
         "dh64": {"spill_stores": 0, "spill_loads": 0, "registers": 154}}
     assert got["attention_fwd_tc"] == "built before this process: not reported"
+
+
+FP32_KERNEL = "_ZN49_GLOBAL__N__bef256a1_16_attention_bwd_cu_9eeee98612mha_bwd_{which}ILi{dh}EEEvPKfS2_S2_PfS3_iixiiiif"
+
+
+@pytest.mark.parametrize("spill128,raises", [(0, False), (8, True)])
+def test_chip_smoke_reads_both_fp32_bwd_kernels_and_refuses_any_spill(monkeypatch, spill128,
+                                                                     raises):
+    """attention_bwd.cu holds two kernels a head width: the report keys them
+    by kernel and width, and a spill fails at any width, dh 128 included."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{FP32_KERNEL.format(which=which, dh=dh)}' "
+        f"for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers, 16 bytes smem\n"
+        for which, dh, spill, regs in (("rows", 128, spill128, 255), ("keys", 128, 0, 190),
+                                       ("rows", 64, 0, 128), ("keys", 64, 0, 120)))
+    monkeypatch.setattr(build, "LOGS", {"attention_bwd": log})
+    if raises:
+        with pytest.raises(AssertionError, match="attention_bwd spills registers in mha_bwd_rows_dh128"):
+            chip_smoke.ptxas_report(("attention_bwd",))
+        return
+    got = chip_smoke.ptxas_report(("attention_bwd",))["attention_bwd"]
+    assert sorted(got) == ["mha_bwd_keys_dh128", "mha_bwd_keys_dh64", "mha_bwd_rows_dh128",
+                           "mha_bwd_rows_dh64"]
+    assert got["mha_bwd_rows_dh64"] == {"spill_stores": 0, "spill_loads": 0, "registers": 128,
+                                "static_smem_bytes": 16}

@@ -7,8 +7,9 @@ repository's conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
 fp32 is held to 1e-5 and bf16 to 2e-2, as in chip_smoke.py. bf16 attention
-runs on the tensor-core kernels (route "tc"), fp32 on the CUDA-core ones
-(route "simt").
+runs on the bf16 tensor-core kernels (route "tc"), fp32 on the kernels that
+take each product on the tensor cores in three TF32 passes (route
+"tf32x3").
 """
 
 import numpy as np
@@ -18,13 +19,12 @@ import torch
 from mpreid_tpu_torch.ops import attention as tattn
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-ROUTE = {torch.float32: "simt", torch.bfloat16: "tc"}
-# the longest L each attention kernel takes: what one block's shared memory
-# (232,448 bytes) holds
+ROUTE = {torch.float32: "tf32x3", torch.bfloat16: "tc"}
+# the longest L each bf16 attention kernel takes: what one block's shared
+# memory (232,448 bytes) holds; the fp32 kernels stream their tiles and take
+# any length
 MAX_LEN = {("fwd", torch.bfloat16, 64): 800, ("fwd", torch.bfloat16, 128): 416,
-           ("fwd", torch.float32, 64): 417, ("fwd", torch.float32, 128): 214,
-           ("bwd", torch.bfloat16, 64): 384, ("bwd", torch.bfloat16, 128): 208,
-           ("bwd", torch.float32, 64): 417, ("bwd", torch.float32, 128): 214}
+           ("bwd", torch.bfloat16, 64): 384, ("bwd", torch.bfloat16, 128): 208}
 # every padding edge of the 16-row blocks, the text and vision lengths, and
 # the 256x256 vehicle configs' L 257
 LENGTHS = [1, 15, 16, 17, 77, 129, 257]
@@ -58,8 +58,8 @@ def _causal(card, length):
 def test_kernel_matches_plain(card, layout, dtype, length, masked, dh):
     qkv = _qkv(card, 3, length, 2, dh, dtype)
     mask = _causal(card, length) if masked else None
-    longest = MAX_LEN["fwd", dtype, dh]
-    if length > longest:
+    longest = MAX_LEN.get(("fwd", dtype, dh))
+    if longest is not None and length > longest:
         with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
             tattn.fused_attention(qkv, 2, mask, layout=layout)
         return
@@ -156,8 +156,8 @@ def test_bwd_kernel_matches_plain(card, layout, dtype, length, masked, dh):
     qkv = _qkv(card, 3, length, 2, dh, dtype, seed=3)
     do = _qkv(card, 3, length, 2, dh, dtype, seed=4)[..., :2 * dh].contiguous()
     mask = _causal(card, length) if masked else None
-    longest = MAX_LEN["bwd", dtype, dh]
-    if length > longest:
+    longest = MAX_LEN.get(("bwd", dtype, dh))
+    if longest is not None and length > longest:
         with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
             tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
         return
@@ -190,7 +190,7 @@ def test_bwd_kernel_is_deterministic(card, masked, dh):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_each_dtype_takes_its_route(card, dtype):
-    """bf16 launches count on "tc", fp32 on "simt", forward and backward."""
+    """bf16 launches count on "tc", fp32 on "tf32x3", forward and backward."""
     qkv = _qkv(card, 2, 77, 2, 64, dtype, seed=17).requires_grad_(True)
     do = _qkv(card, 2, 77, 2, 64, dtype, seed=18)[..., :128].contiguous()
     counters = (tattn.fused_attention, tattn.fused_attention_bwd)
@@ -217,20 +217,20 @@ def test_bwd_kernel_at_the_main_shapes(card, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["packed", "head_major"])
-@pytest.mark.parametrize("length", [163, 257])
+@pytest.mark.parametrize("length", [163, 257, 442])
 def test_fp32_bwd_kernel_at_the_long_shapes(card, length, layout):
-    """The CUDA-core backward at the lengths it refused while it held L x L
-    in shared memory: 163 (configs/cross/sysu_rgb2ir.yml, 288x144) and 257
-    (the 256x256 vehicle configs), B 64 x 12 heads x 64, held to its plain
-    version at 1e-5 x max(1, max |plain|), and deterministic."""
+    """The fp32 backward at the lengths its earlier designs refused: 163
+    (configs/cross/sysu_rgb2ir.yml, 288x144), 257 (the 256x256 vehicle
+    configs) and 442 (256x256 at stride 12), B 64 x 12 heads x 64, held to
+    its plain version at 1e-5 x max(1, max |plain|), and deterministic."""
     qkv = _qkv(card, 64, length, 12, 64, torch.float32, seed=length)
     do = _qkv(card, 64, length, 12, 64, torch.float32, seed=length + 1)[..., :768].contiguous()
-    routed = tattn.fused_attention_bwd.launches_by_route["simt"]
+    routed = tattn.fused_attention_bwd.launches_by_route["tf32x3"]
     got = tattn.fused_attention_bwd(qkv, do, 12, layout=layout)
     again = tattn.fused_attention_bwd(qkv, do, 12, layout=layout)
     want = tattn.attention_bwd_plain(qkv, do, 12, layout=layout)
     torch.cuda.synchronize()
-    assert tattn.fused_attention_bwd.launches_by_route["simt"] == routed + 2
+    assert tattn.fused_attention_bwd.launches_by_route["tf32x3"] == routed + 2
     assert _bwd_err(got, want) <= BWD_TOL[torch.float32]
     assert torch.equal(got, again)
 
@@ -263,9 +263,25 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="L above 384 needs more shared memory"):
         tattn.fused_attention_bwd(_qkv(card, 1, 400, 1, 64, torch.bfloat16),
                                   torch.zeros(1, 400, 64, device=card, dtype=torch.bfloat16), 1)
-    with pytest.raises(ValueError, match="L above 417 needs more shared memory"):
-        tattn.fused_attention_bwd(_qkv(card, 1, 418, 1, 64, torch.float32),
-                                  torch.zeros(1, 418, 64, device=card), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,dh", [(418, 64), (442, 64), (1000, 64), (215, 128), (600, 128)])
+def test_fp32_kernels_take_any_length(card, length, dh):
+    """The fp32 kernels stream their key (or query) tiles, so shared memory
+    does not grow with L: past the 417 (dh 64) and 214 (dh 128) the CUDA-core
+    kernels stopped at, both directions run and match their plain versions,
+    causal mask included."""
+    qkv = _qkv(card, 2, length, 2, dh, torch.float32, seed=length)
+    do = _qkv(card, 2, length, 2, dh, torch.float32, seed=length + 1)[..., :2 * dh].contiguous()
+    mask = _causal(card, length)
+    got = tattn.fused_attention(qkv, 2, mask)
+    want = tattn.attention_plain(qkv, 2, mask)
+    dgot = tattn.fused_attention_bwd(qkv, do, 2, mask)
+    dwant = tattn.attention_bwd_plain(qkv, do, 2, mask)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+    assert _bwd_err(dgot, dwant) <= BWD_TOL[torch.float32]
 
 
 # ---------------------------------------------------------------------------
@@ -1041,4 +1057,4 @@ def test_dryrun_multichip_on_the_card(card):
     assert len(ranks[0]["lines"]) == 3
     for out in ranks:
         assert out["launches"]["l1_cross"] > 0 and out["launches"]["minsum_cross"] > 0
-        assert out["launches"]["attention_fwd"]["simt"] > 0
+        assert out["launches"]["attention_fwd"]["tf32x3"] > 0

@@ -12,11 +12,15 @@ of the 16-row blocks: this file holds lengths 1, 15 and 16 and the vehicle
 length 257; ``test_torch_kernel_emulation_l{17,77_packed,77_head_major,129}.py``
 hold the rest of ``CASES``.
 
-The CUDA-core fp32 backward (``kernels/csrc/attention_bwd.cu``, two phases
-with no L × L buffer) runs the same way, at the lengths its earlier design
-refused (163, the cross-modality configs' 288×144; 257, the vehicle
-configs'; the fp32 forward's longest, 417 at dh 64 and 214 at dh 128), and
-is held to ``attention_bwd_plain`` at 1e-5 · max(1, max |plain|).
+The fp32 kernels (``kernels/csrc/attention_{fwd,bwd}.cu``: products in
+three TF32 passes on ``mma.sync``, keys or queries streamed through shared
+memory in tiles) run the same way and are held to ``attention_plain`` at
+1e-5 max abs and to ``attention_bwd_plain`` at 1e-5 · max(1, max |plain|):
+this file holds the lengths up to 77 of ``FP32_CASES``;
+``test_torch_kernel_emulation_fp32_l{163,214,257,417,442}.py`` hold the
+rest (163, the cross-modality configs' 288×144; 257, the vehicle configs';
+417 at dh 64 and 214 at dh 128, where the CUDA-core kernels stopped; 442,
+256×256 at stride 12).
 """
 
 import numpy as np
@@ -24,7 +28,7 @@ import pytest
 import torch
 
 from kernel_emulation import (  # noqa: F401  (fixtures)
-    SHARES, SIMT_CASES, _run, check_tc_case, kernels, one_core, simt_bwd,
+    FP32_SHARES, SHARES, _run, check_fp32_case, check_tc_case, fp32, kernels,
 )
 from mpreid_tpu_torch.ops import attention as tattn
 
@@ -43,31 +47,25 @@ def test_emulated_bwd_kernel_at_the_vehicle_length(kernels):
     assert (dqkv.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())
 
 
-@pytest.mark.parametrize("length,dh,masked,layout", SIMT_CASES)
-def test_emulated_fp32_bwd_kernel_matches_plain(simt_bwd, length, dh, masked, layout):
-    heads, b = 2, 1
-    d = heads * dh
-    rng = np.random.default_rng(length + dh)
-    qkv = torch.from_numpy(rng.standard_normal((b, length, 3 * d)).astype(np.float32))
-    do = torch.from_numpy(rng.standard_normal((b, length, d)).astype(np.float32))
-    mask = torch.full((length, length), float("-inf")).triu(1) if masked else None
-    dqkv = torch.full_like(qkv, float("nan"))
-    stats = torch.empty(simt_bwd.mpreid_mha_bwd_scratch_floats(b, length, heads))
-    offsets = tattn._column_offsets(d, dh, layout)
-    with one_core():
-        rc = simt_bwd.mpreid_mha_bwd(qkv.data_ptr(), mask.data_ptr() if masked else None,
-                                     do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b,
-                                     length, heads, dh, 3 * d, *offsets, dh ** -0.5, None)
-    assert rc == 0
-    want = tattn.attention_bwd_plain(qkv, do, heads, mask, layout)
-    err = (dqkv - want).abs().max().item()
-    assert err <= 1e-5 * max(1.0, want.abs().max().item())
+@pytest.mark.parametrize("length,dh,masked,layout", FP32_SHARES[""])
+def test_emulated_fp32_fwd_kernel_matches_plain(fp32, length, dh, masked, layout):
+    check_fp32_case(fp32, "fwd", length, dh, masked, layout)
 
 
-def test_emulated_fp32_bwd_takes_every_length_the_fp32_forward_takes(simt_bwd):
-    """Shared memory: the backward's limits are the forward's (417 at dh 64,
-    214 at dh 128); the kernel it replaces stopped at 139 and 94."""
+@pytest.mark.parametrize("length,dh,masked,layout", FP32_SHARES[""])
+def test_emulated_fp32_bwd_kernel_matches_plain(fp32, length, dh, masked, layout):
+    check_fp32_case(fp32, "bwd", length, dh, masked, layout)
+
+
+def test_emulated_fp32_bwd_takes_every_length_the_fp32_forward_takes(fp32):
+    """Shared memory: both fp32 kernels stream their tiles, so a block needs
+    the same bytes at every length, well inside a block's 232,448; the
+    CUDA-core kernels stopped at 417 (dh 64) and 214 (dh 128)."""
     limit = 232448
-    for dh, longest in ((64, 417), (128, 214)):
-        assert simt_bwd.mpreid_mha_bwd_smem_bytes(longest, dh) <= limit
-        assert simt_bwd.mpreid_mha_bwd_smem_bytes(longest + 1, dh) > limit
+    for lib, name in ((fp32.fwd, "mpreid_mha_fwd"), (fp32.bwd, "mpreid_mha_bwd")):
+        assert getattr(lib, f"{name}_max_smem_bytes")() == limit
+        smem = getattr(lib, f"{name}_smem_bytes")
+        for dh in (64, 128):
+            need = {smem(length, dh) for length in (1, 214, 215, 417, 418, 442, 4096)}
+            assert len(need) == 1 and 0 < need.pop() <= limit
+        assert smem(129, 96) == 0
