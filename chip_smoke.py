@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    (``bound_tc_ms``); the ptxas report of the attention sources, which must
    show no spills: the fp32 sources at any head width, the bf16 ones at dh
    64)
-   and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW);
+   and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW;
+   its step scalars [lr·mult, 1 − b1^t, 1 − b2^t] read from device memory;
+   two launches bit-equal);
 4. the baseline eval path (ViT-B/16, 256×128, bf16, batch 64) at full width
    on seeded random weights through ``engine.processor.do_inference``,
    counting the forward kernel's launches in that run;
@@ -155,9 +157,33 @@ Phases, in order; any failure raises and the exit code is not 0:
    short epoch of configs/person/vit_base.yml with a checkpoint, the write
    blocking and then on a background thread: the seconds the loop spends
    in ``save_checkpoint``, the file's size, the file equal bit for bit to the
-   state saved, and a failed write raising at ``wait_for_pending_saves``.
+   state saved, and a failed write raising at ``wait_for_pending_saves``;
+17. the compiled epochs (``engine/compiled.py``: the step captured once into
+   a CUDA graph after two eager warm-up steps, then one replay a batch),
+   each against the eager step loop over the same rows from one state and
+   one generator state, over two epochs at different lr, bit for bit
+   (``torch.equal``): (a) ``make_stage1_epoch`` for stage 1a and 1b on
+   configs/ours/cctv_ir_cctv_rgb.yml (the 12 × 512 text tower, L 77,
+   causal, 1,000 classes, a 4,096-row bank, batch 64): losses, contexts,
+   moments; (b) ``make_train_epoch`` on configs/person/vit_base.yml over
+   phase 11's resident Market-1501-size set, ``SOLVER.FUSED_ADAM`` off and
+   on: losses, accuracies, every parameter and buffer (the BN running
+   statistics), the moments and the generator state; (c) MoE stage 2a and
+   2b under configs/tpu/uniprompt_tuned.yml (4/2/2, bf16 moments), 2b with
+   ``MODEL.MOE.DROPOUT`` 0.1; (d) (b) and the MoE 2b case with
+   ``TPU.REMAT`` on (the recompute's dropout draws from the graph's
+   registered clones). Per case: the attention and Adam kernels one
+   replay launched, counted by name in the trace of one graphed epoch that
+   only replays and held against the launch counters (which a capture
+   records and every replay adds), the rates of both modes in turns
+   (graph, loop, loop, graph, twice), the device's idle share over that
+   traced epoch and the graph pool's bytes.
 
-Phase 12 runs after phase 8 (on its model) and phase 13 after phase 6.
+Phase 12 runs after phase 8 (on its model), phase 13 after phase 6 and
+phase 17 after phase 11 (on its resident set). Every epoch of phases 8, 9,
+10, 11 and 16 that runs through ``do_train_stage1`` or a device-resident
+``do_train`` / ``do_train_stage2`` replays a captured step too; its kernel
+launches count once for every replay.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
 (B 1,000, L 77, 8 × 64, causal, bf16), timed, and the L1 and min-sum
 kernels (re-ranking's exact Jaccard step) against their plain versions at
@@ -207,7 +233,7 @@ from mpreid_tpu_torch.data.synthetic import make_clip_file
 from mpreid_tpu_torch.engine import (
     R1mAPEvaluator, build_device_dataset, build_image_bank, do_inference, do_inference_ttpt,
     do_train, do_train_stage1, do_train_stage2, epoch_perm, initial_state, loss_and_grads,
-    make_eval_step, make_stage1_step, make_train_epoch, make_train_step,
+    make_eval_step, make_stage1_epoch, make_stage1_step, make_train_epoch, make_train_step,
     precompute_text_features, stage1_loss_and_grads,
 )
 from mpreid_tpu_torch.engine.processor import TRACE_FILE
@@ -592,17 +618,23 @@ def check_adam(moment_dtype: torch.dtype, decoupled: bool, timed: bool) -> dict:
     m = (torch.randn(C_FC, device=dev, generator=gen) * 1e-4).to(moment_dtype)
     v = (torch.rand(C_FC, device=dev, generator=gen) * 1e-7).to(moment_dtype)
     lr, wd, t = 5e-6 * 2, 1e-4, 3
-    args = (lr, 1 - 0.9 ** t, 1 - 0.999 ** t, 0.9, 0.999, 1e-8, wd, decoupled)
+    # the step's scalars in device memory, as the solver forms them
+    scalars = torch.tensor([lr, 1 - 0.9 ** t, 1 - 0.999 ** t], dtype=torch.float32, device=dev)
+    args = (scalars, 0.9, 0.999, 1e-8, wd, decoupled)
     p2, m2, v2 = p.clone(), m.clone(), v.clone()
+    p3, m3, v3 = p.clone(), m.clone(), v.clone()
     adam.fused_adam_leaf(p, m, v, g, *args)
+    adam.fused_adam_leaf(p3, m3, v3, g, *args)  # a second launch: bit-equal to the first
     adam.adam_leaf_plain(p2, m2, v2, g, *args)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(x, y) for x, y in ((p, p3), (m, m3), (v, v3)))
+    del p3, m3, v3
     errs = [(x.float() - y.float()).abs().max().item() for x, y in ((p, p2), (m, m2), (v, v2))]
     ok = all((x.float() - y.float()).abs().le(ADAM_RTOL * y.float().abs() + atol).all().item()
              for x, y, atol in ((p, p2, ADAM_ATOL_LR * lr), (m, m2, 0.0), (v, v2, 0.0)))
     row = dict(moment_dtype=str(moment_dtype).split(".")[-1], decoupled=decoupled,
                shape=list(C_FC), max_abs_err=max(errs), max_abs_err_p=errs[0],
-               rtol=ADAM_RTOL, atol_p=ADAM_ATOL_LR * lr, ok=ok)
+               rtol=ADAM_RTOL, atol_p=ADAM_ATOL_LR * lr, ok=ok, bit_equal_repeat=repeat)
     if timed:
         row["ms"] = cuda_ms(lambda: adam.fused_adam_leaf(p, m, v, g, *args))
         row["plain_ms"] = cuda_ms(lambda: adam.adam_leaf_plain(p2, m2, v2, g, *args))
@@ -612,8 +644,8 @@ def check_adam(moment_dtype: torch.dtype, decoupled: bool, timed: bool) -> dict:
         row["library_ms"] = cuda_ms(opt.step)
         row["bound_ms"], row["bound_by"] = adam_bound_ms(p.numel(), moment_dtype)
     log(f"  adam {json.dumps(row)}")
-    if not ok:
-        raise AssertionError(f"Adam kernel disagrees with its plain version: {row}")
+    if not (ok and repeat):
+        raise AssertionError(f"Adam kernel disagrees with its plain version or itself: {row}")
     return row
 
 
@@ -1116,9 +1148,10 @@ def fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batch, lr) -> di
     results = []
     for opt in (opt_fused, opt_plain):
         params = {k: p.detach().clone() for k, p in train.items()}
-        st = OptState(step=state_f.opt_state.step,
+        st = OptState(step=state_f.opt_state.step.clone(),
                       mu={k: t.clone() for k, t in state_f.opt_state.mu.items()},
-                      nu={k: t.clone() for k, t in state_f.opt_state.nu.items()})
+                      nu={k: t.clone() for k, t in state_f.opt_state.nu.items()},
+                      lr=state_f.opt_state.lr.clone())
         st = opt.update(grads, st, params, lr)
         results.append((params, st))
     torch.cuda.synchronize()
@@ -1923,20 +1956,26 @@ def market_train_set(seed: int = 31):
     return images, pids, cams
 
 
-def trace_idle_share(path: str) -> dict:
+def trace_idle_share(path: str, span: str = None) -> dict:
     """The device's busy time and idle share over a Chrome trace that
     ``torch.profiler`` wrote: the union of its kernel, copy and memset spans
-    against the span of every event in it."""
+    against the span of every event in it, or of the events named ``span``
+    (a ``record_function``), with the device spans clipped to it."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+    marks = [e for e in events if e["name"] == span] if span is not None else events
+    if not marks:
+        raise AssertionError(f"the trace holds no span {span!r}")
+    first = min(e["ts"] for e in marks)
+    last = max(e["ts"] + e["dur"] for e in marks)
+    device = sorted((max(e["ts"], first), min(e["ts"] + e["dur"], last)) for e in events
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     busy, end = 0.0, float("-inf")
     for lo, hi in device:
-        if hi > end:
+        if hi > end and hi > lo:
             busy += hi - max(lo, end)
             end = hi
-    window = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    window = last - first
     return dict(trace_bytes=os.path.getsize(path), events=len(events), device_spans=len(device),
                 window_ms=window / 1e3, device_busy_ms=busy / 1e3,
                 device_idle_share=1 - busy / window)
@@ -2048,8 +2087,10 @@ def run_device_epoch() -> dict:
     log(f"device epoch against the step loop, img/s in turns {json.dumps(res_rates)}")
     rate_line("device-epoch vs step-loop train img/s (configs/person/vit_base.yml, batch 64, "
               "medians of 4 turns of 24 steps)", res_rates["median_img_per_s"])
-    del runs, data
-    return dict(res=res, check=check, rates=res_rates)
+    for r in runs.values():
+        r["epoch"].release()
+    del runs
+    return dict(res=res, check=check, rates=res_rates, loader=loader, data=data)
 
 
 # ---------------------------------------------------------------------------
@@ -3953,6 +3994,365 @@ def run_async_checkpoint(tmp: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the compiled epochs (make_stage1_epoch, make_train_epoch) as CUDA
+# graphs: each against the eager step loop bit for bit, launches per replayed
+# step, rates in turns, the idle share of a traced graphed epoch, pool memory
+# ---------------------------------------------------------------------------
+
+GRAPH_LRS = (1e-4, 3e-5)  # the two checked epochs' lr: a baked-in lr would show
+GRAPH_ROWS = {"stage1": 24, "vit": 8}  # rows of each checked epoch and of each timed turn
+GRAPH_SEED = 29  # the step generator of both modes
+GRAPH_MOE_DROPOUT = 0.1
+
+
+def per_replay_counts(epoch) -> dict:
+    """The kernel launches one replay of ``epoch``'s captured step adds."""
+    from mpreid_tpu_torch.engine.compiled import COUNTED as GRAPH_COUNTED
+
+    if epoch.compiled.per_replay is None:
+        raise AssertionError("the epoch captured no graph")
+    return {name: epoch.compiled.per_replay[GRAPH_COUNTED.index(fn), None]
+            for name, fn in COUNTED.items()}
+
+
+# the kernel each counted wrapper launches once a call, as a trace names it
+TRACE_KERNELS = {"attention_fwd": r"\bmha_fwd(_tc)?_kernel<",
+                 "attention_bwd": r"\bmha_bwd_tc_kernel<|\bmha_bwd_rows<",
+                 "adam": r"\badam_kernel<", "l1_cross": r"\bcross_kernel<L1Op>",
+                 "minsum_cross": r"\bcross_kernel<MinOp>", "batch_hard": r"\bbatch_hard_kernel<"}
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """How many times each counted wrapper's kernel ran in each CUDA graph
+    launch of a Chrome trace that ``torch.profiler`` wrote: ``{launch's
+    correlation id: {name: count}}`` (``TRACE_KERNELS``; every kernel of one
+    replay carries its launch's correlation id)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "cuda_runtime")]
+    launches = {e["args"]["correlation"] for e in events
+                if e["cat"] == "cuda_runtime" and e["name"].startswith("cudaGraphLaunch")}
+    out = {c: dict.fromkeys(TRACE_KERNELS, 0) for c in launches}
+    for e in events:
+        c = e.get("args", {}).get("correlation")
+        if e["cat"] != "kernel" or c not in out:
+            continue
+        for k, pat in TRACE_KERNELS.items():
+            if re.search(pat, e["name"]):
+                out[c][k] += 1
+    return out
+
+
+def traced_graphed_epoch(fn, compiled) -> dict:
+    """``trace_idle_share`` of one ``fn()``, a graphed epoch of ``compiled``
+    that only replays, under ``torch.profiler``, and the counted kernels
+    each replay launched, read from the trace's kernel records. The idle
+    share is taken over the epoch's own span (``fn()`` and a synchronize);
+    the profiler runs on 50 ms past it, since it keeps only device records
+    that end inside its window, and one traced epoch lacked 5 of its 416
+    Adam kernel records without that margin."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    replays, captures = compiled.stats["replays"], compiled.stats["captures"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("graphed_epoch"):
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.05)
+        path = os.path.join(tmp, "graphed_epoch.json")
+        prof.export_chrome_trace(path)
+        res = trace_idle_share(path, span="graphed_epoch")
+        per_launch = trace_kernel_counts(path)
+    replays = compiled.stats["replays"] - replays
+    if res["device_spans"] <= 0:
+        raise AssertionError(f"the traced graphed epoch shows no device work: {res}")
+    if compiled.stats["captures"] != captures or replays <= 0:
+        raise AssertionError(f"the traced graphed epoch captured again or replayed nothing: "
+                             f"{compiled.stats}")
+    if len(per_launch) != replays:
+        raise AssertionError(f"the trace shows {len(per_launch)} graph launches, the epoch "
+                             f"replayed {replays} times")
+    seen = {json.dumps(c, sort_keys=True): c for c in per_launch.values()}
+    if len(seen) != 1:
+        raise AssertionError(f"the replays' traced kernels differ: {list(seen.values())}")
+    res.update(replays=replays, launches_per_replay_traced=next(iter(seen.values())))
+    return res
+
+
+def graph_turns(turn, rows_of, per_turn: int) -> dict:
+    """Both modes' rates (rows or images a second), in turns: (graph, loop,
+    loop, graph), twice; ``turn(mode, rows)`` runs one turn."""
+    rates = {"graph": [], "loop": []}
+    for rnd in range(2):
+        for i, mode in enumerate(("graph", "loop", "loop", "graph")):
+            rows = rows_of(100 + 4 * rnd + i)
+            _, secs = timed(lambda: turn(mode, rows))
+            rates[mode].append(len(rows) * per_turn / secs)
+    return dict(order="graph loop loop graph, twice", per_s=rates,
+                median_per_s={k: float(np.median(v)) for k, v in rates.items()},
+                graph_over_loop=float(np.median(rates["graph"]) / np.median(rates["loop"])))
+
+
+def graph_report(what: str, diffs: dict, per_step: dict, want: dict, counts: dict,
+                 n_steps: int, rates: dict, trace: dict, pool_bytes: int, unit: str,
+                 extra: dict) -> dict:
+    traced = trace["launches_per_replay_traced"]
+    res = dict(case=what, bit_for_bit={k: not v for k, v in diffs.items()},
+               launches_per_replayed_step=traced, launches_per_replay_counted=per_step,
+               launches_checked_epochs=counts, checked_steps=n_steps, rates=rates, unit=unit,
+               traced_graphed_epoch={k: trace[k] for k in ("window_ms", "device_busy_ms",
+                                                           "device_idle_share", "trace_bytes",
+                                                           "replays")},
+               graph_pool_gb=pool_bytes / 1e9, card=CARD_LINE, **extra)
+    log(f"  17 {json.dumps(res)}")
+    rate_line(f"17 {what}: graphed epoch against the step loop ({unit}, medians of 4 turns)",
+              dict(graph=rates["median_per_s"]["graph"], loop=rates["median_per_s"]["loop"],
+                   idle_share_graphed=trace["device_idle_share"],
+                   graph_pool_gb=pool_bytes / 1e9))
+    bad = {k: v for k, v in diffs.items() if v}
+    if bad:
+        raise AssertionError(f"17 {what}: the graphed epoch differs from the step loop: {bad}")
+    stats = extra["stats"]
+    if stats["captures"] != 1 or stats["replays"] <= 0 or pool_bytes <= 0:
+        raise AssertionError(f"17 {what}: not one captured graph replayed: {stats}")
+    if per_step != {name: want.get(name, 0) for name in per_step}:
+        raise AssertionError(f"17 {what}: launches per replayed step {per_step}, expected {want}")
+    if traced != per_step:
+        raise AssertionError(f"17 {what}: the trace shows {traced} kernels a replay, the "
+                             f"counters {per_step}")
+    if counts != {name: n_steps * per_step[name] for name in counts}:
+        raise AssertionError(f"17 {what}: {counts} launches in {n_steps} steps, expected "
+                             f"{per_step} a step")
+    if read_routes()["attention_fwd"]["tf32x3"] or read_routes()["attention_bwd"]["tf32x3"]:
+        raise AssertionError(f"17 {what}: bf16 attention off the tensor-core route")
+    return res
+
+
+def graph_stage1(model, cfg, bank, stage: str) -> dict:
+    """17a: ``make_stage1_epoch`` against ``make_stage1_step`` over the same
+    rows of the bank, from one set of contexts: two epochs at GRAPH_LRS,
+    every step's loss, the contexts, the moments and the step bit for bit."""
+    stage_cfg = cfg.SOLVER[f"STAGE{stage.upper()}"].clone()
+    feats = bank[0]
+    labels, views = (torch.as_tensor(a).to(CARD).long() for a in bank[1:])
+    n = GRAPH_ROWS["stage1"]
+
+    def rows_of(seed):
+        return np.random.default_rng(seed).permutation(len(labels))[:n * BATCH].reshape(n, BATCH)
+
+    probe = make_optimizer(stage_cfg, model, stage=f"stage{stage}")
+    contexts = {k: p.detach().clone() for k, p in probe.partition(model)[0].items()}
+    params = dict(model.named_parameters())
+    modes = {}
+
+    def turn(mode, rows, lr=GRAPH_LRS[-1]):
+        r = modes[mode]
+        if mode == "graph":
+            r["state"], losses = r["epoch"](r["state"], feats, labels, views, rows, lr)
+            return losses
+        out = []
+        for row in rows:
+            sel = torch.as_tensor(row, device=CARD)
+            r["state"], metrics = r["step"](r["state"], feats[sel], labels[sel],
+                                            views[sel] if stage == "1b" else None, lr)
+            out.append(metrics["loss"][None])
+        return torch.cat(out)
+
+    for mode in ("graph", "loop"):
+        with torch.no_grad():
+            for k, v in contexts.items():
+                params[k].copy_(v)
+        opt = make_optimizer(stage_cfg, model, stage=f"stage{stage}")
+        modes[mode] = dict(opt=opt, state=initial_state(model, opt),
+                           epoch=make_stage1_epoch(model, cfg, opt, stage),
+                           step=make_stage1_step(model, cfg, opt, stage))
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = torch.cat([turn(mode, rows_of(e), lr) for e, lr in enumerate(GRAPH_LRS)])
+        torch.cuda.synchronize()
+        r, st = modes[mode], modes[mode]["state"].opt_state
+        r.update(counts=read_counts(), losses=losses.cpu(),
+                 contexts=host_copy({k: params[k] for k in contexts}),
+                 moments=host_copy({**st.mu, **{f"nu.{k}": v for k, v in st.nu.items()}}),
+                 steps_taken=int(st.step))
+    g, lp = modes["graph"], modes["loop"]
+    diffs = {"losses": first_difference({"l": g["losses"]}, {"l": lp["losses"]}),
+             "contexts": first_difference(g["contexts"], lp["contexts"]),
+             "moments": first_difference(g["moments"], lp["moments"]),
+             "step": "" if g["steps_taken"] == lp["steps_taken"] == 2 * n
+             else f"{g['steps_taken']} / {lp['steps_taken']}"}
+    per_step = per_replay_counts(g["epoch"])
+    rates = graph_turns(turn, rows_of, BATCH)
+    trace = traced_graphed_epoch(lambda: turn("graph", rows_of(200)), g["epoch"].compiled)
+    pool = g["epoch"].compiled.stats["pool_bytes"]
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    res = graph_report(f"17a stage {stage} (configs/ours/cctv_ir_cctv_rgb.yml, text tower "
+                       f"12 x 512, L 77, {UNI_CLASSES} classes, bank {len(labels)}, batch "
+                       f"{BATCH})", diffs, per_step,
+                       {"attention_fwd": tdepth, "attention_bwd": tdepth},
+                       g["counts"], 2 * n, rates, trace, pool, "bank rows/s",
+                       dict(loss=float(g["losses"][0]), stats=g["epoch"].compiled.stats))
+    for r in modes.values():
+        r["epoch"].release()
+    return res
+
+
+def graph_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dict, data,
+                rows_of, want: dict) -> dict:
+    """17b-d: ``make_train_epoch`` against ``make_train_step`` over the same
+    rows of the resident ``data``, each mode on its own copy of ``model``
+    from one generator state: two epochs at GRAPH_LRS, every step's loss and
+    accuracy, every parameter and buffer (the BN running statistics), the
+    moments, the step and the generator state bit for bit."""
+    n = GRAPH_ROWS["vit"]
+    modes = {}
+    for mode in ("graph", "loop"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(opt_cfg, m, stage=stage)
+        modes[mode] = dict(model=m, opt=opt, state=initial_state(m, opt),
+                           gen=torch.Generator(device=CARD).manual_seed(GRAPH_SEED),
+                           epoch=make_train_epoch(m, cfg, loss_fn, opt, **kwargs),
+                           step=make_train_step(m, cfg, loss_fn, opt, **kwargs))
+
+    def turn(mode, rows, lr=GRAPH_LRS[-1]):
+        r = modes[mode]
+        if mode == "graph":
+            r["state"], (losses, accs) = r["epoch"](r["state"], *data, rows, lr, r["gen"])
+            return torch.stack([losses, accs])
+        out = []
+        for row in rows:
+            idx = torch.as_tensor(row, device=CARD)
+            batch = dict(zip(("images", "pids", "camids", "trackids"),
+                             (t.index_select(0, idx) for t in data)))
+            r["state"], metrics = r["step"](r["state"], batch, lr, r["gen"])
+            out.append(torch.stack([metrics["loss"], metrics["acc"]]))
+        return torch.stack(out, dim=1)
+
+    for mode, r in modes.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out = torch.cat([turn(mode, rows_of(e)[:n], lr) for e, lr in enumerate(GRAPH_LRS)], dim=1)
+        torch.cuda.synchronize()
+        st = r["state"].opt_state
+        r.update(counts=read_counts(), out=out.cpu(), weights=host_copy(r["model"].state_dict()),
+                 moments=host_copy({**st.mu, **{f"nu.{k}": v for k, v in st.nu.items()}}),
+                 steps_taken=int(st.step), gen_state=r["gen"].get_state())
+    g, lp = modes["graph"], modes["loop"]
+    diffs = {"losses_and_accuracies": first_difference({"o": g["out"]}, {"o": lp["out"]}),
+             "parameters_and_buffers": first_difference(g["weights"], lp["weights"]),
+             "moments": first_difference(g["moments"], lp["moments"]),
+             "step": "" if g["steps_taken"] == lp["steps_taken"] == 2 * n
+             else f"{g['steps_taken']} / {lp['steps_taken']}",
+             "generator": "" if torch.equal(g["gen_state"], lp["gen_state"]) else "differs"}
+    per_step = per_replay_counts(g["epoch"])
+    rates = graph_turns(turn, lambda e: rows_of(e)[:n], BATCH)
+    trace = traced_graphed_epoch(lambda: turn("graph", rows_of(200)[:n]), g["epoch"].compiled)
+    pool = g["epoch"].compiled.stats["pool_bytes"]
+    res = graph_report(what, diffs, per_step, want, g["counts"], 2 * n, rates, trace, pool,
+                       "img/s", dict(loss=float(g["out"][0, 0]), stats=g["epoch"].compiled.stats,
+                                     remat=bool(cfg.TPU.REMAT),
+                                     fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False))))
+    for r in modes.values():
+        r["epoch"].release()
+    del modes
+    torch.cuda.empty_cache()
+    return res
+
+
+def pk_rows(pids: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """``n`` PK rows (P_IDS identities × K_INST images) of indices into ``pids``."""
+    rng = np.random.default_rng(seed)
+    ids = np.unique(pids)
+    return np.stack([np.concatenate([rng.choice(np.flatnonzero(pids == i), K_INST, replace=False)
+                                     for i in rng.choice(ids, P_IDS, replace=False)])
+                     for _ in range(n)])
+
+
+def run_compiled_epochs(market_loader, market_data) -> dict:
+    """Phase 17 (module docstring): 17a stage 1a and 1b; 17b
+    configs/person/vit_base.yml over phase 11's resident Market-1501-size
+    set, SOLVER.FUSED_ADAM off and on; 17c MoE 2a and 2b under
+    configs/tpu/uniprompt_tuned.yml, 2b with MODEL.MOE.DROPOUT; 17d 17b and
+    the MoE 2b case with TPU.REMAT on."""
+    out = {}
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    cfg = uniprompt_cfg()
+    model = make_model_uniprompt(cfg, num_class=UNI_CLASSES, camera_num=14, view_num=UNI_VIEWS)
+    images, pids, views = uniprompt_images()
+    bank = build_image_bank(cfg, model, ShuffledLoader(MemoryBatcher(images, pids, BATCH, views),
+                                                       int(cfg.SOLVER.SEED)))
+    for stage in ("1a", "1b"):
+        out[f"17a_{stage}"] = graph_stage1(model, cfg, bank, stage)
+    del model, bank
+    torch.cuda.empty_cache()
+    log(f"  17a seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    seed = int(vit_base_cfg().SOLVER.SEED)
+
+    def market_rows(e):
+        return epoch_perm(market_loader, e, seed)
+
+    for remat, fused in ((False, False), (False, True), (True, False)):
+        cfg = remat_cfg(vit_base_cfg(device=CARD), remat)
+        cfg.TPU.DEVICE_DATASET = True
+        cfg.SOLVER.FUSED_ADAM = fused
+        model = make_model(cfg, num_class=MARKET_TRAIN["ids"], camera_num=MARKET_TRAIN["cams"],
+                           view_num=1)
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, MARKET_TRAIN["ids"])
+        key = "17d_vit_remat" if remat else f"17b_vit_fused_adam_{'on' if fused else 'off'}"
+        out[key] = graph_train(
+            f"{key[:3]} configs/person/vit_base.yml + TPU.DEVICE_DATASET (Market-1501 size), "
+            f"FUSED_ADAM {'on' if fused else 'off'}, REMAT {'on' if remat else 'off'}",
+            cfg, model, loss_fn, "baseline", cfg.SOLVER, {}, market_data, market_rows,
+            {"attention_fwd": depth * (2 if remat else 1), "attention_bwd": depth,
+             "adam": ADAM_LEAVES if fused else 0})
+        del model
+        torch.cuda.empty_cache()
+    log(f"  17b/17d ViT seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    images, pids = train_images(seed=47)
+    data = [torch.from_numpy(images).to(CARD), torch.from_numpy(pids).to(CARD),
+            *(torch.zeros(len(pids), dtype=torch.int32, device=CARD) for _ in range(2))]
+    del images
+    weights, text = None, None
+    for key, stage, dropout, remat in (("17c_moe_2a", "2a", 0.0, False),
+                                       ("17c_moe_2b_dropout", "2b", GRAPH_MOE_DROPOUT, False),
+                                       ("17d_moe_2b_dropout_remat", "2b", GRAPH_MOE_DROPOUT, True)):
+        cfg = remat_cfg(tuned_cfg(), remat)
+        cfg.MODEL.MOE.DROPOUT = dropout
+        if weights is None:
+            model = make_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+            weights = host_copy(model.state_dict())
+            text = precompute_text_features(cfg, model, UNI_CLASSES)
+        else:
+            model = build_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+            model.load_state_dict(weights, strict=True)
+            model = model.to(CARD).eval()
+        depth = len(model.image_encoder.transformer.resblocks)
+        loss_fn, _ = make_loss(cfg, UNI_CLASSES)
+        out[key] = graph_train(
+            f"{key[:3]} MoE stage {stage} (configs/tpu/uniprompt_tuned.yml, MoE 4/2/2, bf16 "
+            f"moments), dropout {dropout}, REMAT {'on' if remat else 'off'}",
+            cfg, model, loss_fn, f"stage{stage}", cfg.SOLVER.STAGE2,
+            dict(uniprompt=True, text_features=text), data,
+            lambda e: pk_rows(pids, GRAPH_ROWS["vit"], seed=e),
+            {"attention_fwd": depth * (2 if remat else 1), "attention_bwd": depth})
+        del model
+        torch.cuda.empty_cache()
+    log(f"  17c/17d MoE seconds {time.perf_counter() - t0:.1f}")
+    del data, text
+    torch.cuda.synchronize()
+    log(f"  17 allocated before the phase {held / 1e9:.3f} GB, after it "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB (the resident Market set included)")
+    return out
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -4080,6 +4480,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"  device-epoch phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("compiled epochs (17a stage 1, 17b ViT device epoch, 17c MoE 2a/2b, 17d remat) as "
+        "CUDA graphs against the step loop, full width:")
+    t0 = time.perf_counter()
+    graph_res = run_compiled_epochs(epoch_res.pop("loader"), epoch_res.pop("data"))
+    torch.cuda.empty_cache()
+    log(f"  compiled-epoch phase seconds {time.perf_counter() - t0:.1f}")
+
     log("CLIP weights from a local file, and the RN50 backbone, full width:")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4153,6 +4560,8 @@ def main() -> None:
             "launches_uniprompt": {k: v[name] for k, v in uni_launches.items()},
             "launches_vehicle": vehicle_res["launches"][name],
             "launches_device_epoch_do_train": epoch_res["res"]["launches"][name],
+            "launches_per_replayed_step": {k: v["launches_per_replayed_step"][name]
+                                           for k, v in graph_res.items()},
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
@@ -4230,6 +4639,10 @@ def main() -> None:
             "per_rank_fused_dp_step": dp_res["14b"]["fused"]["launches"]["adam"],
             "per_rank_zero_slices_3_steps": dp_res["14c"]["launches"][0]["adam"]},
         "launches_model_axis": {"per_rank_fused_tp_step": mp_res["15a"]["adam_launches"]},
+        "launches_per_replayed_step": graph_res["17b_vit_fused_adam_on"][
+            "launches_per_replayed_step"]["adam"],
+        "bit_equal_repeats": all(r["bit_equal_repeat"] for r in adam_rows),
+        "scalars": "[lr*mult, 1-b1^t, 1-b2^t] fp32, read from device memory",
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",

@@ -15,7 +15,10 @@ PyTorch.
 ``TPU.DEVICE_DATASET``: every train record is decoded once and the uint8
 images and labels live on the model's device (``build_device_dataset``);
 each epoch is one ``steps.make_train_epoch`` call over ``epoch_perm``'s
-index matrix, with no upload or host decode inside it. ``TPU.PROFILE_DIR``
+index matrix, with no upload or host decode inside it: on the card its
+step is captured once into a CUDA graph and replayed for every batch
+(``engine/compiled.py``), and the graph is released when the loop ends.
+``TPU.PROFILE_DIR``
 writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
 steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
 the whole second epoch, into that directory.
@@ -449,6 +452,8 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
         start_epoch, epochs, solver.LOG_PERIOD, solver.CHECKPOINT_PERIOD, solver.EVAL_PERIOD,
         lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
         logger, train_epoch, cfg.TPU.PROFILE_DIR, optimizer, mesh)
+    if train_epoch is not None:
+        train_epoch.release()
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

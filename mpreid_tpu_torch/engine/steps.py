@@ -22,10 +22,17 @@ Over a mesh with a model axis (``parallel/mesh.py::shard_module`` has
 sliced the model) the layers meet through the Megatron pair, so the ranks
 of a model group compute the same replicated loss; a replicated parameter's
 gradient comes out whole and equal on each of them, and a sliced one's is
-the rank's slice. Gradients are then summed over the data group only. The
-whole-epoch scans of
-``TPU.DEVICE_DATASET`` (``make_train_epoch``) and of stage 1
-(``make_stage1_epoch``) are Python loops over the steps here.
+the rank's slice. Gradients are then summed over the data group only.
+
+The whole-epoch scans of ``TPU.DEVICE_DATASET`` (``make_train_epoch``) and
+of stage 1 (``make_stage1_epoch``) run their step body through
+``engine/compiled.py``: on the card it is captured once into a CUDA graph
+(after two eager warm-up steps) and replayed for every batch of the epoch,
+so the epoch makes no host round-trip and issues no kernel from Python; on
+the CPU the same body runs eagerly. The body gathers its batch on the
+device from the epoch's index row, and reads its lr and step from the
+optimizer state's device buffers (``solver/optim.py``), so an epoch gives
+the step loop's results bit for bit.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from mpreid_tpu_torch.parallel import collectives as C
 from mpreid_tpu_torch.parallel.mesh import global_batch
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
 
+from .compiled import CompiledEpoch
 from .train_state import TrainState
 
 
@@ -174,9 +182,10 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
 def _make_step_body(model, cfg, loss_fn: Callable, optimizer, center_weight, center_lr,
                     uniprompt: bool, text_features, mesh=None):
     """The body shared by ``make_train_step`` and ``make_train_epoch`` (ref
-    ``_train_step_impl``): ``body(state, images, target, cam, view, lr, gen)``
+    ``_train_step_impl``): ``body(state, images, target, cam, view, gen)``
     on device tensors augments the uint8 batch with ``gen``, takes the loss
-    and gradients and updates the state in place → (state, {"loss", "acc"}).
+    and gradients and updates the state in place, at the lr in
+    ``state.opt_state.lr`` → (state, {"loss", "acc"}).
 
     With ``mesh`` (data parallel over more than one rank) the batch is this
     rank's block of the global one: it takes its rows of the global batch's
@@ -191,15 +200,15 @@ def _make_step_body(model, cfg, loss_fn: Callable, optimizer, center_weight, cen
     center_opt = CenterOptimizer(center_lr, center_weight) if center_weight is not None else None
     text = text_features.to(device) if uniprompt and text_features is not None else None
 
-    def body(state: TrainState, images, target, cam, view, lr: float, gen: torch.Generator):
+    def body(state: TrainState, images, target, cam, view, gen: torch.Generator):
         x = train_augment(images, gen, **aug, shard=shard)
         loss, acc, grads, cgrad = loss_and_grads(
             state.model, cfg, loss_fn, optimizer, x, target.long(), cam, view,
             state.centers, center_weight, text, gen, mesh)
         if center_opt is not None:
-            state.centers = center_opt.update(cgrad, state.centers).detach()
+            center_opt.update(cgrad, state.centers)
         train, _ = optimizer.partition(state.model)
-        state.opt_state = optimizer.update(grads, state.opt_state, train, lr)
+        optimizer.update(grads, state.opt_state, train)
         return state, {"loss": loss, "acc": acc}
 
     return body
@@ -228,11 +237,21 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
                            uniprompt, text_features, mesh)
 
     def step(state: TrainState, batch, lr: float, gen: torch.Generator):
+        optimizer.set_lr(state.opt_state, lr)
         cam, view = (_to(device, a) for a in labels_for(cfg, batch))
         return body(state, _to(device, batch["images"]), _to(device, batch["pids"]), cam, view,
-                    lr, gen)
+                    gen)
 
     return step
+
+
+def state_tensors(state: TrainState) -> list:
+    """Every tensor of ``state`` a step reads or updates in place: the
+    model's parameters and buffers, the moments, the step, the lr and the
+    centers."""
+    opt = state.opt_state
+    return [*state.model.parameters(), *state.model.buffers(), *opt.mu.values(),
+            *opt.nu.values(), opt.step, opt.lr, *([] if state.centers is None else [state.centers])]
 
 
 def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
@@ -249,27 +268,38 @@ def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
     model's device (``processor.build_device_dataset``); ``perm`` is the
     (n_batches, B) index matrix of the epoch (``processor.epoch_perm``),
     uploaded once. For each row the batch is gathered on the device by
-    index and goes through the step's own body, so from the same state and
-    generator the epoch equals ``make_train_step`` over the same batches bit
-    for bit. Losses and accuracies stay on the device until the epoch ends:
-    nothing in the epoch waits for it."""
+    index and goes through the step's own body (``_make_step_body``), run
+    by ``compiled.CompiledEpoch``: on the card two eager warm-up steps, then
+    one captured CUDA graph replayed for every later row (and every row of
+    later epochs); on the CPU the body, eagerly. From the same state and
+    generator the epoch equals ``make_train_step`` over the same batches
+    bit for bit. Losses and accuracies stay on the device until the epoch
+    ends: nothing in the epoch waits for it. ``epoch.release()`` frees the
+    graph; ``epoch.compiled.stats`` counts captures, replays and eager
+    steps and holds the graph pool's bytes."""
     device = _device_of(model)
     body = _make_step_body(model, cfg, loss_fn, optimizer, center_weight, center_lr,
                            uniprompt, text_features)
     sie_cam, sie_view = cfg.MODEL.SIE_CAMERA, cfg.MODEL.SIE_VIEW
+    compiled = CompiledEpoch(device)
 
     def epoch(state: TrainState, images, pids, camids, trackids, perm, lr: float,
               gen: torch.Generator):
-        losses, accs = [], []
-        for idx in torch.as_tensor(perm).to(device):
+        optimizer.set_lr(state.opt_state, lr)
+
+        def step(idx):
             cam = camids.index_select(0, idx) if sie_cam else None
             view = trackids.index_select(0, idx) if sie_view else None
-            state, metrics = body(state, images.index_select(0, idx), pids.index_select(0, idx),
-                                  cam, view, lr, gen)
-            losses.append(metrics["loss"])
-            accs.append(metrics["acc"])
-        return state, (torch.stack(losses), torch.stack(accs))
+            _, metrics = body(state, images.index_select(0, idx), pids.index_select(0, idx),
+                              cam, view, gen)
+            return metrics["loss"], metrics["acc"]
 
+        losses, accs = compiled.run(step, perm, gen, [*state_tensors(state), images, pids,
+                                                      camids, trackids])
+        return state, (losses, accs)
+
+    epoch.compiled = compiled
+    epoch.release = compiled.release
     return epoch
 
 
@@ -331,19 +361,68 @@ def stage1_loss_and_grads(model, optimizer, stage: str, image_feats: torch.Tenso
     return loss.detach(), dict(zip(train, grads))
 
 
+def _make_stage1_body(optimizer, stage: str):
+    """The body shared by ``make_stage1_step`` and ``make_stage1_epoch``
+    (ref ``_stage1_step_impl``): ``body(state, image_feats, target, views)``
+    on device tensors takes ``stage1_loss_and_grads`` and updates the
+    contexts in place, at the lr in ``state.opt_state.lr`` → the loss."""
+
+    def body(state: TrainState, image_feats, target, views) -> torch.Tensor:
+        loss, grads = stage1_loss_and_grads(state.model, optimizer, stage, image_feats,
+                                            target, views)
+        train, _ = optimizer.partition(state.model)
+        optimizer.update(grads, state.opt_state, train)
+        return loss
+
+    return body
+
+
 def make_stage1_step(model, cfg, optimizer, stage: str):
     """Prompt-context step (ref processor_uniprompt_stage1.py:72-98) →
     ``step(state, image_feats, target, views, lr) → (state, {"loss"})``;
     ``stage`` is ``'1a'`` or ``'1b'``, ``views`` None in 1a."""
     device = _device_of(model)
+    body = _make_stage1_body(optimizer, stage)
 
     def step(state: TrainState, image_feats, target, views, lr: float):
-        target = _to(device, target).long()
+        optimizer.set_lr(state.opt_state, lr)
         views = None if views is None else _to(device, views).long()
-        loss, grads = stage1_loss_and_grads(state.model, optimizer, stage,
-                                            _to(device, image_feats), target, views)
-        train, _ = optimizer.partition(state.model)
-        state.opt_state = optimizer.update(grads, state.opt_state, train, lr)
+        loss = body(state, _to(device, image_feats), _to(device, target).long(), views)
         return state, {"loss": loss}
 
     return step
+
+
+def make_stage1_epoch(model, cfg, optimizer, stage: str):
+    """Whole stage-1 epoch (ref ``make_stage1_epoch``: one compiled scan,
+    no host round-trip) →
+    ``epoch(state, feats_bank, labels_bank, views_bank, perm, lr) →
+    (state, losses)``.
+
+    The bank (features, labels, views) lives on the model's device;
+    ``perm`` is the (n_batches, B) index matrix of the epoch's full
+    batches. Each row's bank rows are gathered on the device and go through
+    the step's own body (``_make_stage1_body``), run by
+    ``compiled.CompiledEpoch`` (a captured CUDA graph on the card, the body
+    eagerly on the CPU), so the epoch equals ``make_stage1_step`` over the
+    same rows bit for bit. The
+    views enter in ``'1b'`` only. ``losses`` (n_batches,) stay on the
+    device. ``epoch.release()`` frees the graph."""
+    body = _make_stage1_body(optimizer, stage)
+    compiled = CompiledEpoch(_device_of(model))
+
+    def epoch(state: TrainState, feats_bank, labels_bank, views_bank, perm, lr: float):
+        optimizer.set_lr(state.opt_state, lr)
+
+        def step(idx):
+            views = views_bank.index_select(0, idx).long() if stage == "1b" else None
+            return (body(state, feats_bank.index_select(0, idx),
+                         labels_bank.index_select(0, idx).long(), views),)
+
+        (losses,) = compiled.run(step, perm, None, [*state_tensors(state), feats_bank,
+                                                     labels_bank, views_bank])
+        return state, losses
+
+    epoch.compiled = compiled
+    epoch.release = compiled.release
+    return epoch

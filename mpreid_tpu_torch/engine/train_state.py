@@ -3,7 +3,8 @@ moments and step, and the center-loss centers.
 
 ref mpreid_tpu/engine/train_state.py::TrainState, ::initial_state. The JAX
 package threads an immutable pytree through its steps; the port updates
-the model and the moments in place and hands the same state back.
+the model, the moments, the step and the centers in place and hands the
+same state back (a captured step writes the same tensors every replay).
 """
 
 from __future__ import annotations
@@ -27,4 +28,8 @@ class TrainState:
 
 
 def initial_state(model, optimizer, centers: Optional[torch.Tensor] = None) -> TrainState:
-    return TrainState(model=model, opt_state=optimizer.init(model), centers=centers)
+    """The state of a run from ``model``: fresh moments and step, and a
+    copy of ``centers`` (the steps update the state's centers in place,
+    never the caller's tensor)."""
+    return TrainState(model=model, opt_state=optimizer.init(model),
+                      centers=None if centers is None else centers.detach().clone())

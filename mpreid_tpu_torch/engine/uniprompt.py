@@ -8,9 +8,12 @@ Stage 1 (a/b): an image-feature bank is built once with the frozen encoder
 and stays on the device; then only the prompt contexts train, with SupCon
 i2t + t2i over shuffled bank batches. Each epoch draws its order from
 ``np.random.default_rng(SOLVER.SEED)`` as the JAX package does, runs the
-full batches and then the trailing partial one, so both packages' epochs see
-the same batches; the views enter in 1b only. The JAX package's scanned epoch
-(``make_stage1_epoch``) is a Python loop of ``make_stage1_step`` here.
+full batches as one ``make_stage1_epoch`` call (one captured CUDA graph
+replayed per batch on the card, ``engine/compiled.py``) and then the
+trailing partial one through ``make_stage1_step``, so both packages' epochs
+see the same batches; the views enter in 1b only. The epoch's losses come
+back once, at its end, and are logged at the same iterations as the JAX
+package logs them.
 Stage 2 (a/b): text features of every class are computed once, then the
 model fine-tunes with ID + triplet + i2t losses (and, with the MoE tower,
 the load-balancing loss) under the stage's freeze policy, through the
@@ -50,7 +53,8 @@ from .processor import (
     data_parallel, do_inference, rank_logger, start_data_parallel, train_epochs,
 )
 from .steps import (
-    make_image_bank_step, make_stage1_step, make_text_step, make_train_epoch, make_train_step,
+    make_image_bank_step, make_stage1_epoch, make_stage1_step, make_text_step, make_train_epoch,
+    make_train_step,
 )
 from .train_state import initial_state
 
@@ -97,6 +101,7 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
     views_bank = torch.as_tensor(bank[2]).to(device).long()
 
     step = make_stage1_step(model, cfg, optimizer, stage)
+    epoch_fn = make_stage1_epoch(model, cfg, optimizer, stage)
     state = initial_state(model, optimizer)
     batch = stage_cfg.IMS_PER_BATCH
     num_image = labels_bank.shape[0]
@@ -108,30 +113,29 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
     for epoch in range(1, stage_cfg.MAX_EPOCHS + 1):
         loss_meter.reset()
         lr = scheduler(epoch)
-        perm = torch.from_numpy(rng.permutation(num_image)).to(device)
-        pending = []  # (device loss, rows), fetched only at log points
-
-        def drain():
-            for loss, rows in pending:
-                loss_meter.update(float(loss), rows)
-            pending.clear()
-
-        # the full batches, then the trailing partial one
-        for i, lo in enumerate(range(0, num_image, batch)):
-            sel = perm[lo:lo + batch]
+        perm = rng.permutation(num_image)
+        # the full batches as one compiled epoch ...
+        if i_ter > 0:
+            rows = perm[:i_ter * batch].reshape(i_ter, batch)
+            state, losses = epoch_fn(state, feats_bank, labels_bank, views_bank, rows, lr)
+            for i, loss in enumerate(losses.tolist()):
+                loss_meter.update(loss, batch)
+                if (i + 1) % stage_cfg.LOG_PERIOD == 0:
+                    log.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
+                        epoch, i + 1, i_ter + 1, loss_meter.avg, lr))
+        # ... and the trailing partial batch through the single step
+        rest = perm[i_ter * batch:]
+        if len(rest):
+            sel = torch.from_numpy(rest).to(device)
             state, metrics = step(state, feats_bank[sel], labels_bank[sel],
                                   views_bank[sel] if is_stage1b else None, lr)
-            pending.append((metrics["loss"], len(sel)))
-            if i < i_ter and (i + 1) % stage_cfg.LOG_PERIOD == 0:
-                drain()
-                log.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
-                    epoch, i + 1, i_ter + 1, loss_meter.avg, lr))
-        drain()
+            loss_meter.update(float(metrics["loss"]), len(rest))
         history.append({"epoch": epoch, "loss": loss_meter.avg})
         if cfg.OUTPUT_DIR and epoch % stage_cfg.CHECKPOINT_PERIOD == 0 and is_main():
             name = f"{cfg.MODEL.NAME}_stage{stage}_{epoch}.pth"
             save_checkpoint(os.path.join(cfg.OUTPUT_DIR, name), state, epoch, cfg)
 
+    epoch_fn.release()
     log.info(f"Stage {stage} running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history
@@ -181,6 +185,8 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
         checkpoint_period or s2.CHECKPOINT_PERIOD, eval_period or s2.EVAL_PERIOD,
         lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger,
         train_epoch, optimizer=optimizer, mesh=mesh)
+    if train_epoch is not None:
+        train_epoch.release()  # before a later stage captures its own
     log.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

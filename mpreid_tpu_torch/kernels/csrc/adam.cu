@@ -11,10 +11,14 @@
 //   st = st + (lr * wd) * p                  decoupled decay (AdamW) only
 //   p  = p - st
 // with lr = lr * per-leaf multiplier, bc1 = 1 - b1^t and bc2 = 1 - b2^t
-// passed as arguments, the step taken with the fresh fp32 moments, and m
-// and v stored as fp32 or bf16 (rounded to nearest even). Each operation is
-// rounded on its own (the _rn intrinsics: no fused multiply-add), so the
-// kernel gives the plain PyTorch version's bits.
+// read from a device array of three fp32 values, [lr, bc1, bc2], as the TPU
+// kernel reads them from SMEM: the step's scalars are formed on the device,
+// so a CUDA graph that replays the update reads each step's own. lr * wd is
+// formed here from lr with one rounded multiply. The step is taken with the
+// fresh fp32 moments, and m and v are stored as fp32 or bf16 (rounded to
+// nearest even). Each operation is rounded on its own (the _rn intrinsics:
+// no fused multiply-add), so the kernel gives the plain PyTorch version's
+// bits.
 //
 // Bound on an H100 SXM (3.35 TB/s): 28 bytes per element with fp32 moments
 // (16 read, 12 written), 20 with bf16 moments, and about 15 flops, so it is
@@ -35,17 +39,23 @@ constexpr int kVec = 8;
 constexpr long long kMaxBlocks = 132 * 16;
 
 struct Scalars {
-  float lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd, lr_wd;
+  float b1, omb1, b2, omb2, eps, wd;
   int decoupled;
 };
 
-__device__ __forceinline__ void adam_one(float& p, float& m, float& v, float g, const Scalars& s) {
+// the step's scalars, read once by every thread from the device array
+struct StepScalars {
+  float lr, bc1, bc2, lr_wd;
+};
+
+__device__ __forceinline__ void adam_one(float& p, float& m, float& v, float g, const Scalars& s,
+                                         const StepScalars& t) {
   if (!s.decoupled) g = __fadd_rn(g, __fmul_rn(s.wd, p));
   m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
   v = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(s.omb2, __fmul_rn(g, g)));
-  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.bc2)), s.eps);
-  float step = __fdiv_rn(__fmul_rn(s.lr, __fdiv_rn(m, s.bc1)), den);
-  if (s.decoupled) step = __fadd_rn(step, __fmul_rn(s.lr_wd, p));
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, t.bc2)), s.eps);
+  float step = __fdiv_rn(__fmul_rn(t.lr, __fdiv_rn(m, t.bc1)), den);
+  if (s.decoupled) step = __fadd_rn(step, __fmul_rn(t.lr_wd, p));
   p = __fsub_rn(p, step);
 }
 
@@ -91,7 +101,10 @@ __device__ __forceinline__ void from_float(float x, __nv_bfloat16* dst) { *dst =
 template <typename M>
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(float* __restrict__ p, M* __restrict__ m, M* __restrict__ v,
-            const float* __restrict__ g, long long n, Scalars s) {
+            const float* __restrict__ g, long long n, const float* __restrict__ step_scalars,
+            Scalars s) {
+  const StepScalars t{step_scalars[0], step_scalars[1], step_scalars[2],
+                      __fmul_rn(step_scalars[0], s.wd)};
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long nvec = n / kVec;
@@ -103,14 +116,14 @@ adam_kernel(float* __restrict__ p, M* __restrict__ m, M* __restrict__ v,
     load8(v + o, vv);
     load8(g + o, gv);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) adam_one(pv[k], mv[k], vv[k], gv[k], s);
+    for (int k = 0; k < kVec; ++k) adam_one(pv[k], mv[k], vv[k], gv[k], s, t);
     store8(p + o, pv);
     store8(m + o, mv);
     store8(v + o, vv);
   }
   for (long long i = nvec * kVec + tid; i < n; i += stride) {
     float pe = p[i], me = to_float(m[i]), ve = to_float(v[i]);
-    adam_one(pe, me, ve, g[i], s);
+    adam_one(pe, me, ve, g[i], s, t);
     p[i] = pe;
     from_float(me, m + i);
     from_float(ve, v + i);
@@ -118,14 +131,14 @@ adam_kernel(float* __restrict__ p, M* __restrict__ m, M* __restrict__ v,
 }
 
 template <typename M>
-int launch(void* p, void* m, void* v, const void* g, long long n, const Scalars& s,
-           cudaStream_t stream) {
+int launch(void* p, void* m, void* v, const void* g, long long n, const float* step_scalars,
+           const Scalars& s, cudaStream_t stream) {
   long long blocks = (n / kVec + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   adam_kernel<M><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<float*>(p), static_cast<M*>(m), static_cast<M*>(v),
-      static_cast<const float*>(g), n, s);
+      static_cast<const float*>(g), n, step_scalars, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,17 +148,20 @@ extern "C" {
 
 // p and g are contiguous fp32 arrays of n elements; m and v are contiguous
 // arrays of n fp32 (moments_bf16 = 0) or bf16 (moments_bf16 = 1) elements;
-// all four are 16-byte aligned. p, m and v are updated in place. omb1 and
-// omb2 are 1 - b1 and 1 - b2 and lr_wd is lr * wd, rounded to fp32 by the
-// caller. Launches on `stream` and returns cudaGetLastError() (0 on success).
+// all four are 16-byte aligned. p, m and v are updated in place.
+// step_scalars is a device array of three fp32 values, [lr * multiplier,
+// 1 - b1^t, 1 - b2^t], read when the kernel runs. omb1 and omb2 are 1 - b1
+// and 1 - b2, rounded to fp32 by the caller. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 int mpreid_adam(void* p, void* m, void* v, const void* g, long long n, int moments_bf16,
-                float lr, float bc1, float bc2, float b1, float omb1, float b2, float omb2,
-                float eps, float wd, float lr_wd, int decoupled, void* stream) {
+                const void* step_scalars, float b1, float omb1, float b2, float omb2,
+                float eps, float wd, int decoupled, void* stream) {
   if (n <= 0) return 0;
-  const Scalars s{lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd, lr_wd, decoupled};
+  const Scalars s{b1, omb1, b2, omb2, eps, wd, decoupled};
+  const float* t = static_cast<const float*>(step_scalars);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return moments_bf16 ? launch<__nv_bfloat16>(p, m, v, g, n, s, st)
-                      : launch<float>(p, m, v, g, n, s, st);
+  return moments_bf16 ? launch<__nv_bfloat16>(p, m, v, g, n, t, s, st)
+                      : launch<float>(p, m, v, g, n, t, s, st);
 }
 
 }  // extern "C"

@@ -29,13 +29,18 @@ forward leaves it, and it re-enters the forward's
 ``parallel.mesh.global_batch`` (the backward runs outside it), so a
 data-parallel recompute draws the global batch's mask too. Collectives
 inside a block (tensor-parallel towers, expert parallelism) run again in
-the recompute, in the same order on every rank.
+the recompute, in the same order on every rank. A CUDA graph cannot read or
+set a generator's state while it is captured, so a captured step
+(``engine/compiled.py``) draws each recompute from a clone of the step
+generator registered with the graph and placed, before every replay, where
+the step generator stands at that block's forward (``RematDraws``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -172,6 +177,86 @@ def _plain(block: nn.Module, x: torch.Tensor, **kw):
     return block(x, **kw)
 
 
+class RematDraws:
+    """The recompute draws of a captured step's rematerialised blocks.
+
+    Eagerly the recompute draws from a generator set to a snapshot of the
+    step generator ``gen`` taken before the block. Under CUDA graph capture
+    a generator's state is read from device memory at each replay, and a
+    snapshot taken on the host would be the capture's, so instead: an eager
+    step measures how far ``gen`` has advanced within the step at each
+    rematerialised block's forward (``recording``), since a generator's
+    state cannot be cloned inside a capture and a registered clone draws
+    from its own host offset at each replay; one clone of ``gen``
+    per such block is registered with the graph (``register``); in the
+    capture each block's recompute draws from its clone (``capturing``);
+    and before every replay each clone is put at ``gen``'s offset plus its
+    block's (``before_replay``), where the forward's draws start. The
+    forward itself draws from ``gen``, so it advances as without remat."""
+
+    _active: Optional["RematDraws"] = None
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self.mode = ""
+        self.offsets: List[int] = []  # each block's start within the step
+        self.clones: List[torch.Generator] = []
+        self._start = 0
+        self._next = 0
+
+    @contextlib.contextmanager
+    def _as(self, mode: str):
+        RematDraws._active, self.mode = self, mode
+        try:
+            yield self
+        finally:
+            RematDraws._active, self.mode = None, ""
+
+    @contextlib.contextmanager
+    def recording(self):
+        """An eager step that measures each block's offset."""
+        self.offsets, self._start = [], self.gen.get_offset()
+        with self._as("record"):
+            yield self
+
+    def register(self, graph) -> None:
+        self.clones = [self.gen.clone_state() for _ in self.offsets]
+        for clone in self.clones:
+            graph.register_generator_state(clone)
+
+    @contextlib.contextmanager
+    def capturing(self):
+        self._next = 0
+        with self._as("capture"):
+            yield self
+        if self._next != len(self.clones):
+            raise RuntimeError(f"the captured step rematerialised {self._next} blocks with the "
+                               f"step generator; the eager step {len(self.clones)}")
+
+    def before_replay(self) -> None:
+        seed, base = self.gen.initial_seed(), self.gen.get_offset()
+        for clone, offset in zip(self.clones, self.offsets):
+            clone.manual_seed(seed)
+            clone.set_offset(base + offset)
+
+    @staticmethod
+    def active_for(gen) -> Optional["RematDraws"]:
+        draws = RematDraws._active
+        return draws if draws is not None and gen is not None and draws.gen is gen else None
+
+    def recompute_generator(self) -> Optional[torch.Generator]:
+        """At a block's forward: under ``recording`` note its offset (None);
+        under ``capturing`` the clone its recompute draws from."""
+        if self.mode == "record":
+            self.offsets.append(self.gen.get_offset() - self._start)
+            return None
+        if self._next >= len(self.clones):
+            raise RuntimeError("the captured step rematerialises more blocks with the step "
+                               "generator than the eager step did")
+        self._next += 1
+        return self.clones[self._next - 1]
+
+
 def rematerialised(block: nn.Module, x: torch.Tensor, **kw):
     """``block(x, **kw)`` under ``torch.utils.checkpoint`` (non-reentrant):
     its activations are recomputed in the backward. A ``gen`` in ``kw`` (the
@@ -181,13 +266,17 @@ def rematerialised(block: nn.Module, x: torch.Tensor, **kw):
     ``global_batch`` mesh. No global RNG is touched, so none is stashed."""
     mesh = batch_mesh()
     gen = kw.get("gen")
-    snapshot = None if gen is None else gen.get_state()
+    draws = RematDraws.active_for(gen)
+    captured = draws.recompute_generator() if draws is not None else None
+    snapshot = None if gen is None or captured is not None else gen.get_state()
     forwarded = False
 
     def run(x):
         nonlocal forwarded
         args = kw
-        if forwarded and gen is not None:  # the recompute: the forward's draws again
+        if forwarded and captured is not None:  # a captured recompute (RematDraws)
+            args = dict(kw, gen=captured)
+        elif forwarded and gen is not None:  # the recompute: the forward's draws again
             args = dict(kw, gen=torch.Generator(device=gen.device))
             args["gen"].set_state(snapshot)
         forwarded = True

@@ -11,8 +11,14 @@ or raises; on CPU tensors it runs ``adam_leaf_plain``, the same math in
 plain PyTorch. Coupled L2 (Adam) folds ``wd·p`` into the gradient;
 decoupled decay (AdamW) adds ``lr·wd·p`` to the step. The moments update
 in fp32 and are stored as fp32 or bf16; the step uses the fresh fp32
-moments. The solver uses the kernel for leaves of at least
-``MIN_FUSED_SIZE`` elements when ``SOLVER.FUSED_ADAM`` is on.
+moments. The step's scalars come as one fp32 tensor of three values on the
+leaf's device, ``scalars`` = [lr·mult, 1 − b1^t, 1 − b2^t], as the TPU
+kernel reads them from SMEM: the kernel reads them from device memory when
+it runs and the plain version takes them as 0-dim tensors, so neither
+bakes a step's values into a CUDA graph that replays it
+(``engine/compiled.py``). The solver forms them on the device
+(``solver/optim.py::Optimizer.step_scalars``) and uses the kernel for leaves
+of at least ``MIN_FUSED_SIZE`` elements when ``SOLVER.FUSED_ADAM`` is on.
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 # leaves below this many elements stay on the plain path (as in the JAX package)
@@ -29,12 +34,14 @@ MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def adam_leaf_plain(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                    lr: float, bc1: float, bc2: float, b1: float, b2: float, eps: float,
+                    scalars: torch.Tensor, b1: float, b2: float, eps: float,
                     wd: float, decoupled: bool) -> None:
     """The kernel's function in plain PyTorch, in place under ``no_grad``.
 
-    ``lr`` is the base lr times the leaf's multiplier; ``bc1``/``bc2`` are
-    ``1 - b1**t`` and ``1 - b2**t``."""
+    ``scalars`` is the fp32 tensor [lr·mult, 1 − b1^t, 1 − b2^t] (the base
+    lr times the leaf's multiplier and the two bias corrections); its values
+    are read as 0-dim tensors, never as Python floats."""
+    lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
     with torch.no_grad():
         if not decoupled:
             g = g + wd * p  # coupled L2 (torch Adam)
@@ -42,15 +49,10 @@ def adam_leaf_plain(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.
         v32 = b2 * v.float() + (1 - b2) * (g * g)
         step = lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
         if decoupled:
-            step = step + _lr_wd(lr, wd) * p  # torch AdamW decays with the group's lr
+            step = step + (lr * wd) * p  # torch AdamW decays with the group's lr
         p.sub_(step)
         m.copy_(m32)
         v.copy_(v32)
-
-
-def _lr_wd(lr: float, wd: float) -> float:
-    """lr·wd as the JAX package's fp32 scalar product."""
-    return float(np.float32(lr) * np.float32(wd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,13 +61,13 @@ def _library() -> ctypes.CDLL:
 
     lib = build.load("adam")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mpreid_adam.argtypes = [p, p, p, p, ctypes.c_longlong, i,
-                                f, f, f, f, f, f, f, f, f, f, i, p]
+    lib.mpreid_adam.argtypes = [p, p, p, p, ctypes.c_longlong, i, p,
+                                f, f, f, f, f, f, i, p]
     lib.mpreid_adam.restype = i
     return lib
 
 
-def _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled) -> None:
+def _launch_cuda(p, m, v, g, scalars, b1, b2, eps, wd, decoupled) -> None:
     if p.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"fused_adam_leaf takes fp32 p and g, got {p.dtype} and {g.dtype}")
     if m.dtype not in MOMENT_DTYPES or v.dtype != m.dtype:
@@ -78,13 +80,18 @@ def _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled) -> None:
         raise ValueError("fused_adam_leaf needs p, m, v and g on one device")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError("fused_adam_leaf needs contiguous, 16-byte aligned tensors")
+    if (scalars.dtype != torch.float32 or scalars.shape != (3,) or not scalars.is_contiguous()
+            or scalars.device != p.device):
+        raise ValueError("fused_adam_leaf takes scalars as a contiguous fp32 tensor of 3 values "
+                         f"on the leaf's device, got {scalars.dtype} {tuple(scalars.shape)} on "
+                         f"{scalars.device}")
     cap = torch.cuda.get_device_capability(p.device)
     if cap != (9, 0):
         raise RuntimeError(f"the Adam kernel is built for sm_90a; device capability is {cap}")
     rc = _library().mpreid_adam(
         p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), p.numel(),
-        int(m.dtype == torch.bfloat16), lr, bc1, bc2, b1, 1 - b1, b2, 1 - b2, eps, wd,
-        _lr_wd(lr, wd), int(bool(decoupled)), torch.cuda.current_stream(p.device).cuda_stream,
+        int(m.dtype == torch.bfloat16), scalars.data_ptr(), b1, 1 - b1, b2, 1 - b2, eps, wd,
+        int(bool(decoupled)), torch.cuda.current_stream(p.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"Adam kernel launch failed with CUDA error {rc}")
@@ -92,7 +99,7 @@ def _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled) -> None:
 
 
 def fused_adam_leaf(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                    lr: float, bc1: float, bc2: float, b1: float, b2: float, eps: float,
+                    scalars: torch.Tensor, b1: float, b2: float, eps: float,
                     wd: float, decoupled: bool) -> None:
     """One leaf's Adam/AdamW update, in place (arguments as ``adam_leaf_plain``).
 
@@ -100,10 +107,10 @@ def fused_adam_leaf(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.
     current stream) and count one launch in ``fused_adam_leaf.launches``;
     CPU tensors run ``adam_leaf_plain``."""
     if p.device.type == "cpu":
-        return adam_leaf_plain(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled)
+        return adam_leaf_plain(p, m, v, g, scalars, b1, b2, eps, wd, decoupled)
     if p.device.type != "cuda":
         raise RuntimeError(f"fused_adam_leaf runs on cuda or cpu, not {p.device}")
-    return _launch_cuda(p, m, v, g, lr, bc1, bc2, b1, b2, eps, wd, decoupled)
+    return _launch_cuda(p, m, v, g, scalars, b1, b2, eps, wd, decoupled)
 
 
 fused_adam_leaf.launches = 0

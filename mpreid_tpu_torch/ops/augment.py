@@ -15,10 +15,14 @@ Its draws come from an explicit ``torch.Generator`` on the batch's device
 (``train_augment_draws``); ``train_augment_with_draws`` applies given draws,
 so a test can feed it the JAX package's. As there, the erase rectangle is
 drawn once and clamped into the image instead of timm's up-to-10 retries.
+The train path copies nothing from the host: its per-channel mean and std
+are made on the device once (``channel_values``), so a CUDA graph can
+capture it (``engine/compiled.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -27,6 +31,13 @@ import torch
 MIN_ERASE_AREA = 0.02
 MAX_ERASE_AREA = 1.0 / 3.0
 MIN_ERASE_ASPECT = 0.3
+
+
+@functools.lru_cache(maxsize=None)
+def channel_values(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an fp32 tensor on ``device``, made at first use and
+    kept."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -96,7 +107,7 @@ def train_augment_with_draws(images_u8: torch.Tensor, flip: torch.Tensor, offset
         cols = offsets[:, 1, None] + torch.arange(w, device=x.device)  # (B, W)
         bidx = torch.arange(b, device=x.device)[:, None, None]
         x = padded[bidx, rows[:, :, None], cols[:, None, :]]
-    x = (x - torch.tensor(mean, device=x.device)) / torch.tensor(std, device=x.device)
+    x = (x - channel_values(tuple(mean), x.device)) / channel_values(tuple(std), x.device)
     y0, x0, eh, ew = (rect[:, i, None, None] for i in range(4))
     rr = torch.arange(h, device=x.device)[None, :, None]
     cc = torch.arange(w, device=x.device)[None, None, :]

@@ -41,11 +41,11 @@ this rank's slices.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from mpreid_tpu_torch.solver.optim import Optimizer, OptState
+from mpreid_tpu_torch.solver.optim import Optimizer, OptState, device_step, named_params
 
 from . import collectives as C
 from .collectives import ALIGN
@@ -83,25 +83,30 @@ class ZeroOptimizer(Optimizer):
                                      memory_format=torch.contiguous_format)
                     for k, p in train.items()}
 
-        return OptState(step=0, mu=zeros(), nu=zeros())
+        step, lr = device_step(next(iter(named_params(params).values())).device)
+        return OptState(step=step, mu=zeros(), nu=zeros(), lr=lr)
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
-               train: Mapping[str, torch.Tensor], lr: float) -> OptState:
-        t = state.step + 1
+               train: Mapping[str, torch.Tensor], lr: Optional[float] = None) -> OptState:
+        if lr is not None:
+            self.set_lr(state, lr)
+        state.step.add_(1)
+        table = self.step_scalars(state)
         for k, p in train.items():
             fused = self.kernel_route(p)
+            scalars = table[self.lr_mult[k]]
             if k not in self.zero_keys:
-                self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k], lr, t, fused)
+                self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k], scalars, fused)
                 continue
             lo, hi, _ = self.span(p.numel())
             if hi > lo:
                 self.update_leaf(k, p.view(-1)[lo:hi], state.mu[k][:hi - lo],
-                                 state.nu[k][:hi - lo], grads[k].reshape(-1)[lo:hi], lr, t,
+                                 state.nu[k][:hi - lo], grads[k].reshape(-1)[lo:hi], scalars,
                                  fused)
         zeroed = {k: p for k, p in train.items() if k in self.zero_keys}
         self._gather_slices(zeroed, lambda k, lo, hi: zeroed[k].view(-1)[lo:hi])
-        return OptState(step=t, mu=state.mu, nu=state.nu)
+        return state
 
     def _gather_slices(self, leaves: Mapping[str, torch.Tensor], local) -> None:
         """Every rank's slice of each of ``leaves`` written into the leaf on
@@ -141,7 +146,7 @@ class ZeroOptimizer(Optimizer):
             self._gather_slices({k: full[k] for k in train if k in self.zero_keys},
                                 lambda k, lo, hi, m=moments: m[k][:hi - lo])
             out[name] = full
-        return OptState(step=state.step, mu=out["mu"], nu=out["nu"])
+        return state._replace(mu=out["mu"], nu=out["nu"])
 
     def sharded(self, name: str, moment: torch.Tensor) -> torch.Tensor:
         """This rank's slice of leaf ``name``'s whole moment (as

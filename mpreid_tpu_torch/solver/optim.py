@@ -24,14 +24,24 @@ the fresh fp32 moments. With ``FUSED_ADAM`` on, CUDA leaves of at least
 gradients nor moments. ``update_leaf`` is one leaf's update, on the whole
 leaf or on a flat slice of it with the route of the whole leaf: the hook
 ZeRO-1 (``parallel/zero.py``) updates its slices through.
+
+The step lives on the device, as the JAX optimizer's traced step count
+does: ``OptState.step`` is an int32 counter and ``OptState.lr`` an fp32
+buffer holding the step's base lr, both on the parameters' device.
+``update`` counts the step in place and forms each leaf's scalars from the
+two on the device (``step_scalars``: [lr·mult, 1 − b1^t, 1 − b2^t], as
+``mpreid_tpu/solver/optim.py:258-272``), so no Python number of a step
+enters its kernels: a CUDA graph that captured one update replays every
+later one with its own step and lr (``engine/compiled.py``), and the eager
+step takes the same route. ``set_lr`` writes the lr; ``update(..., lr)``
+writes it first.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from mpreid_tpu_torch.ops.adam import MIN_FUSED_SIZE, adam_leaf_plain, fused_adam_leaf
@@ -105,14 +115,16 @@ def group_trees(params, stage_cfg):
 
 
 class OptState(NamedTuple):
-    step: int                    # updates taken
+    step: torch.Tensor           # updates taken: a 0-dim int32 counter on the device
     mu: Dict[str, torch.Tensor]  # first moment / momentum buffer (trainable leaves)
     nu: Dict[str, torch.Tensor]  # second moment (trainable leaves)
+    lr: torch.Tensor             # the step's base lr: a 0-dim fp32 buffer on the device
 
 
-def _f32(x: float) -> float:
-    """``x`` rounded to fp32, as the JAX package's fp32 scalar arithmetic leaves it."""
-    return float(np.float32(x))
+def device_step(device, step: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(step counter, lr buffer) of an ``OptState`` on ``device``."""
+    return (torch.full((), step, dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.float32, device=device))
 
 
 class Optimizer:
@@ -155,16 +167,43 @@ class Optimizer:
                                         memory_format=torch.contiguous_format)
                     for k, p in train.items()}
 
-        return OptState(step=0, mu=zeros(), nu=zeros())
+        step, lr = device_step(next(iter(named_params(params).values())).device)
+        return OptState(step=step, mu=zeros(), nu=zeros(), lr=lr)
+
+    @staticmethod
+    @torch.no_grad()
+    def set_lr(state: OptState, lr: float) -> None:
+        """Write the base lr of the next steps into ``state.lr`` (fp32)."""
+        state.lr.fill_(lr)
+
+    @torch.no_grad()
+    def step_scalars(self, state: OptState) -> Dict[float, torch.Tensor]:
+        """``{lr multiplier: scalars}`` of the step ``state.step`` counts,
+        formed on the device from it and ``state.lr``: for Adam/AdamW the fp32
+        (3,) tensor [lr·mult, 1 − b1^t, 1 − b2^t] the leaf update takes; for
+        SGD the base lr itself."""
+        mults = sorted(set(self.lr_mult.values()))
+        if self.name == "SGD":
+            return dict.fromkeys(mults, state.lr)
+        t = state.step.float()
+        bc1 = 1 - torch.pow(self.b1, t)
+        bc2 = 1 - torch.pow(self.b2, t)
+        return {m: torch.stack([state.lr * m, bc1, bc2]) for m in mults}
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: OptState,
-               train: Mapping[str, torch.Tensor], lr: float) -> OptState:
-        t = state.step + 1
+               train: Mapping[str, torch.Tensor], lr: Optional[float] = None) -> OptState:
+        """One step in place: ``train`` and the moments updated, the step
+        counted in ``state.step`` → ``state``. With ``lr`` it is written into
+        ``state.lr`` first; without, the buffer's lr is taken."""
+        if lr is not None:
+            self.set_lr(state, lr)
+        state.step.add_(1)
+        scalars = self.step_scalars(state)
         for k, p in train.items():
-            self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k], lr, t,
-                             self.kernel_route(p))
-        return OptState(step=t, mu=state.mu, nu=state.nu)
+            self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k],
+                             scalars[self.lr_mult[k]], self.kernel_route(p))
+        return state
 
     def kernel_route(self, p: torch.Tensor) -> bool:
         """Whether leaf ``p``'s update takes the fused Adam kernel: Adam or
@@ -177,22 +216,20 @@ class Optimizer:
 
     @torch.no_grad()
     def update_leaf(self, k: str, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                    g: torch.Tensor, lr: float, t: int, fused: bool) -> None:
-        """Leaf ``k``'s step ``t`` in place, on ``p`` and its moments ``m``,
-        ``v`` with gradient ``g``, all of one shape: the whole leaf, or (ZeRO,
-        ``parallel/zero.py``) one flat slice of it. Every operation is
-        elementwise, so a slice's elements come out as the whole leaf's."""
+                    g: torch.Tensor, scalars: torch.Tensor, fused: bool) -> None:
+        """Leaf ``k``'s step in place, on ``p`` and its moments ``m``, ``v``
+        with gradient ``g``, all of one shape: the whole leaf, or (ZeRO,
+        ``parallel/zero.py``) one flat slice of it; ``scalars`` is the leaf's
+        entry of ``step_scalars``. Every operation is elementwise, so a
+        slice's elements come out as the whole leaf's."""
         if self.name == "SGD":
             g = g + self.wd[k] * p  # coupled L2 (torch SGD)
             mu32 = self.momentum * m.float() + g
-            p.sub_(lr * mu32 * self.lr_mult[k])
+            p.sub_(scalars * mu32 * self.lr_mult[k])
             m.copy_(mu32)
             return
-        bc1 = _f32(1 - np.float32(self.b1) ** np.float32(t))
-        bc2 = _f32(1 - np.float32(self.b2) ** np.float32(t))
-        lr_eff = _f32(np.float32(lr) * np.float32(self.lr_mult[k]))
         (fused_adam_leaf if fused else adam_leaf_plain)(
-            p, m, v, g.contiguous(), lr_eff, bc1, bc2, self.b1, self.b2, self.eps, self.wd[k],
+            p, m, v, g.contiguous(), scalars, self.b1, self.b2, self.eps, self.wd[k],
             self.name == "AdamW")
 
 
@@ -204,11 +241,15 @@ def make_optimizer(cfg_stage, params, stage: Optional[str] = None,
 
 class CenterOptimizer:
     """Plain SGD on the center-loss centers, the gradient rescaled by
-    1/CENTER_LOSS_WEIGHT (ref processor/processor.py:80-84)."""
+    1/CENTER_LOSS_WEIGHT (ref processor/processor.py:80-84). Its lr is
+    ``SOLVER.CENTER_LR``, fixed for the run (no schedule moves it)."""
 
     def __init__(self, lr: float, loss_weight: float):
         self.lr = lr
         self.loss_weight = loss_weight
 
+    @torch.no_grad()
     def update(self, grad: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
-        return centers - self.lr * (grad / self.loss_weight)
+        """``centers`` updated in place (so a captured step writes the
+        state's own tensor) → ``centers``."""
+        return centers.sub_(self.lr * (grad / self.loss_weight))

@@ -38,7 +38,6 @@ import threading
 import torch
 
 from mpreid_tpu_torch.parallel.mesh import load_full_state_dict, local_moment
-from mpreid_tpu_torch.solver.optim import OptState
 
 FORMAT = "mpreid_tpu_torch.train_state.v1"
 
@@ -138,9 +137,11 @@ def restore_state(state, payload: dict, optimizer=None) -> int:
         for name, t in mine.items():
             whole = local_moment(name, theirs[name], state.model)
             t.copy_(whole if shard is None else shard(name, whole))
-    state.opt_state = OptState(step=int(opt["step"]), mu=state.opt_state.mu,
-                               nu=state.opt_state.nu)
+    state.opt_state.step.fill_(int(opt["step"]))  # in place: a captured epoch reads it
     if payload["centers"] is not None:
-        device = next(state.model.parameters()).device
-        state.centers = payload["centers"].to(device)
+        if state.centers is None:
+            device = next(state.model.parameters()).device
+            state.centers = payload["centers"].to(device)
+        else:
+            state.centers.copy_(payload["centers"])
     return int(payload["epoch"])

@@ -311,7 +311,8 @@ def test_adam_kernel_matches_plain(card, moment_dtype, decoupled, n):
     p, m, v, grad = _adam_leaf(card, n, moment_dtype)
     p2, m2, v2 = p.clone(), m.clone(), v.clone()
     lr = 5e-6 * 2
-    args = (lr, 1 - 0.9 ** 3, 1 - 0.999 ** 3, 0.9, 0.999, 1e-8, 1e-4, decoupled)
+    scalars = torch.tensor([lr, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=card)
+    args = (scalars, 0.9, 0.999, 1e-8, 1e-4, decoupled)
     before = adam.fused_adam_leaf.launches
     adam.fused_adam_leaf(p, m, v, grad, *args)
     adam.adam_leaf_plain(p2, m2, v2, grad, *args)
@@ -327,7 +328,8 @@ def test_adam_wrapper_refuses_what_the_kernel_does_not_take(card):
     from mpreid_tpu_torch.ops import adam
 
     p, m, v, grad = _adam_leaf(card, 64, torch.float32)
-    args = (1e-3, 0.1, 0.001, 0.9, 0.999, 1e-8, 0.0, False)
+    scalars = torch.tensor([1e-3, 0.1, 0.001], device=card)
+    args = (scalars, 0.9, 0.999, 1e-8, 0.0, False)
     with pytest.raises(TypeError):
         adam.fused_adam_leaf(p.half(), m, v, grad, *args)
     with pytest.raises(TypeError):
@@ -336,6 +338,9 @@ def test_adam_wrapper_refuses_what_the_kernel_does_not_take(card):
         adam.fused_adam_leaf(p, m[:32], v, grad, *args)
     with pytest.raises(ValueError, match="aligned"):
         adam.fused_adam_leaf(p[1:], m[1:], v[1:], grad[1:], *args)
+    for bad in (scalars.double(), scalars[:2], scalars.cpu()):
+        with pytest.raises(ValueError, match="scalars"):
+            adam.fused_adam_leaf(p, m, v, grad, bad, *args[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -1058,3 +1063,262 @@ def test_dryrun_multichip_on_the_card(card):
     for out in ranks:
         assert out["launches"]["l1_cross"] > 0 and out["launches"]["minsum_cross"] > 0
         assert out["launches"]["attention_fwd"]["tf32x3"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the compiled epochs (engine/compiled.py): one captured CUDA graph replayed
+# a step, against the eager step loop bit for bit; the Adam kernel's scalars
+# read from device memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_adam_kernel_reads_its_scalars_from_memory(card):
+    """The kernel captured once in a CUDA graph, its scalars tensor then
+    rewritten: each replay takes the values the tensor holds (bit-equal to an
+    eager launch with them) and agrees with the plain version."""
+    from mpreid_tpu_torch.ops import adam
+
+    p, m, v, grad = _adam_leaf(card, 262144 + 13, torch.float32)
+    scalars = torch.tensor([1e-3, 0.1, 0.001], device=card)
+    args = (0.9, 0.999, 1e-8, 1e-4, True)
+    graph_p, graph_m, graph_v = p.clone(), m.clone(), v.clone()
+    adam.fused_adam_leaf(graph_p, graph_m, graph_v, grad, scalars, *args)  # warm-up
+    graph_p.copy_(p), graph_m.copy_(m), graph_v.copy_(v)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adam.fused_adam_leaf(graph_p, graph_m, graph_v, grad, scalars, *args)
+    for t, lr in ((1, 5e-4), (2, 2e-5), (3, 3e-3)):
+        step = torch.tensor([lr, 1 - 0.9 ** t, 1 - 0.999 ** t], device=card)
+        eager = [x.clone() for x in (graph_p, graph_m, graph_v)]
+        plain = [x.clone() for x in (graph_p, graph_m, graph_v)]
+        scalars.copy_(step)
+        graph.replay()
+        adam.fused_adam_leaf(*eager, grad, step, *args)
+        adam.adam_leaf_plain(*plain, grad, step, *args)
+        torch.cuda.synchronize()
+        for got, want in zip((graph_p, graph_m, graph_v), eager):
+            assert torch.equal(got, want)
+        for got, want, atol in zip((graph_p, graph_m, graph_v), plain, (1e-3 * lr, 0.0, 0.0)):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=atol)
+
+
+def _graph_cfg(moe_dropout=None, remat=False, fused=False):
+    from mpreid_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.MODEL.NAME = "ViT-B-16"
+    cfg.MODEL.DEBUG_TINY = True
+    cfg.MODEL.DEVICE = "cuda"
+    cfg.INPUT.SIZE_TRAIN = cfg.INPUT.SIZE_TEST = [64, 32]
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    cfg.TPU.REMAT = remat
+    cfg.DATALOADER.SAMPLER = "softmax_triplet"
+    cfg.SOLVER.FUSED_ADAM = fused
+    cfg.SOLVER.STAGE2.FUSED_ADAM = fused
+    if moe_dropout is not None:
+        cfg.MODEL.MOE.ENABLED = True
+        cfg.MODEL.MOE.NUM_EXPERTS, cfg.MODEL.MOE.TOP_K, cfg.MODEL.MOE.MOE_LAYERS = 4, 2, 2
+        cfg.MODEL.MOE.DROPOUT = moe_dropout
+    return cfg
+
+
+def _graph_rows(seed, n=6, ids=8, per_id=6):
+    """PK rows (2 ids × 4 images) into ``ids × per_id`` images."""
+    rng = np.random.default_rng(seed)
+    return np.stack([np.concatenate([i * per_id + rng.permutation(per_id)[:4]
+                                     for i in rng.choice(ids, 2, replace=False)])
+                     for _ in range(n)])
+
+
+def _assert_same(a, b):
+    for x, y in zip(a, b):
+        if isinstance(x, dict):
+            assert x.keys() == y.keys()
+            for k in x:
+                assert torch.equal(x[k], y[k]), k
+        else:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["baseline", "baseline_fused_adam", "moe_dropout_remat"])
+def test_graphed_train_epoch_equals_the_step_loop(card, case, monkeypatch):
+    """Two epochs of 6 PK batches at different lr, augmentation on, bf16:
+    the graphed ``make_train_epoch`` (2 warm-up steps, 1 capture, 10
+    replays) against ``make_train_step`` over the same rows from one state
+    and generator state: every loss and accuracy, parameter, buffer, moment,
+    the step and the generator bit for bit; the kernel launches counted for
+    every replay."""
+    import copy
+
+    from mpreid_tpu_torch.engine import initial_state, make_train_epoch, make_train_step
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model, make_model_uniprompt, switch_to_moe
+    from mpreid_tpu_torch.engine import precompute_text_features
+    from mpreid_tpu_torch.ops import adam
+    from mpreid_tpu_torch.solver import make_optimizer
+    from mpreid_tpu_torch.solver import optim as toptim
+
+    if case == "baseline_fused_adam":
+        monkeypatch.setattr(toptim, "MIN_FUSED_SIZE", 4096)  # the tiny model's larger leaves
+    cfg = _graph_cfg(0.1 if case == "moe_dropout_remat" else None,
+                     remat=case == "moe_dropout_remat", fused=case == "baseline_fused_adam")
+    if case == "moe_dropout_remat":
+        dense = cfg.clone()
+        dense.MODEL.MOE.ENABLED = False
+        model = switch_to_moe(cfg, make_model_uniprompt(dense, 8, 6, 15))
+        kwargs = dict(uniprompt=True, text_features=precompute_text_features(cfg, model, 8))
+        opt_cfg, stage = cfg.SOLVER.STAGE2, "stage2b"
+    else:
+        model = make_model(cfg, 8, camera_num=6, view_num=1)
+        kwargs, opt_cfg, stage = {}, cfg.SOLVER, "baseline"
+    loss_fn, _ = make_loss(cfg, 8)
+    rng = np.random.default_rng(5)
+    data = [torch.from_numpy(a).to(card) for a in (
+        rng.integers(0, 256, (48, 64, 32, 3), dtype=np.uint8),
+        np.repeat(np.arange(8), 6).astype(np.int32), rng.integers(0, 6, 48).astype(np.int32),
+        rng.integers(0, 15, 48).astype(np.int32))]
+    runs = []
+    for mode in ("graph", "loop"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(opt_cfg, m, stage=stage)
+        state = initial_state(m, opt)
+        gen = torch.Generator(device=card).manual_seed(11)
+        epoch = make_train_epoch(m, cfg, loss_fn, opt, **kwargs)
+        step = make_train_step(m, cfg, loss_fn, opt, **kwargs)
+        fwd, adam0 = tattn.fused_attention.launches, adam.fused_adam_leaf.launches
+        out = []
+        for e, lr in enumerate((1e-3, 2e-4)):
+            rows = _graph_rows(e)
+            if mode == "graph":
+                state, (losses, accs) = epoch(state, *data, rows, lr, gen)
+                out += [losses, accs]
+                continue
+            for row in rows:
+                idx = torch.as_tensor(row, device=card)
+                batch = dict(zip(("images", "pids", "camids", "trackids"),
+                                 (t.index_select(0, idx) for t in data)))
+                state, metrics = step(state, batch, lr, gen)
+                out += [metrics["loss"][None], metrics["acc"][None]]
+        torch.cuda.synchronize()
+        if mode == "graph":
+            assert epoch.compiled.stats["captures"] == 1
+            assert epoch.compiled.stats["replays"] == 10
+            assert epoch.compiled.stats["pool_bytes"] > 0
+            out = [torch.cat(out[0::2]), torch.cat(out[1::2])]
+        else:
+            out = [torch.cat(out[0::2]), torch.cat(out[1::2])]
+        launched = (tattn.fused_attention.launches - fwd, adam.fused_adam_leaf.launches - adam0)
+        runs.append((out, launched, m.state_dict(), state.opt_state.mu, state.opt_state.nu,
+                     state.opt_state.step, gen.get_state()))
+        epoch.release()
+    (g_out, g_n, *g_rest), (l_out, l_n, *l_rest) = runs
+    _assert_same(g_out, l_out)
+    _assert_same(g_rest, l_rest)
+    assert g_n == l_n and g_n[0] > 0 and (g_n[1] > 0) == (case == "baseline_fused_adam")
+    assert int(runs[0][5]) == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["1a", "1b"])
+def test_graphed_stage1_epoch_equals_the_step_loop(card, stage):
+    """Two epochs of 5 batches of 8 bank rows at different lr: the graphed
+    ``make_stage1_epoch`` against ``make_stage1_step`` over the same rows
+    from one set of contexts, losses, contexts and moments bit for bit; a
+    parameter given new storage makes the next call capture again."""
+    import copy
+
+    from mpreid_tpu_torch.engine import initial_state, make_stage1_epoch, make_stage1_step
+    from mpreid_tpu_torch.models import make_model_uniprompt
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = _graph_cfg()
+    model = make_model_uniprompt(cfg, 8, 14, 15)
+    rng = np.random.default_rng(3)
+    feats = torch.from_numpy(rng.standard_normal((40, 32)).astype(np.float32)).to(card)
+    feats = feats.to(torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 8, 40)).to(card)
+    views = torch.from_numpy(rng.integers(0, 15, 40)).to(card)
+    stage_cfg = cfg.SOLVER[f"STAGE{stage.upper()}"]
+    runs = []
+    for mode in ("graph", "loop"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(stage_cfg, m, stage=f"stage{stage}")
+        state = initial_state(m, opt)
+        epoch = make_stage1_epoch(m, cfg, opt, stage)
+        step = make_stage1_step(m, cfg, opt, stage)
+        losses = []
+        for e, lr in enumerate((1e-3, 2e-4)):
+            rows = np.random.default_rng(e).permutation(40).reshape(5, 8)
+            if mode == "graph":
+                state, out = epoch(state, feats, labels, views, rows, lr)
+                losses.append(out)
+                continue
+            for row in rows:
+                sel = torch.as_tensor(row, device=card)
+                state, metrics = step(state, feats[sel], labels[sel],
+                                      views[sel] if stage == "1b" else None, lr)
+                losses.append(metrics["loss"][None])
+        torch.cuda.synchronize()
+        runs.append(copy.deepcopy((torch.cat(losses), m.state_dict(), state.opt_state.mu,
+                                   state.opt_state.nu, state.opt_state.step)))
+        if mode == "graph":
+            assert epoch.compiled.stats["captures"] == 1
+            assert epoch.compiled.stats["replays"] == 8
+            ctx = next(p for k, p in m.named_parameters() if k.startswith("prompt_learner.ctx"))
+            ctx.data = ctx.data.clone()  # new storage: the old graph would write freed memory
+            epoch(state, feats, labels, views, rows, lr)
+            assert epoch.compiled.stats["captures"] == 2
+            epoch.release()
+    _assert_same(runs[0], runs[1])
+    assert int(runs[0][4]) == 10
+
+
+@pytest.mark.cuda
+def test_a_generator_snapshot_cannot_serve_a_captured_recompute(card):
+    """Why ``models/vit.py::RematDraws`` places clones before each replay: a
+    generator's state cannot be cloned inside a CUDA graph capture (so no
+    graph-safe snapshot can be taken at a block's forward), and a clone
+    registered before the capture but not placed before a replay draws
+    other bits than the forward it should repeat."""
+    n = 1000
+    side = torch.cuda.Stream()
+
+    def warmed_up(seed):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            start = gen.get_offset()
+            torch.rand(100, generator=gen, device=card)
+            before_forward = gen.get_offset() - start
+            torch.rand(n, generator=gen, device=card)
+        torch.cuda.current_stream().wait_stream(side)
+        return gen, before_forward
+
+    gen, _ = warmed_up(3)
+    refused = torch.cuda.CUDAGraph()
+    refused.register_generator_state(gen)
+    with pytest.raises(RuntimeError, match="during CUDA graph capture"):
+        with torch.cuda.graph(refused, stream=side, capture_error_mode="thread_local"):
+            torch.rand(100, generator=gen, device=card)
+            gen.clone_state()
+    torch.cuda.synchronize()
+
+    gen, before_forward = warmed_up(5)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    clone = gen.clone_state()
+    graph.register_generator_state(clone)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        torch.rand(100, generator=gen, device=card)
+        forward = torch.rand(n, generator=gen, device=card)
+        recompute = torch.rand(n, generator=clone, device=card)
+    for _ in range(2):
+        graph.replay()
+        assert not torch.equal(forward, recompute)
+    # placed where the step generator stands at the forward, it repeats it
+    clone.manual_seed(gen.initial_seed())
+    clone.set_offset(gen.get_offset() + before_forward)
+    graph.replay()
+    assert torch.equal(forward, recompute)

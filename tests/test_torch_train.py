@@ -510,8 +510,8 @@ def test_plain_adam_leaf_matches_pallas_interpret(decoupled, moment_dtype):
                                      b1, b2, eps, wd, decoupled, jmd, interpret=True)
     tp, tm, tv = _t(p), _t(m).to(tmd), _t(v).to(tmd)
     before = tadam.fused_adam_leaf.launches
-    tadam.fused_adam_leaf(tp, tm, tv, _t(g), float(np.float32(lr)), float(scalars[1]),
-                          float(scalars[2]), b1, b2, eps, wd, decoupled)
+    tadam.fused_adam_leaf(tp, tm, tv, _t(g), _t(np.asarray(scalars)), b1, b2, eps, wd,
+                          decoupled)
     assert tadam.fused_adam_leaf.launches == before  # CPU: the plain version
     np.testing.assert_allclose(_np(tp), _np(jp), rtol=1e-6, atol=1e-7)
     # bf16 moments to one bf16 step: an fp32 moment that differs in its last
