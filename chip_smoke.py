@@ -177,13 +177,41 @@ Phases, in order; any failure raises and the exit code is not 0:
    only replays and held against the launch counters (which a capture
    records and every replay adds), the rates of both modes in turns
    (graph, loop, loop, graph, twice), the device's idle share over that
-   traced epoch and the graph pool's bytes.
+   traced epoch and the graph pool's bytes. The eager reference is the
+   step body itself (``_make_stage1_body``, ``_make_step_body``);
+18. the compiled steps (``engine/compiled.py::CompiledStep``: two eager
+   warm-up calls a key, a CUDA graph captured at the third, replays after
+   it), each against its eager body (``_make_eval_body``,
+   ``_make_bank_body``, ``_make_text_body``, ``_make_step_body``,
+   ``_make_stage1_body``) called on the same inputs, bit for bit
+   (``torch.equal``): (a) ``run_validation`` on configs/person/vit_base.yml
+   at Market-1501's query + gallery size (3,368 + 15,913 seeded images,
+   batch 64, the last batch padded): every batch's features, CMC and mAP,
+   the step kept in the eval cache; (b) ``build_image_bank`` (4,096 images)
+   and ``precompute_text_features`` (1,000 classes: 15 replayable widths and
+   an eager tail of 40) on configs/ours/cctv_ir_cctv_rgb.yml; (c) the train
+   step over host batches of phase 11's loader, as ``train_epochs`` feeds
+   it, on configs/person/vit_base.yml with ``SOLVER.FUSED_ADAM`` off and
+   on, configs/person/cnn_base.yml (RN50) and the MoE stage-2b step of
+   configs/tpu/uniprompt_tuned.yml with dropout 0.1 and ``TPU.REMAT``:
+   losses, accuracies, parameters, buffers, moments, step and generator
+   over 3 + 3 steps at two lr; (d) stage 1b's trailing partial batch over 4
+   epochs, and ``do_train_stage1`` over 3 epochs of a bank with a tail (its
+   trailing step replays in the third). Per case: the kernels one replay
+   ran, counted in its trace and held against the counters, the rates of
+   both modes in turns (graph, eager, eager, graph, twice), the traced idle
+   share over 4 replays and the graph pool's bytes.
 
 Phase 12 runs after phase 8 (on its model), phase 13 after phase 6 and
-phase 17 after phase 11 (on its resident set). Every epoch of phases 8, 9,
-10, 11 and 16 that runs through ``do_train_stage1`` or a device-resident
-``do_train`` / ``do_train_stage2`` replays a captured step too; its kernel
-launches count once for every replay.
+phases 17 and 18 after phase 11 (on its resident set and its loader). On
+the card every step of every phase runs through a compiled step or epoch:
+the per-call steps (``make_eval_step``, ``make_image_bank_step``,
+``make_text_step``, ``make_train_step``, ``make_stage1_step``) replay a
+captured graph from their third call with a key on, the epochs of phases
+8, 9, 10, 11 and 16 that run through ``do_train_stage1`` or a
+device-resident ``do_train`` / ``do_train_stage2`` from their third step;
+the steps over a mesh of more than one rank (phases 14 and 15) stay eager.
+A replay's kernel launches count once for every replay.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
 (B 1,000, L 77, 8 × 64, causal, bf16), timed, and the L1 and min-sum
 kernels (re-ranking's exact Jaccard step) against their plain versions at
@@ -233,10 +261,18 @@ from mpreid_tpu_torch.data.synthetic import make_clip_file
 from mpreid_tpu_torch.engine import (
     R1mAPEvaluator, build_device_dataset, build_image_bank, do_inference, do_inference_ttpt,
     do_train, do_train_stage1, do_train_stage2, epoch_perm, initial_state, loss_and_grads,
-    make_eval_step, make_stage1_epoch, make_stage1_step, make_train_epoch, make_train_step,
-    precompute_text_features, stage1_loss_and_grads,
+    make_eval_step, make_image_bank_step, make_stage1_epoch, make_stage1_step, make_text_step,
+    make_train_epoch, make_train_step, precompute_text_features, release_eval_steps,
+    run_validation, stage1_loss_and_grads,
 )
+from mpreid_tpu_torch.engine import processor
+from mpreid_tpu_torch.engine import uniprompt as uni_engine
 from mpreid_tpu_torch.engine.processor import TRACE_FILE
+from mpreid_tpu_torch.engine.steps import (
+    _make_bank_body, _make_eval_body, _make_stage1_body, _make_step_body, _make_text_body,
+    labels_for,
+)
+from mpreid_tpu_torch.engine.compiled import WARMUP_STEPS
 from mpreid_tpu_torch.engine.ttpt import make_ttpt_tuner, ttpt_query_input
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
@@ -1944,16 +1980,23 @@ def market_train_set(seed: int = 31):
     rng = np.random.default_rng(seed)
     pids = np.sort(np.arange(n) % ids).astype(np.int32)
     cams = rng.integers(0, MARKET_TRAIN["cams"], n).astype(np.int32)
+    return identity_images(pids, ids, seed), pids, cams
+
+
+def identity_images(pids: np.ndarray, ids: int, seed: int) -> np.ndarray:
+    """Seeded uint8 images of ``HW``, one per entry of ``pids``: a pattern of
+    its identity plus per-image noise, drawn on the card in chunks and held
+    on the host, as a loader holds decoded images."""
     gen = torch.Generator(device=CARD).manual_seed(seed)
     base = torch.randint(40, 215, (ids, *HW, 3), generator=gen, device=CARD, dtype=torch.int16)
-    images = np.empty((n, *HW, 3), np.uint8)
+    images = np.empty((len(pids), *HW, 3), np.uint8)
     pid_t = torch.from_numpy(pids).to(CARD).long()
-    for lo in range(0, n, 1024):
+    for lo in range(0, len(pids), 1024):
         sel = pid_t[lo:lo + 1024]
         noise = torch.randint(-60, 61, (len(sel), *HW, 3), generator=gen, device=CARD,
                               dtype=torch.int16)
         images[lo:lo + len(sel)] = (base[sel] + noise).clamp_(0, 255).to(torch.uint8).cpu().numpy()
-    return images, pids, cams
+    return images
 
 
 def trace_idle_share(path: str, span: str = None) -> dict:
@@ -2318,7 +2361,7 @@ CNN_PROM = {**CNN_CLIPREID, "INPUT": VERI["INPUT"],
             "OUTPUT_DIR": "output/veri_cnn_prom"}
 VIT_FILE_GRID, RN50_FILE_GRID = 14, 7  # the OpenAI files' grids (224 input)
 RN50_EVAL_RUNS = 3
-RN50_TRAIN_STEPS = 3  # timed, after a warm-up step
+RN50_TRAIN_STEPS = 3  # timed, after the warm-up steps and the capture
 RN50_BANK = 1024  # stage-1 bank images of the RN50 Uni-Prompt phase
 RN50_STAGE1_STEPS = 8  # per stage, on the bank's first 8 × 64 rows
 RN50_STAGE2A_STEPS = 8
@@ -2404,9 +2447,10 @@ def rn50_model(settings: dict, path: str, classes: int, uniprompt: bool = False)
 def run_rn50_base(path: str, profile: bool) -> dict:
     """configs/person/cnn_base.yml at full width (RN50, 751 classes, 256×128,
     bf16 over fp32, batch 64) from the seeded file: ``do_inference`` on 256
-    images (a warm-up run, then RN50_EVAL_RUNS timed), then a warm-up and
-    RN50_TRAIN_STEPS timed train steps on PK 16 × 4 batches (augmentation
-    on, Adam); no kernel of the port runs on this path."""
+    images (a warm-up run, then RN50_EVAL_RUNS timed), then three warm-up
+    train steps (two eager, the third captures the step) and
+    RN50_TRAIN_STEPS timed ones, replays, on PK 16 × 4 batches
+    (augmentation on, Adam); no kernel of the port runs on this path."""
     cfg, model = rn50_model(CNN_BASE, path, NUM_CLASSES)
     loader = InMemoryBatcher(QUERY, GALLERY, BATCH, HW)
     do_inference(cfg, model, loader, QUERY)  # warm-up
@@ -2425,22 +2469,24 @@ def run_rn50_base(path: str, profile: bool) -> dict:
     optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
     lr = make_scheduler(cfg.SOLVER, "multistep")(1)
     images, pids = train_images(seed=13)
-    batches = pk_batches(images, pids, 1 + RN50_TRAIN_STEPS, seed=14)
+    warm = WARMUP_STEPS + 1  # two eager steps and the capture: the timed steps replay
+    batches = pk_batches(images, pids, warm + RN50_TRAIN_STEPS, seed=14)
     state = initial_state(model, optimizer)
     step = make_train_step(model, cfg, loss_fn, optimizer)
     gen = torch.Generator(device=CARD).manual_seed(int(cfg.SOLVER.SEED))
-    state, _ = step(state, batches[0], lr, gen)  # warm-up step
+    for batch in batches[:warm]:
+        state, _ = step(state, batch, lr, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     seconds, losses = [], []
-    for batch in batches[1:]:
+    for batch in batches[warm:]:
         (state, metrics), secs = timed(lambda: step(state, batch, lr, gen))
         seconds.append(secs)
         losses.append(float(metrics["loss"]))
     expect_counts("RN50 train steps", read_counts(), {})
     tracked = int(model.image_encoder.bn1.num_batches_tracked)
-    if not all(np.isfinite(losses)) or tracked != 1 + RN50_TRAIN_STEPS:
+    if not all(np.isfinite(losses)) or tracked != warm + RN50_TRAIN_STEPS:
         raise AssertionError(f"RN50 train steps: losses {losses}, BN batches {tracked}")
     res.update(train_img_per_s=BATCH / statistics.median(seconds), step_seconds=seconds,
                losses=losses, bn_batches_tracked=tracked,
@@ -2448,7 +2494,7 @@ def run_rn50_base(path: str, profile: bool) -> dict:
     log(f"RN50 baseline {json.dumps(res)}")
     if profile:
         res["train_profile"] = profile_idle(
-            lambda: [step(state, batches[1 + i], lr, gen) for i in range(RN50_TRAIN_STEPS)],
+            lambda: [step(state, batches[warm + i], lr, gen) for i in range(RN50_TRAIN_STEPS)],
             f"{RN50_TRAIN_STEPS} RN50 train steps (bf16, batch 64)", RN50_OP_GROUPS)
         # the attention pool alone, forward and backward at the layer4 map's shape
         pool = model.image_encoder.attnpool
@@ -3760,19 +3806,30 @@ def remat_steps(model, cfg, loss_fn, optimizer, batches, depth: int, on: bool,
     return res, step, state
 
 
-def remat_turns(model, step, state, batches) -> dict:
+def remat_turns(model, make_step, state, batches) -> dict:
     """The two modes timed in turns on one model (off, on, on, off), the
     flag switched between turns, REMAT_TURNS steps a turn over ``batches``
-    → {mode: step seconds}; the model is left rematerialising."""
+    → {mode: step seconds}. Each mode steps through a train step of its
+    own (``make_step()``), warmed up and captured with its flag set before
+    the turns: a captured step keeps the flag it was captured with. The
+    model is left rematerialising."""
     gen = torch.Generator(device=CARD).manual_seed(REMAT_SEED)
+    steps = {}
+    for on in (False, True):
+        model.image_encoder.remat = on
+        steps[on] = make_step()
+        for i in range(WARMUP_STEPS + 1):
+            steps[on](state, batches[i % len(batches)], 1e-4, gen)
     seconds = {"off": [], "on": []}
     for on in (False, True, True, False):
         model.image_encoder.remat = on
         for i in range(REMAT_TURNS):
             batch = batches[i % len(batches)]
-            _, secs = timed(lambda: step(state, batch, 1e-4, gen))
+            _, secs = timed(lambda: steps[on](state, batch, 1e-4, gen))
             seconds["on" if on else "off"].append(secs)
     model.image_encoder.remat = True
+    for step in steps.values():
+        step.release()
     return seconds
 
 
@@ -3801,7 +3858,8 @@ def run_remat_vision(settings: dict, classes: int, cameras: int, hw, n_steps: in
         steps, step, state = remat_steps(model, cfg, loss_fn, optimizer, batches, depth, on,
                                          what, profile)
         if on:  # each model was checked and measured alone; now both modes in turns
-            turns = remat_turns(model, step, state, batches[1:])
+            turns = remat_turns(model, lambda: make_train_step(model, cfg, loss_fn, optimizer),
+                                state, batches[1:])
         out[on] = dict(grads=grads, steps=steps)
         del model, optimizer, step, state
         torch.cuda.empty_cache()
@@ -4011,7 +4069,7 @@ def per_replay_counts(epoch) -> dict:
     from mpreid_tpu_torch.engine.compiled import COUNTED as GRAPH_COUNTED
 
     if epoch.compiled.per_replay is None:
-        raise AssertionError("the epoch captured no graph")
+        raise AssertionError(f"{epoch} captured no graph")
     return {name: epoch.compiled.per_replay[GRAPH_COUNTED.index(fn), None]
             for name, fn in COUNTED.items()}
 
@@ -4026,14 +4084,14 @@ TRACE_KERNELS = {"attention_fwd": r"\bmha_fwd(_tc)?_kernel<",
 def trace_kernel_counts(path: str) -> dict:
     """How many times each counted wrapper's kernel ran in each CUDA graph
     launch of a Chrome trace that ``torch.profiler`` wrote: ``{launch's
-    correlation id: {name: count}}`` (``TRACE_KERNELS``; every kernel of one
-    replay carries its launch's correlation id)."""
+    correlation id: {name: count}}`` in launch order (``TRACE_KERNELS``;
+    every kernel of one replay carries its launch's correlation id)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "cuda_runtime")]
-    launches = {e["args"]["correlation"] for e in events
-                if e["cat"] == "cuda_runtime" and e["name"].startswith("cudaGraphLaunch")}
-    out = {c: dict.fromkeys(TRACE_KERNELS, 0) for c in launches}
+    launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
+                      if e["cat"] == "cuda_runtime" and e["name"].startswith("cudaGraphLaunch"))
+    out = {c: dict.fromkeys(TRACE_KERNELS, 0) for _, c in launches}
     for e in events:
         c = e.get("args", {}).get("correlation")
         if e["cat"] != "kernel" or c not in out:
@@ -4044,61 +4102,79 @@ def trace_kernel_counts(path: str) -> dict:
     return out
 
 
-def traced_graphed_epoch(fn, compiled) -> dict:
-    """``trace_idle_share`` of one ``fn()``, a graphed epoch of ``compiled``
-    that only replays, under ``torch.profiler``, and the counted kernels
-    each replay launched, read from the trace's kernel records. The idle
-    share is taken over the epoch's own span (``fn()`` and a synchronize);
+def traced_graphed_epoch(fn, compiled, attempts: int = 3) -> dict:
+    """``trace_idle_share`` of one ``fn()``, a graphed epoch (or calls of a
+    compiled step) of ``compiled`` that only replays, under
+    ``torch.profiler``, and the counted kernels each replay launched, read
+    from the trace's kernel records. The idle share is taken over the
+    span of ``fn()`` and a synchronize;
     the profiler runs on 50 ms past it, since it keeps only device records
     that end inside its window, and one traced epoch lacked 5 of its 416
-    Adam kernel records without that margin."""
+    Adam kernel records without that margin. Now and then the profiler
+    keeps no record of a kernel inside the window too (two runs lost 1 and
+    2 of one replay's 12 attention records): a run whose replays' traced
+    kernels disagree is logged, with the launches that differ by their place
+    in launch order, and traced again; one of ``attempts`` must agree."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    replays, captures = compiled.stats["replays"], compiled.stats["captures"]
-    with tempfile.TemporaryDirectory() as tmp:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("graphed_epoch"):
-                fn()
-                torch.cuda.synchronize()
-            time.sleep(0.05)
-        path = os.path.join(tmp, "graphed_epoch.json")
-        prof.export_chrome_trace(path)
-        res = trace_idle_share(path, span="graphed_epoch")
-        per_launch = trace_kernel_counts(path)
-    replays = compiled.stats["replays"] - replays
-    if res["device_spans"] <= 0:
-        raise AssertionError(f"the traced graphed epoch shows no device work: {res}")
-    if compiled.stats["captures"] != captures or replays <= 0:
-        raise AssertionError(f"the traced graphed epoch captured again or replayed nothing: "
-                             f"{compiled.stats}")
-    if len(per_launch) != replays:
-        raise AssertionError(f"the trace shows {len(per_launch)} graph launches, the epoch "
-                             f"replayed {replays} times")
-    seen = {json.dumps(c, sort_keys=True): c for c in per_launch.values()}
-    if len(seen) != 1:
-        raise AssertionError(f"the replays' traced kernels differ: {list(seen.values())}")
-    res.update(replays=replays, launches_per_replay_traced=next(iter(seen.values())))
+    for attempt in range(1, attempts + 1):
+        replays, captures = compiled.stats["replays"], compiled.stats["captures"]
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("graphed_epoch"):
+                    fn()
+                    torch.cuda.synchronize()
+                time.sleep(0.05)
+            path = os.path.join(tmp, "graphed_epoch.json")
+            prof.export_chrome_trace(path)
+            res = trace_idle_share(path, span="graphed_epoch")
+            per_launch = trace_kernel_counts(path)
+        replays = compiled.stats["replays"] - replays
+        if res["device_spans"] <= 0:
+            raise AssertionError(f"the traced graphed epoch shows no device work: {res}")
+        if compiled.stats["captures"] != captures or replays <= 0:
+            raise AssertionError(f"the traced graphed epoch captured again or replayed nothing: "
+                                 f"{compiled.stats}")
+        seen = {json.dumps(c, sort_keys=True): c for c in per_launch.values()}
+        if len(per_launch) == replays and len(seen) == 1:
+            break
+        counts = list(per_launch.values())
+        common = max(counts, key=counts.count)
+        what = (f"the trace shows {len(per_launch)} graph launches for {replays} replays, "
+                f"{common} in most, other counts at launches (place, counts) "
+                f"{[(i, c) for i, c in enumerate(counts) if c != common]}")
+        if attempt == attempts:
+            raise AssertionError(what)
+        log(f"  traced run {attempt} of {attempts}: {what}; tracing again")
+    res.update(replays=replays, launches_per_replay_traced=next(iter(seen.values())),
+               trace_attempts=attempt)
     return res
 
 
-def graph_turns(turn, rows_of, per_turn: int) -> dict:
-    """Both modes' rates (rows or images a second), in turns: (graph, loop,
-    loop, graph), twice; ``turn(mode, rows)`` runs one turn."""
-    rates = {"graph": [], "loop": []}
+def graph_turns(turn, rows_of, per_turn: int, other: str = "loop") -> dict:
+    """Both modes' rates (rows or images a second), in turns: (graph,
+    ``other``, ``other``, graph), twice; ``turn(mode, rows)`` runs one turn."""
+    rates = {"graph": [], other: []}
     for rnd in range(2):
-        for i, mode in enumerate(("graph", "loop", "loop", "graph")):
+        for i, mode in enumerate(("graph", other, other, "graph")):
             rows = rows_of(100 + 4 * rnd + i)
             _, secs = timed(lambda: turn(mode, rows))
             rates[mode].append(len(rows) * per_turn / secs)
-    return dict(order="graph loop loop graph, twice", per_s=rates,
+    return dict(order=f"graph {other} {other} graph, twice", per_s=rates,
                 median_per_s={k: float(np.median(v)) for k, v in rates.items()},
-                graph_over_loop=float(np.median(rates["graph"]) / np.median(rates["loop"])))
+                **{f"graph_over_{other}": float(np.median(rates["graph"])
+                                                / np.median(rates[other]))})
 
 
 def graph_report(what: str, diffs: dict, per_step: dict, want: dict, counts: dict,
                  n_steps: int, rates: dict, trace: dict, pool_bytes: int, unit: str,
-                 extra: dict) -> dict:
+                 extra: dict, phase: str = "17", against: str = "the step loop") -> dict:
+    """Phase 17's or 18's verdict on one case: the graphed mode bit for bit
+    against the eager one, one capture replayed, the counted kernels of a
+    replay as ``want`` says and as its trace shows, the checked run's
+    launches those of ``n_steps`` steps, bf16 attention on "tc"."""
     traced = trace["launches_per_replay_traced"]
+    other = "loop" if phase == "17" else "eager"
     res = dict(case=what, bit_for_bit={k: not v for k, v in diffs.items()},
                launches_per_replayed_step=traced, launches_per_replay_counted=per_step,
                launches_checked_epochs=counts, checked_steps=n_steps, rates=rates, unit=unit,
@@ -4106,34 +4182,36 @@ def graph_report(what: str, diffs: dict, per_step: dict, want: dict, counts: dic
                                                            "device_idle_share", "trace_bytes",
                                                            "replays")},
                graph_pool_gb=pool_bytes / 1e9, card=CARD_LINE, **extra)
-    log(f"  17 {json.dumps(res)}")
-    rate_line(f"17 {what}: graphed epoch against the step loop ({unit}, medians of 4 turns)",
-              dict(graph=rates["median_per_s"]["graph"], loop=rates["median_per_s"]["loop"],
-                   idle_share_graphed=trace["device_idle_share"],
-                   graph_pool_gb=pool_bytes / 1e9))
+    log(f"  {phase} {json.dumps(res)}")
+    rate_line(f"{phase} {what}: graphed against {against} ({unit}, medians of 4 turns)",
+              {"graph": rates["median_per_s"]["graph"], other: rates["median_per_s"][other],
+               "idle_share_graphed": trace["device_idle_share"],
+               "graph_pool_gb": pool_bytes / 1e9})
     bad = {k: v for k, v in diffs.items() if v}
     if bad:
-        raise AssertionError(f"17 {what}: the graphed epoch differs from the step loop: {bad}")
+        raise AssertionError(f"{phase} {what}: the graphed run differs from {against}: {bad}")
     stats = extra["stats"]
     if stats["captures"] != 1 or stats["replays"] <= 0 or pool_bytes <= 0:
-        raise AssertionError(f"17 {what}: not one captured graph replayed: {stats}")
+        raise AssertionError(f"{phase} {what}: not one captured graph replayed: {stats}")
     if per_step != {name: want.get(name, 0) for name in per_step}:
-        raise AssertionError(f"17 {what}: launches per replayed step {per_step}, expected {want}")
+        raise AssertionError(f"{phase} {what}: launches per replayed step {per_step}, "
+                             f"expected {want}")
     if traced != per_step:
-        raise AssertionError(f"17 {what}: the trace shows {traced} kernels a replay, the "
+        raise AssertionError(f"{phase} {what}: the trace shows {traced} kernels a replay, the "
                              f"counters {per_step}")
     if counts != {name: n_steps * per_step[name] for name in counts}:
-        raise AssertionError(f"17 {what}: {counts} launches in {n_steps} steps, expected "
+        raise AssertionError(f"{phase} {what}: {counts} launches in {n_steps} steps, expected "
                              f"{per_step} a step")
     if read_routes()["attention_fwd"]["tf32x3"] or read_routes()["attention_bwd"]["tf32x3"]:
-        raise AssertionError(f"17 {what}: bf16 attention off the tensor-core route")
+        raise AssertionError(f"{phase} {what}: bf16 attention off the tensor-core route")
     return res
 
 
 def graph_stage1(model, cfg, bank, stage: str) -> dict:
-    """17a: ``make_stage1_epoch`` against ``make_stage1_step`` over the same
-    rows of the bank, from one set of contexts: two epochs at GRAPH_LRS,
-    every step's loss, the contexts, the moments and the step bit for bit."""
+    """17a: ``make_stage1_epoch`` against its step body
+    (``_make_stage1_body``) called eagerly over the same rows of the bank,
+    from one set of contexts: two epochs at GRAPH_LRS, every step's loss, the
+    contexts, the moments and the step bit for bit."""
     stage_cfg = cfg.SOLVER[f"STAGE{stage.upper()}"].clone()
     feats = bank[0]
     labels, views = (torch.as_tensor(a).to(CARD).long() for a in bank[1:])
@@ -4152,12 +4230,12 @@ def graph_stage1(model, cfg, bank, stage: str) -> dict:
         if mode == "graph":
             r["state"], losses = r["epoch"](r["state"], feats, labels, views, rows, lr)
             return losses
+        r["opt"].set_lr(r["state"].opt_state, lr)
         out = []
         for row in rows:
             sel = torch.as_tensor(row, device=CARD)
-            r["state"], metrics = r["step"](r["state"], feats[sel], labels[sel],
-                                            views[sel] if stage == "1b" else None, lr)
-            out.append(metrics["loss"][None])
+            out.append(r["body"](r["state"], feats[sel], labels[sel],
+                                 views[sel] if stage == "1b" else None)[None])
         return torch.cat(out)
 
     for mode in ("graph", "loop"):
@@ -4167,7 +4245,7 @@ def graph_stage1(model, cfg, bank, stage: str) -> dict:
         opt = make_optimizer(stage_cfg, model, stage=f"stage{stage}")
         modes[mode] = dict(opt=opt, state=initial_state(model, opt),
                            epoch=make_stage1_epoch(model, cfg, opt, stage),
-                           step=make_stage1_step(model, cfg, opt, stage))
+                           body=_make_stage1_body(opt, stage))
         torch.cuda.synchronize()
         reset_counts()
         losses = torch.cat([turn(mode, rows_of(e), lr) for e, lr in enumerate(GRAPH_LRS)])
@@ -4199,13 +4277,33 @@ def graph_stage1(model, cfg, bank, stage: str) -> dict:
     return res
 
 
+def eager_train_body(model, cfg, loss_fn, optimizer, kwargs: dict):
+    """``body(state, batch, gen)``: the train step's body
+    (``_make_step_body``) called eagerly on ``batch`` (numpy arrays or
+    tensors) moved to the card, at the lr in the state's buffer, the eager
+    reference of phases 17 and 18."""
+    step_body = _make_step_body(model, cfg, loss_fn, optimizer, None, None,
+                                kwargs.get("uniprompt", False), kwargs.get("text_features"))
+
+    def body(state, batch, gen):
+        def dev(a):
+            return None if a is None else torch.as_tensor(a).to(CARD, non_blocking=True)
+
+        cam, view = labels_for(cfg, batch)
+        return step_body(state, dev(batch["images"]), dev(batch["pids"]), dev(cam), dev(view),
+                         gen)
+
+    return body
+
+
 def graph_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dict, data,
                 rows_of, want: dict) -> dict:
-    """17b-d: ``make_train_epoch`` against ``make_train_step`` over the same
-    rows of the resident ``data``, each mode on its own copy of ``model``
-    from one generator state: two epochs at GRAPH_LRS, every step's loss and
-    accuracy, every parameter and buffer (the BN running statistics), the
-    moments, the step and the generator state bit for bit."""
+    """17b-d: ``make_train_epoch`` against its step body (``_make_step_body``)
+    called eagerly over the same rows of the resident ``data``, each mode on
+    its own copy of ``model`` from one generator state: two epochs at
+    GRAPH_LRS, every step's loss and accuracy, every parameter and buffer
+    (the BN running statistics), the moments, the step and the generator
+    state bit for bit."""
     n = GRAPH_ROWS["vit"]
     modes = {}
     for mode in ("graph", "loop"):
@@ -4214,19 +4312,20 @@ def graph_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dic
         modes[mode] = dict(model=m, opt=opt, state=initial_state(m, opt),
                            gen=torch.Generator(device=CARD).manual_seed(GRAPH_SEED),
                            epoch=make_train_epoch(m, cfg, loss_fn, opt, **kwargs),
-                           step=make_train_step(m, cfg, loss_fn, opt, **kwargs))
+                           body=eager_train_body(m, cfg, loss_fn, opt, kwargs))
 
     def turn(mode, rows, lr=GRAPH_LRS[-1]):
         r = modes[mode]
         if mode == "graph":
             r["state"], (losses, accs) = r["epoch"](r["state"], *data, rows, lr, r["gen"])
             return torch.stack([losses, accs])
+        r["opt"].set_lr(r["state"].opt_state, lr)
         out = []
         for row in rows:
             idx = torch.as_tensor(row, device=CARD)
             batch = dict(zip(("images", "pids", "camids", "trackids"),
                              (t.index_select(0, idx) for t in data)))
-            r["state"], metrics = r["step"](r["state"], batch, lr, r["gen"])
+            r["state"], metrics = r["body"](r["state"], batch, r["gen"])
             out.append(torch.stack([metrics["loss"], metrics["acc"]]))
         return torch.stack(out, dim=1)
 
@@ -4350,6 +4449,440 @@ def run_compiled_epochs(market_loader, market_data) -> dict:
     torch.cuda.synchronize()
     log(f"  17 allocated before the phase {held / 1e9:.3f} GB, after it "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB (the resident Market set included)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the compiled steps, each against its eager body, bit for bit
+# ---------------------------------------------------------------------------
+
+STEP_CHECK_ROWS = 3  # checked train steps at each of STEP_LRS: two warm-up, a capture, 3 replays
+STEP_LRS = (1e-4, 3e-5)
+STEP_TURN_ROWS = 8  # train steps a timed turn
+STEP_TRACED = 4  # replays a traced run
+STAGE1_TAIL = 40  # rows of stage 1's trailing partial batch (a bank of 4,096 + 40)
+STAGE1_TAIL_EPOCHS = 4
+
+
+class PaddedBatcher:
+    """``ImageBatcher.iter_sequential``'s contract over uint8 images held in
+    memory, the last batch padded to full width as data/loader.py pads it
+    (zero images, the last record repeated)."""
+
+    def __init__(self, images: np.ndarray, pids: np.ndarray, camids: np.ndarray,
+                 batch_size: int):
+        self.images, self.pids, self.camids = images, pids, camids
+        self.batch_size = batch_size
+
+    def iter_sequential(self):
+        for lo in range(0, len(self.pids), self.batch_size):
+            idx = np.arange(lo, min(lo + self.batch_size, len(self.pids)))
+            count, pad = len(idx), self.batch_size - len(idx)
+            images = self.images[lo:lo + count]
+            if pad:
+                images = np.concatenate([images, np.zeros((pad, *images.shape[1:]), np.uint8)])
+                idx = np.concatenate([idx, np.full(pad, idx[-1])])
+            yield {"images": images, "pids": self.pids[idx], "camids": self.camids[idx],
+                   "trackids": np.zeros(len(idx), np.int32), "count": count}
+
+
+def market_eval_set(seed: int = 37):
+    """Seeded uint8 query + gallery images at Market-1501's test size (3,368
+    + 15,913 of 256×128, 750 identities on both sides, the query on camera
+    0 and the gallery on camera 1)."""
+    nq, ng, ids = MARKET["q"], MARKET["g"], MARKET["ids"]
+    pids = np.concatenate([np.arange(nq) % ids, np.arange(ng) % ids]).astype(np.int32)
+    camids = np.concatenate([np.zeros(nq), np.ones(ng)]).astype(np.int32)
+    return identity_images(pids, ids, seed), pids, camids
+
+
+@contextlib.contextmanager
+def made_by(module, name: str):
+    """The objects ``module.name`` (a step factory) makes while the block
+    runs, in a list."""
+    real, made = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    setattr(module, name, spy)
+    try:
+        yield made
+    finally:
+        setattr(module, name, real)
+
+
+def to_card(a):
+    return None if a is None else torch.as_tensor(a).to(CARD, non_blocking=True)
+
+
+def step_case(what: str, step, eager, calls: list, unit: str, per_call: int, want: dict,
+              diffs: dict, counts: dict, n_calls: int, stats: dict, extra: dict) -> dict:
+    """Phase 18's report of one step: the rates of ``step(call)`` against
+    ``eager(call)`` over ``calls`` in turns (graph, eager, eager, graph,
+    twice; ``per_call`` units a call), the kernels of STEP_TRACED traced
+    replays against the counters, the idle share over them, and
+    ``graph_report``'s checks of the bit-for-bit ``diffs`` and the checked
+    run's ``counts`` over ``n_calls`` calls."""
+    def turn(mode, chunk):
+        fn = step if mode == "graph" else eager
+        return [fn(c) for c in chunk]
+
+    rates = graph_turns(turn, lambda i: calls, per_call, other="eager")
+    per_step = per_replay_counts(step)
+    trace = traced_graphed_epoch(lambda: turn("graph", calls[:STEP_TRACED]), step.compiled)
+    return graph_report(f"{what}", diffs, per_step, want, counts, n_calls, rates, trace,
+                        stats["pool_bytes"], unit, dict(stats=stats, **extra), phase="18",
+                        against="its eager body")
+
+
+def compiled_eval() -> dict:
+    """18a: ``run_validation`` on configs/person/vit_base.yml at Market-1501's
+    query + gallery size, batch 64, the last batch padded: every batch's
+    features, CMC and mAP against the eager body's bit for bit; the eval
+    feats/s of both modes in turns."""
+    cfg = vit_base_cfg()
+    model = make_model(cfg, num_class=NUM_CLASSES, camera_num=6, view_num=1)
+    depth = len(model.image_encoder.transformer.resblocks)
+    t0 = time.perf_counter()
+    images, pids, camids = market_eval_set()
+    loader = PaddedBatcher(images, pids, camids, BATCH)
+    n_batches = -(-len(pids) // BATCH)
+    log(f"  18a {len(pids)} images ({MARKET['q']} query), {n_batches} batches, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kept = []
+
+    class Kept(R1mAPEvaluator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    real, processor.R1mAPEvaluator = processor.R1mAPEvaluator, Kept
+    try:
+        (cmc, mAP), secs = timed(lambda: run_validation(cfg, model, loader, MARKET["q"]))
+    finally:
+        processor.R1mAPEvaluator = real
+    counts = read_counts()
+    step = processor.cached_eval_step(model, cfg)
+    body = _make_eval_body(lambda: model, cfg)
+
+    def eager(batch):
+        return body(to_card(batch["images"]), *map(to_card, labels_for(cfg, batch)))[0]
+
+    reference = copy.copy(kept[0])
+    reference.reset()
+    differ = []
+    for i, batch in enumerate(loader.iter_sequential()):
+        n = batch["count"]
+        feat = eager(batch)[:n]
+        if not torch.equal(kept[0].feats[i], feat.float()):
+            differ.append(i)
+        reference.update((feat, batch["pids"][:n], batch["camids"][:n]))
+    r_cmc, r_map, *_ = reference.compute()
+    diffs = {"features": f"{len(differ)} of {n_batches} batches differ, first {differ[:5]}"
+             if differ else "",
+             "cmc": "" if np.array_equal(cmc, r_cmc) else "differs",
+             "mAP": "" if mAP == r_map else f"{mAP!r} against {r_map!r}"}
+    del kept, reference
+    res = step_case(f"18a run_validation, configs/person/vit_base.yml, Market-1501 query + "
+                    f"gallery ({MARKET['q']} + {MARKET['g']}), batch {BATCH}, padded tail",
+                    step, eager, list(loader.iter_sequential()), "feats/s",
+                    len(pids) / n_batches,
+                    {"attention_fwd": depth}, diffs, counts, n_batches,
+                    dict(step.compiled.stats), dict(run_validation_seconds=secs,
+                                                    rank1=float(cmc[0]), mAP=float(mAP)))
+    release_eval_steps(model)
+    return res
+
+
+def compiled_bank_and_text() -> tuple:
+    """18b: ``build_image_bank`` over BANK_IMAGES images and
+    ``precompute_text_features`` over UNI_CLASSES classes on
+    configs/ours/cctv_ir_cctv_rgb.yml, each against its eager body bit for
+    bit, both modes' rates in turns → (results, model, cfg, bank)."""
+    cfg = uniprompt_cfg()
+    model = make_model_uniprompt(cfg, num_class=UNI_CLASSES, camera_num=14, view_num=UNI_VIEWS)
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    images, pids, views = uniprompt_images()
+    loader = ShuffledLoader(MemoryBatcher(images, pids, BATCH, views), int(cfg.SOLVER.SEED))
+    out = {}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with made_by(uni_engine, "make_image_bank_step") as made:
+        bank, secs = timed(lambda: build_image_bank(cfg, model, loader))
+    counts = read_counts()
+    batches = list(loader.epoch(0, drop_last=False))
+    bank_body = _make_bank_body(model, cfg)
+
+    def eager_bank(batch):
+        return bank_body(to_card(batch["images"]))[0]
+
+    want = torch.cat([eager_bank(b)[:b["count"]] for b in batches])
+    step = make_image_bank_step(model, cfg)
+    for b in batches[:3]:  # warm-up, capture: the turns time replays
+        step(b)
+    out["bank"] = step_case(
+        f"18b build_image_bank, configs/ours/cctv_ir_cctv_rgb.yml, {BANK_IMAGES} images, batch "
+        f"{BATCH}", step, eager_bank, batches, "feats/s", BATCH, {"attention_fwd": vdepth},
+        {"bank": first_difference({"bank": bank[0]}, {"bank": want})}, counts, len(batches),
+        dict(made[0].compiled.stats), dict(build_image_bank_seconds=secs))
+    step.release()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with made_by(uni_engine, "make_text_step") as made:
+        text, secs = timed(lambda: precompute_text_features(cfg, model, UNI_CLASSES))
+    counts = read_counts()
+    label_batches = [torch.arange(lo, min(lo + BATCH, UNI_CLASSES), device=CARD)
+                     for lo in range(0, UNI_CLASSES, BATCH)]
+    text_body = _make_text_body(model, "2")
+
+    def eager_text(labels):
+        return text_body(labels, None)[0]
+
+    want = torch.cat([eager_text(lb) for lb in label_batches])
+    stats = dict(made[0].compiled.stats)
+    full = UNI_CLASSES // BATCH
+    if stats["eager_steps"] != 2 + bool(UNI_CLASSES % BATCH) or stats["replays"] != full - 2:
+        raise AssertionError(f"18b text features: the tail did not run eagerly beside the "
+                             f"full-width graph: {stats}")
+    step = make_text_step(model, "2")
+    for lb in label_batches[:3]:
+        step(lb)
+    out["text"] = step_case(
+        f"18b precompute_text_features, configs/ours/cctv_ir_cctv_rgb.yml, {UNI_CLASSES} "
+        f"classes in batches of {BATCH} (text tower 12 x 512, L 77, causal)", step, eager_text,
+        label_batches[:full], "classes/s", BATCH, {"attention_fwd": tdepth},
+        {"text_features": first_difference({"t": text}, {"t": want})}, counts,
+        len(label_batches), stats, dict(precompute_seconds=secs, tail=UNI_CLASSES % BATCH))
+    step.release()
+    return out, model, cfg, bank
+
+
+def compiled_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dict,
+                   loader, want: dict) -> dict:
+    """18c: ``make_train_step`` over host batches of phase 11's loader (the
+    PK sampler's rows decoded from memory, as ``train_epochs`` feeds it)
+    against its body called eagerly on the same batches, each mode on its
+    own copy of ``model`` from one generator state: STEP_CHECK_ROWS steps at
+    each of STEP_LRS, every loss and accuracy, parameter and buffer, the
+    moments, the step and the generator bit for bit; img/s in turns."""
+    seed = int(cfg.SOLVER.SEED)
+    modes = {}
+    for mode in ("graph", "eager"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(opt_cfg, m, stage=stage)
+        modes[mode] = dict(model=m, opt=opt, state=initial_state(m, opt),
+                           gen=torch.Generator(device=CARD).manual_seed(GRAPH_SEED))
+    graph, eager = modes["graph"], modes["eager"]
+    step = make_train_step(graph["model"], cfg, loss_fn, graph["opt"], **kwargs)
+    body = eager_train_body(eager["model"], cfg, loss_fn, eager["opt"], kwargs)
+
+    def host_batches(rows):
+        return list(loader.batcher.iter_indices(np.asarray(rows).reshape(-1), drop_last=True))
+
+    def run(mode, batches, lr):
+        r, out = modes[mode], []
+        if mode == "eager":
+            r["opt"].set_lr(r["state"].opt_state, lr)
+        for batch in batches:
+            if mode == "graph":
+                r["state"], metrics = step(r["state"], batch, lr, r["gen"])
+            else:
+                r["state"], metrics = body(r["state"], batch, r["gen"])
+            out.append(torch.stack([metrics["loss"], metrics["acc"]]))
+        return torch.stack(out, dim=1)
+
+    checked = [host_batches(epoch_perm(loader, 50 + e, seed)[:STEP_CHECK_ROWS])
+               for e in range(len(STEP_LRS))]
+    for mode, r in modes.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out = torch.cat([run(mode, b, lr) for b, lr in zip(checked, STEP_LRS)], dim=1)
+        torch.cuda.synchronize()
+        st = r["state"].opt_state
+        r.update(counts=read_counts(), out=out.cpu(), weights=host_copy(r["model"].state_dict()),
+                 moments=host_copy({**st.mu, **{f"nu.{k}": v for k, v in st.nu.items()}}),
+                 steps_taken=int(st.step), gen_state=r["gen"].get_state())
+    n = STEP_CHECK_ROWS * len(STEP_LRS)
+    diffs = {"losses_and_accuracies": first_difference({"o": graph["out"]}, {"o": eager["out"]}),
+             "parameters_and_buffers": first_difference(graph["weights"], eager["weights"]),
+             "moments": first_difference(graph["moments"], eager["moments"]),
+             "step": "" if graph["steps_taken"] == eager["steps_taken"] == n
+             else f"{graph['steps_taken']} / {eager['steps_taken']}",
+             "generator": "" if torch.equal(graph["gen_state"], eager["gen_state"]) else "differs"}
+    stats = dict(step.compiled.stats)
+
+    def turn(mode, rows):  # the loader decodes while the steps run, as in train_epochs
+        return run(mode, loader.batcher.iter_indices(rows.reshape(-1), drop_last=True),
+                   STEP_LRS[-1])
+
+    rates = graph_turns(turn, lambda i: epoch_perm(loader, i, seed)[:STEP_TURN_ROWS], BATCH,
+                        other="eager")
+    trace = traced_graphed_epoch(lambda: turn("graph", epoch_perm(loader, 200, seed)[
+        :STEP_TRACED]), step.compiled)
+    res = graph_report(what, diffs, per_replay_counts(step), want, graph["counts"], n, rates,
+                       trace, stats["pool_bytes"], "img/s",
+                       dict(stats=stats, loss=float(graph["out"][0, 0]),
+                            remat=bool(cfg.TPU.REMAT),
+                            fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False))),
+                       phase="18", against="its eager body")
+    step.release()
+    del modes
+    torch.cuda.empty_cache()
+    return res
+
+
+def compiled_stage1_tail(model, cfg, bank) -> dict:
+    """18d: stage 1b's trailing partial batch (STAGE1_TAIL bank rows) through
+    ``make_stage1_step`` over STAGE1_TAIL_EPOCHS epochs (eager in the first
+    two, captured in the third) against ``_make_stage1_body`` from one set of
+    contexts: losses, contexts, moments and the step bit for bit; then
+    ``do_train_stage1`` over three epochs of a bank with such a tail, whose
+    trailing step replays in the third."""
+    stage_cfg = cfg.SOLVER.STAGE1B.clone()
+    feats = bank[0]
+    labels, views = (torch.as_tensor(a).to(CARD).long() for a in bank[1:])
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    probe = make_optimizer(stage_cfg, model, stage="stage1b")
+    contexts = {k: p.detach().clone() for k, p in probe.partition(model)[0].items()}
+    params = dict(model.named_parameters())
+    calls = [(feats[sel], labels[sel], views[sel]) for sel in (
+        torch.as_tensor(np.random.default_rng(300 + e).permutation(len(labels))[:STAGE1_TAIL],
+                        device=CARD) for e in range(STAGE1_TAIL_EPOCHS))]
+    lrs = [STEP_LRS[e % 2] for e in range(STAGE1_TAIL_EPOCHS)]
+    modes = {}
+
+    def run(mode, chunk, lrs=lrs):
+        r, losses = modes[mode], []
+        for (f, lb, v), lr in zip(chunk, lrs):
+            if mode == "graph":
+                r["state"], metrics = r["step"](r["state"], f, lb, v, lr)
+                losses.append(metrics["loss"][None])
+            else:
+                r["opt"].set_lr(r["state"].opt_state, lr)
+                losses.append(r["body"](r["state"], f, lb, v)[None])
+        return torch.cat(losses)
+
+    for mode in ("graph", "eager"):
+        with torch.no_grad():
+            for k, v in contexts.items():
+                params[k].copy_(v)
+        opt = make_optimizer(stage_cfg, model, stage="stage1b")
+        r = modes[mode] = dict(opt=opt, state=initial_state(model, opt))
+        if mode == "graph":
+            r["step"] = make_stage1_step(model, cfg, opt, "1b")
+        else:
+            r["body"] = _make_stage1_body(opt, "1b")
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = run(mode, calls)
+        torch.cuda.synchronize()
+        st = r["state"].opt_state
+        r.update(counts=read_counts(), losses=losses.cpu(),
+                 contexts=host_copy({k: params[k] for k in contexts}),
+                 moments=host_copy({**st.mu, **{f"nu.{k}": v for k, v in st.nu.items()}}),
+                 steps_taken=int(st.step))
+    g, e = modes["graph"], modes["eager"]
+    diffs = {"losses": first_difference({"l": g["losses"]}, {"l": e["losses"]}),
+             "contexts": first_difference(g["contexts"], e["contexts"]),
+             "moments": first_difference(g["moments"], e["moments"]),
+             "step": "" if g["steps_taken"] == e["steps_taken"] == STAGE1_TAIL_EPOCHS
+             else f"{g['steps_taken']} / {e['steps_taken']}"}
+    step = g["step"]
+    stats = dict(step.compiled.stats)
+    if stats["eager_steps"] != 2 or stats["replays"] != STAGE1_TAIL_EPOCHS - 2:
+        raise AssertionError(f"18d: the trailing step did not replay from the third epoch on: "
+                             f"{stats}")
+    rates = graph_turns(lambda mode, chunk: run(mode, chunk, [lrs[-1]] * len(chunk)),
+                        lambda i: calls, STAGE1_TAIL, other="eager")
+    trace = traced_graphed_epoch(lambda: run("graph", calls), step.compiled)
+    per_step = per_replay_counts(step)
+    step.release()
+
+    # the real path: do_train_stage1 over three epochs of a bank with a tail
+    tail_bank = (torch.cat([feats, feats[:STAGE1_TAIL]]),
+                 np.concatenate([bank[1], bank[1][:STAGE1_TAIL]]),
+                 np.concatenate([bank[2], bank[2][:STAGE1_TAIL]]))
+    stage_cfg.MAX_EPOCHS = 3
+    opt = make_optimizer(stage_cfg, model, stage="stage1b")
+    with made_by(uni_engine, "make_stage1_step") as made:
+        (_, history), secs = timed(lambda: do_train_stage1(
+            cfg, model, None, opt, make_scheduler(stage_cfg, "cosine"), is_stage1b=True,
+            bank=tail_bank, stage_cfg=stage_cfg))
+    loop_stats = dict(made[0].compiled.stats)
+    if loop_stats["captures"] != 1 or loop_stats["replays"] != 1 or \
+            not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"18d do_train_stage1 over 3 epochs: the trailing step "
+                             f"{loop_stats}, history {history}")
+    return graph_report(
+        f"18d stage 1b trailing step, configs/ours/cctv_ir_cctv_rgb.yml, {STAGE1_TAIL} bank "
+        f"rows, {STAGE1_TAIL_EPOCHS} epochs", diffs, per_step,
+        {"attention_fwd": tdepth, "attention_bwd": tdepth}, g["counts"], STAGE1_TAIL_EPOCHS,
+        rates, trace, stats["pool_bytes"], "bank rows/s",
+        dict(stats=stats, do_train_stage1_3_epochs=dict(
+            bank_rows=len(labels) + STAGE1_TAIL, seconds=secs, trailing_step=loop_stats)),
+        phase="18", against="its eager body")
+
+
+def run_compiled_steps(market_loader) -> dict:
+    """Phase 18 (module docstring): 18a run_validation; 18b the bank and the
+    text features; 18c the host-loader train step (vit_base.yml with
+    FUSED_ADAM off and on, cnn_base.yml, the MoE stage-2b step of
+    uniprompt_tuned.yml with dropout and TPU.REMAT); 18d stage 1's trailing
+    step."""
+    out, t0 = {}, time.perf_counter()
+    out["18a_eval"] = compiled_eval()
+    torch.cuda.empty_cache()
+    log(f"  18a seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    res, model, cfg, bank = compiled_bank_and_text()
+    out["18b_bank"], out["18b_text"] = res["bank"], res["text"]
+    out["18d_stage1_tail"] = compiled_stage1_tail(model, cfg, bank)
+    del model, bank
+    torch.cuda.empty_cache()
+    log(f"  18b/18d seconds {time.perf_counter() - t0:.1f}")
+
+    for key, settings, fused in (("18c_vit_fused_adam_off", VIT_BASE, False),
+                                 ("18c_vit_fused_adam_on", VIT_BASE, True),
+                                 ("18c_rn50", CNN_BASE, False)):
+        t0 = time.perf_counter()
+        cfg = vit_base_cfg(settings=settings)
+        cfg.SOLVER.FUSED_ADAM = fused
+        model = make_model(cfg, num_class=MARKET_TRAIN["ids"], camera_num=MARKET_TRAIN["cams"],
+                           view_num=1)
+        vit = cfg.MODEL.NAME == "ViT-B-16"
+        depth = len(model.image_encoder.transformer.resblocks) if vit else 0
+        loss_fn, _ = make_loss(cfg, MARKET_TRAIN["ids"])
+        out[key] = compiled_train(
+            f"{key[:3]} configs/person/{'vit' if vit else 'cnn'}_base.yml, host loader "
+            f"(Market-1501 size), FUSED_ADAM {'on' if fused else 'off'}", cfg, model, loss_fn,
+            "baseline", cfg.SOLVER, {}, market_loader,
+            {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES if fused else 0})
+        del model
+        torch.cuda.empty_cache()
+        log(f"  {key} seconds {time.perf_counter() - t0:.1f}")
+
+    t0 = time.perf_counter()
+    cfg = remat_cfg(tuned_cfg(), True)
+    cfg.MODEL.MOE.DROPOUT = GRAPH_MOE_DROPOUT
+    model = make_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+    text = precompute_text_features(cfg, model, UNI_CLASSES)
+    depth = len(model.image_encoder.transformer.resblocks)
+    out["18c_moe_2b_dropout_remat"] = compiled_train(
+        f"18c MoE stage 2b (configs/tpu/uniprompt_tuned.yml, MoE 4/2/2, bf16 moments), dropout "
+        f"{GRAPH_MOE_DROPOUT}, REMAT on, host loader", cfg, model, make_loss(cfg, UNI_CLASSES)[0],
+        "stage2b", cfg.SOLVER.STAGE2, dict(uniprompt=True, text_features=text), market_loader,
+        {"attention_fwd": 2 * depth, "attention_bwd": depth})
+    del model, text
+    torch.cuda.empty_cache()
+    log(f"  18c MoE seconds {time.perf_counter() - t0:.1f}")
     return out
 
 
@@ -4483,9 +5016,19 @@ def main() -> None:
     log("compiled epochs (17a stage 1, 17b ViT device epoch, 17c MoE 2a/2b, 17d remat) as "
         "CUDA graphs against the step loop, full width:")
     t0 = time.perf_counter()
-    graph_res = run_compiled_epochs(epoch_res.pop("loader"), epoch_res.pop("data"))
+    market_loader = epoch_res.pop("loader")
+    graph_res = run_compiled_epochs(market_loader, epoch_res.pop("data"))
     torch.cuda.empty_cache()
     log(f"  compiled-epoch phase seconds {time.perf_counter() - t0:.1f}")
+
+    log("compiled steps (18a run_validation, 18b the bank and the text features, 18c the "
+        "host-loader train step, 18d stage 1's trailing step) as CUDA graphs against their "
+        "eager bodies, full width:")
+    t0 = time.perf_counter()
+    step_res = run_compiled_steps(market_loader)
+    del market_loader
+    torch.cuda.empty_cache()
+    log(f"  compiled-step phase seconds {time.perf_counter() - t0:.1f}")
 
     log("CLIP weights from a local file, and the RN50 backbone, full width:")
     t0 = time.perf_counter()
@@ -4562,6 +5105,8 @@ def main() -> None:
             "launches_device_epoch_do_train": epoch_res["res"]["launches"][name],
             "launches_per_replayed_step": {k: v["launches_per_replayed_step"][name]
                                            for k, v in graph_res.items()},
+            "launches_per_replayed_compiled_step": {k: v["launches_per_replayed_step"][name]
+                                                    for k, v in step_res.items()},
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
@@ -4640,6 +5185,8 @@ def main() -> None:
             "per_rank_zero_slices_3_steps": dp_res["14c"]["launches"][0]["adam"]},
         "launches_model_axis": {"per_rank_fused_tp_step": mp_res["15a"]["adam_launches"]},
         "launches_per_replayed_step": graph_res["17b_vit_fused_adam_on"][
+            "launches_per_replayed_step"]["adam"],
+        "launches_per_replayed_compiled_step": step_res["18c_vit_fused_adam_on"][
             "launches_per_replayed_step"]["adam"],
         "bit_equal_repeats": all(r["bit_equal_repeat"] for r in adam_rows),
         "scalars": "[lr*mult, 1-b1^t, 1-b2^t] fp32, read from device memory",

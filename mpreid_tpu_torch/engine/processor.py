@@ -8,9 +8,17 @@ the epoch loop it shares with the Uni-Prompt stage 2
 steps, metrics drained from the device only at log points, samples/s with
 the reference's definition (batch size / time per batch), checkpoints and
 validation at their periods. ``run_validation`` extracts features batch by
-batch, then runs the evaluator. The JAX package's eval-step cache keyed on
-``id(model)`` is not carried over: building the step is cheap in eager
-PyTorch.
+batch, then runs the evaluator. Its eval step is kept across validations,
+as the JAX package's ``_EVAL_STEP_CACHE`` keeps its jitted one
+(``cached_eval_step``): on the card the validation every ``EVAL_PERIOD``
+epochs replays the graph captured at the first one, and a model whose
+storage changed is captured again. The cache is held weakly on the model
+(a freed model takes its steps with it, so its reused ``id`` cannot hit),
+and ``do_train``, the Uni-Prompt stage 2 and the test entry points release
+it when they end (``release_eval_steps``). The train step of the step loop
+is one ``steps.make_train_step`` a run: on the card its third step
+captures a CUDA graph and every later one replays it
+(``engine/compiled.py``); ``do_train`` releases it at the end.
 
 ``TPU.DEVICE_DATASET``: every train record is decoded once and the uint8
 images and labels live on the model's device (``build_device_dataset``);
@@ -21,7 +29,9 @@ step is captured once into a CUDA graph and replayed for every batch
 ``TPU.PROFILE_DIR``
 writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
 steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
-the whole second epoch, into that directory.
+the whole second epoch, into that directory. On the card the step loop's
+trace holds step 1 eager (the second warm-up step), step 2's capture and
+first replay, and replays after it.
 
 The mesh (ref processor.py:186-201, :69-100): under a process group of
 more than one rank (``parallel.init_distributed``, torchrun) and
@@ -57,6 +67,7 @@ import dataclasses
 import logging
 import os
 import time
+import weakref
 from datetime import timedelta
 from typing import Callable, Optional
 
@@ -92,6 +103,30 @@ INERT_KEYS = (
     ("DATALOADER", "NATIVE_DECODE", "auto",
      "the JAX package's native image decoder is not carried over; PIL decodes"),
 )
+
+
+# the eval steps kept across validations (ref processor.py::_EVAL_STEP_CACHE):
+# {model: {config key: step}}, held weakly on the model
+_EVAL_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cached_eval_step(model, cfg):
+    """The eval step of ``model`` under ``cfg``, made at the first call and
+    kept on the model (ref ``_cached_eval_step``'s key: the compute dtype,
+    the pixel mean and std and the SIE switches); the step holds the model
+    weakly, so the cache keeps no model alive."""
+    key = (cfg.TPU.COMPUTE_DTYPE, tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD),
+           cfg.MODEL.SIE_CAMERA, cfg.MODEL.SIE_VIEW)
+    steps = _EVAL_STEPS.setdefault(model, {})
+    if key not in steps:
+        steps[key] = make_eval_step(model, cfg, weak=True)
+    return steps[key]
+
+
+def release_eval_steps(model) -> None:
+    """Free the graphs of ``model``'s cached eval steps and forget them."""
+    for step in _EVAL_STEPS.pop(model, {}).values():
+        step.release()
 
 
 def check_tpu_keys(cfg, keys, logger) -> None:
@@ -249,7 +284,7 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
         dist_metric=cfg.TEST.DIST_METRIC,
         device=next(model.parameters()).device,
     )
-    eval_step = make_eval_step(model, cfg)
+    eval_step = cached_eval_step(model, cfg)
     for batch in val_loader.iter_sequential():
         feat = eval_step(batch)
         n = batch["count"]
@@ -452,8 +487,10 @@ def do_train(cfg, model, train_loader, val_loader, optimizer,
         start_epoch, epochs, solver.LOG_PERIOD, solver.CHECKPOINT_PERIOD, solver.EVAL_PERIOD,
         lambda e: cfg.OUTPUT_DIR and os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_{e}.pth"),
         logger, train_epoch, cfg.TPU.PROFILE_DIR, optimizer, mesh)
-    if train_epoch is not None:
-        train_epoch.release()
+    for compiled in (train_step, train_epoch):
+        if compiled is not None:
+            compiled.release()
+    release_eval_steps(model)
     logger.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

@@ -3,12 +3,20 @@
 ref mpreid_tpu/engine/steps.py::make_train_step, ::_train_step_impl,
 ::make_train_epoch, ::make_eval_step, ::make_image_bank_step, ::make_text_step,
 ::make_stage1_step, ::_stage1_step_impl. The JAX package compiles one
-program per step; PyTorch runs eagerly, so each step is a closure. The train
-step moves the uint8 batch to the model's device, augments it there
-(``ops/augment.py``), runs ``forward_train``, takes the loss and its
-gradients with respect to the trainable parameters only, and lets the
-optimizer update them in place. Loss and accuracy come back as device
-tensors: nothing in the step waits for the device.
+program per step (``jax.jit``). Here each step is a body over device
+tensors (``_make_step_body``, ``_make_stage1_body``, ``_make_eval_body``,
+``_make_bank_body``, ``_make_text_body``) run by ``engine/compiled.py``: on
+the card a ``CompiledStep`` runs a key's first two calls eagerly, captures
+the body into a CUDA graph at the third and replays it at every later one;
+on the CPU the same decisions run the body eagerly. A call copies its host
+batch into the graph's input buffers, replays, and returns copies of the
+outputs, so a caller may keep them across calls. The train step augments
+the uint8 batch on the device (``ops/augment.py``), runs
+``forward_train``, takes the loss and its gradients with respect to the
+trainable parameters only, and lets the optimizer update them in place, at
+the lr and step held in the optimizer state's device buffers
+(``solver/optim.py``). Loss and accuracy come back as device tensors:
+nothing in the step waits for the device.
 
 Before each gradient the frozen parameters are set ``requires_grad=False``
 and the trainable ones ``True`` (``trainable_params``), so autograd computes
@@ -22,21 +30,22 @@ Over a mesh with a model axis (``parallel/mesh.py::shard_module`` has
 sliced the model) the layers meet through the Megatron pair, so the ranks
 of a model group compute the same replicated loss; a replicated parameter's
 gradient comes out whole and equal on each of them, and a sliced one's is
-the rank's slice. Gradients are then summed over the data group only.
+the rank's slice. Gradients are then summed over the data group only. A
+collective over gloo runs on the host and cannot be captured, so over a
+mesh of more than one rank the train step (and over more than one rank the
+eval step) stays eager: each decides so when it is made, and rank 0 logs it.
 
 The whole-epoch scans of ``TPU.DEVICE_DATASET`` (``make_train_epoch``) and
-of stage 1 (``make_stage1_epoch``) run their step body through
-``engine/compiled.py``: on the card it is captured once into a CUDA graph
-(after two eager warm-up steps) and replayed for every batch of the epoch,
-so the epoch makes no host round-trip and issues no kernel from Python; on
-the CPU the same body runs eagerly. The body gathers its batch on the
-device from the epoch's index row, and reads its lr and step from the
-optimizer state's device buffers (``solver/optim.py``), so an epoch gives
+of stage 1 (``make_stage1_epoch``) run the same bodies through a
+``CompiledEpoch``: one graph replayed for every batch of the epoch, the
+batch gathered on the device from the epoch's index row, so an epoch gives
 the step loop's results bit for bit.
 """
 
 from __future__ import annotations
 
+import logging
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -46,11 +55,14 @@ from mpreid_tpu_torch.models.layers import class_split
 from mpreid_tpu_torch.models.moe import load_balancing_loss
 from mpreid_tpu_torch.ops.augment import eval_preprocess, train_augment
 from mpreid_tpu_torch.parallel import collectives as C
+from mpreid_tpu_torch.parallel.dist import is_main, world_size
 from mpreid_tpu_torch.parallel.mesh import global_batch
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
 
-from .compiled import CompiledEpoch
+from .compiled import CompiledEpoch, CompiledStep
 from .train_state import TrainState
+
+logger = logging.getLogger("mpreid_tpu_torch")
 
 
 def labels_for(cfg, batch):
@@ -229,19 +241,39 @@ def make_train_step(model, cfg, loss_fn: Callable, optimizer,
     (and the MoE experts' dropout). With ``center_weight`` the center loss
     joins, and the centers take an SGD step on their gradient rescaled by
     1/``center_weight``. With ``uniprompt`` and ``text_features`` the
-    image-to-text term joins (``loss_and_grads``). With ``mesh`` of more
-    than one rank, ``batch`` is this rank's block of the global batch and
-    the step is the data-parallel one (``_make_step_body``)."""
-    device = _device_of(model)
+    image-to-text term joins (``loss_and_grads``).
+
+    The body (``_make_step_body``) runs through a ``CompiledStep``: on the
+    card the third call with a key (the batch's shapes, its optional labels,
+    ``gen``, the state's storage) captures it into a CUDA graph with ``gen``
+    registered, and every later call copies the batch into the graph's
+    input buffers and replays; the lr goes into the state's device buffer
+    first (``set_lr``). ``step.release()`` frees the graph;
+    ``step.compiled.stats`` counts captures, replays and eager steps. With
+    ``mesh`` of more than one rank, ``batch`` is this rank's block of the
+    global batch and the step is the data-parallel one, eager on every call
+    (its collectives cannot be captured), as logged when it is made."""
     body = _make_step_body(model, cfg, loss_fn, optimizer, center_weight, center_lr,
                            uniprompt, text_features, mesh)
+    eager = mesh is not None and mesh.data * mesh.model > 1
+    if eager and is_main():
+        logger.info(f"The train step over the {mesh.data} x {mesh.model} mesh runs eagerly: "
+                    "its collectives cannot be captured into a CUDA graph")
+    compiled = CompiledStep(_device_of(model), eager=eager)
 
     def step(state: TrainState, batch, lr: float, gen: torch.Generator):
         optimizer.set_lr(state.opt_state, lr)
-        cam, view = (_to(device, a) for a in labels_for(cfg, batch))
-        return body(state, _to(device, batch["images"]), _to(device, batch["pids"]), cam, view,
-                    gen)
 
+        def run(images, pids, cam, view):
+            _, metrics = body(state, images, pids, cam, view, gen)
+            return metrics["loss"], metrics["acc"]
+
+        loss, acc = compiled(run, (batch["images"], batch["pids"], *labels_for(cfg, batch)), gen,
+                             () if eager else state_tensors(state))
+        return state, {"loss": loss, "acc": acc}
+
+    step.compiled = compiled
+    step.release = compiled.release
     return step
 
 
@@ -303,45 +335,112 @@ def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
     return epoch
 
 
-def make_eval_step(model, cfg):
-    """→ ``step(batch)``: numpy batch dict → features on the device."""
+def module_tensors(model) -> list:
+    """Every parameter and buffer of ``model``: what an eval step binds."""
+    return [*model.parameters(), *model.buffers()]
+
+
+def _make_eval_body(model_of: Callable, cfg):
+    """The eval step's body (ref ``make_eval_step``): ``body(images, cam,
+    view)`` on device tensors → (features,), under ``inference_mode``;
+    ``model_of()`` is the model."""
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
-    device = _device_of(model)
 
     @torch.inference_mode()
-    def step(batch) -> torch.Tensor:
-        x = eval_preprocess(_to(device, batch["images"]), mean=mean, std=std)
-        cam, view = labels_for(cfg, batch)
-        return model.forward_eval(x, _to(device, cam), _to(device, view))
+    def body(images, cam, view):
+        x = eval_preprocess(images, mean=mean, std=std)
+        return (model_of().forward_eval(x, cam, view),)
 
+    return body
+
+
+def make_eval_step(model, cfg, weak: bool = False):
+    """→ ``step(batch)``: numpy batch dict → features on the device.
+
+    The body (``_make_eval_body``) runs through a ``CompiledStep`` keyed on
+    the batch's shapes, its camera and view labels (as the config's SIE
+    switches take them) and the storage of every parameter and buffer: on
+    the card one graph serves a whole evaluation (the loader pads the last
+    batch to full width) and every later one while the model's storage is
+    unchanged. With ``weak`` the step holds the model through a weak
+    reference (``processor.cached_eval_step`` keeps steps on the model).
+    Over more than one rank the step runs eagerly, as logged when it is
+    made."""
+    model_of = weakref.ref(model) if weak else (lambda: model)
+    body = _make_eval_body(model_of, cfg)
+    eager = world_size() > 1
+    if eager and is_main():
+        logger.info(f"The eval step over {world_size()} ranks runs eagerly")
+    compiled = CompiledStep(_device_of(model), eager=eager)
+
+    def step(batch) -> torch.Tensor:
+        (feat,) = compiled(body, (batch["images"], *labels_for(cfg, batch)),
+                           bound=module_tensors(model_of()))
+        return feat
+
+    step.compiled = compiled
+    step.release = compiled.release
     return step
+
+
+def _make_bank_body(model, cfg):
+    """The bank step's body (ref ``make_image_bank_step``): ``body(images)``
+    → (projected class-token features,), under ``no_grad``."""
+    mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
+
+    @torch.no_grad()
+    def body(images):
+        return (model.get_image(eval_preprocess(images, mean=mean, std=std)),)
+
+    return body
 
 
 def make_image_bank_step(model, cfg):
     """→ ``step(batch)``: the frozen encoder's projected class-token features
     of a numpy batch, on the device (stage-1 bank, ref
     processor_uniprompt_stage1.py:41-64). ``no_grad``, not
-    ``inference_mode``: the bank enters stage 1's differentiated loss."""
-    mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
-    device = _device_of(model)
+    ``inference_mode``, and the features come back as copies, ordinary
+    tensors: the bank enters stage 1's differentiated loss. The body
+    (``_make_bank_body``) runs through a ``CompiledStep`` as the eval
+    step's does; ``step.release()`` frees the graph."""
+    body = _make_bank_body(model, cfg)
+    compiled = CompiledStep(_device_of(model))
+
+    def step(batch) -> torch.Tensor:
+        (feats,) = compiled(body, (batch["images"],), bound=module_tensors(model))
+        return feats
+
+    step.compiled = compiled
+    step.release = compiled.release
+    return step
+
+
+def _make_text_body(model, stage: str):
+    """The text step's body (ref ``make_text_step``): ``body(labels,
+    views)`` → (prompted text features,), under ``no_grad``."""
 
     @torch.no_grad()
-    def step(batch) -> torch.Tensor:
-        return model.get_image(eval_preprocess(_to(device, batch["images"]), mean=mean, std=std))
+    def body(labels, views):
+        return (model.get_text(labels.long(), None if views is None else views.long(), stage),)
 
-    return step
+    return body
 
 
 def make_text_step(model, stage: str):
     """→ ``step(labels, views=None)``: prompted text features of the labels
-    for ``stage`` (ref make_model_uniprompt.py:160-170), without a gradient."""
-    device = _device_of(model)
+    for ``stage`` (ref make_model_uniprompt.py:160-170), without a gradient.
+    The body (``_make_text_body``) runs through a ``CompiledStep`` keyed on
+    the labels' width: a short last batch runs eagerly and leaves the
+    full-width graph in place; ``step.release()`` frees it."""
+    body = _make_text_body(model, stage)
+    compiled = CompiledStep(_device_of(model))
 
-    @torch.no_grad()
     def step(labels, views=None) -> torch.Tensor:
-        views = None if views is None else _to(device, views).long()
-        return model.get_text(_to(device, labels).long(), views, stage)
+        (feats,) = compiled(body, (labels, views), bound=module_tensors(model))
+        return feats
 
+    step.compiled = compiled
+    step.release = compiled.release
     return step
 
 
@@ -380,16 +479,25 @@ def _make_stage1_body(optimizer, stage: str):
 def make_stage1_step(model, cfg, optimizer, stage: str):
     """Prompt-context step (ref processor_uniprompt_stage1.py:72-98) →
     ``step(state, image_feats, target, views, lr) → (state, {"loss"})``;
-    ``stage`` is ``'1a'`` or ``'1b'``, ``views`` None in 1a."""
-    device = _device_of(model)
+    ``stage`` is ``'1a'`` or ``'1b'``, ``views`` None in 1a. The body
+    (``_make_stage1_body``) runs through a ``CompiledStep`` of its own, apart
+    from ``make_stage1_epoch``'s graph: ``do_train_stage1``'s trailing
+    partial batch has one width in every epoch, so it replays from the third
+    epoch on. ``step.release()`` frees the graph."""
     body = _make_stage1_body(optimizer, stage)
+    compiled = CompiledStep(_device_of(model))
 
     def step(state: TrainState, image_feats, target, views, lr: float):
         optimizer.set_lr(state.opt_state, lr)
-        views = None if views is None else _to(device, views).long()
-        loss = body(state, _to(device, image_feats), _to(device, target).long(), views)
+
+        def run(feats, target, views):
+            return (body(state, feats, target.long(), None if views is None else views.long()),)
+
+        (loss,) = compiled(run, (image_feats, target, views), bound=state_tensors(state))
         return state, {"loss": loss}
 
+    step.compiled = compiled
+    step.release = compiled.release
     return step
 
 

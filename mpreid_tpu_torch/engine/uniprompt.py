@@ -10,8 +10,11 @@ i2t + t2i over shuffled bank batches. Each epoch draws its order from
 ``np.random.default_rng(SOLVER.SEED)`` as the JAX package does, runs the
 full batches as one ``make_stage1_epoch`` call (one captured CUDA graph
 replayed per batch on the card, ``engine/compiled.py``) and then the
-trailing partial one through ``make_stage1_step``, so both packages' epochs
-see the same batches; the views enter in 1b only. The epoch's losses come
+trailing partial one through ``make_stage1_step`` (a graph of its own,
+replayed from the third epoch on), so both packages' epochs see the same
+batches; the views enter in 1b only. The bank and the text features run
+through graphed steps too (``make_image_bank_step``, ``make_text_step``),
+each released when its pass ends. The epoch's losses come
 back once, at its end, and are logged at the same iterations as the JAX
 package logs them.
 Stage 2 (a/b): text features of every class are computed once, then the
@@ -50,7 +53,8 @@ from mpreid_tpu_torch.utils.meter import AverageMeter
 from mpreid_tpu_torch.parallel import is_main
 
 from .processor import (
-    data_parallel, do_inference, rank_logger, start_data_parallel, train_epochs,
+    data_parallel, do_inference, rank_logger, release_eval_steps, start_data_parallel,
+    train_epochs,
 )
 from .steps import (
     make_image_bank_step, make_stage1_epoch, make_stage1_step, make_text_step, make_train_epoch,
@@ -79,6 +83,7 @@ def build_image_bank(cfg, model, train_loader_stage1):
         feats.append(bank_step(batch)[:n])
         labels.append(batch["pids"][:n])
         views.append(batch["trackids"][:n])
+    bank_step.release()
     return torch.cat(feats), np.concatenate(labels), np.concatenate(views)
 
 
@@ -136,6 +141,7 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
             save_checkpoint(os.path.join(cfg.OUTPUT_DIR, name), state, epoch, cfg)
 
     epoch_fn.release()
+    step.release()
     log.info(f"Stage {stage} running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history
@@ -148,8 +154,10 @@ def precompute_text_features(cfg, model, num_classes: int,
     batch = batch or cfg.SOLVER.STAGE2.IMS_PER_BATCH
     text_step = make_text_step(model, stage="2")
     device = _device_of(model)
-    return torch.cat([text_step(torch.arange(lo, min(lo + batch, num_classes), device=device))
-                      for lo in range(0, num_classes, batch)])
+    feats = torch.cat([text_step(torch.arange(lo, min(lo + batch, num_classes), device=device))
+                       for lo in range(0, num_classes, batch)])
+    text_step.release()
+    return feats
 
 
 def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
@@ -185,8 +193,10 @@ def do_train_stage2(cfg, model, train_loader_stage2, val_loader, optimizer,
         checkpoint_period or s2.CHECKPOINT_PERIOD, eval_period or s2.EVAL_PERIOD,
         lambda e: out_dir and os.path.join(out_dir, f"{cfg.MODEL.NAME}_{e}.pth"), logger,
         train_epoch, optimizer=optimizer, mesh=mesh)
-    if train_epoch is not None:
-        train_epoch.release()  # before a later stage captures its own
+    for compiled in (train_step, train_epoch):  # before a later stage captures its own
+        if compiled is not None:
+            compiled.release()
+    release_eval_steps(model)
     log.info(f"Total running time: {timedelta(seconds=time.monotonic() - all_start)}")
     wait_for_pending_saves()  # surface a failed TPU.ASYNC_CHECKPOINT write
     return state, history

@@ -15,9 +15,9 @@ Its draws come from an explicit ``torch.Generator`` on the batch's device
 (``train_augment_draws``); ``train_augment_with_draws`` applies given draws,
 so a test can feed it the JAX package's. As there, the erase rectangle is
 drawn once and clamped into the image instead of timm's up-to-10 retries.
-The train path copies nothing from the host: its per-channel mean and std
+Neither path copies anything from the host: the per-channel mean and std
 are made on the device once (``channel_values``), so a CUDA graph can
-capture it (``engine/compiled.py``).
+capture them (``engine/compiled.py``).
 """
 
 from __future__ import annotations
@@ -43,9 +43,7 @@ def channel_values(values: Tuple[float, ...], device: torch.device) -> torch.Ten
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     """uint8/float (B,H,W,3) → normalized float32."""
     x = images.float() / 255.0 if images.dtype == torch.uint8 else images
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)
-    return (x - mean) / std
+    return (x - channel_values(tuple(mean), x.device)) / channel_values(tuple(std), x.device)
 
 
 def eval_preprocess(images_u8: torch.Tensor,
@@ -107,7 +105,7 @@ def train_augment_with_draws(images_u8: torch.Tensor, flip: torch.Tensor, offset
         cols = offsets[:, 1, None] + torch.arange(w, device=x.device)  # (B, W)
         bidx = torch.arange(b, device=x.device)[:, None, None]
         x = padded[bidx, rows[:, :, None], cols[:, None, :]]
-    x = (x - channel_values(tuple(mean), x.device)) / channel_values(tuple(std), x.device)
+    x = normalize(x, mean, std)
     y0, x0, eh, ew = (rect[:, i, None, None] for i in range(4))
     rr = torch.arange(h, device=x.device)[None, :, None]
     cc = torch.arange(w, device=x.device)[None, None, :]

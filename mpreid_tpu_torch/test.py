@@ -19,7 +19,7 @@ import numpy as np
 
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import ImageBatcher, build_dataset, make_dataloader
-from mpreid_tpu_torch.engine import do_inference, run_validation
+from mpreid_tpu_torch.engine import do_inference, release_eval_steps, run_validation
 from mpreid_tpu_torch.models import load_param, make_model
 from mpreid_tpu_torch.train import start
 
@@ -64,9 +64,12 @@ def main(argv=None):
         load_param(cfg.TEST.WEIGHT, model)
         logger.info(f"Loading pretrained model from {cfg.TEST.WEIGHT}")
 
-    if cfg.DATASETS.NAMES != "VehicleID":
-        return do_inference(cfg, model, val_loader, num_query)
-    return vehicleid_trials(cfg, model, dataset, logger)
+    try:
+        if cfg.DATASETS.NAMES != "VehicleID":
+            return do_inference(cfg, model, val_loader, num_query)
+        return vehicleid_trials(cfg, model, dataset, logger)
+    finally:
+        release_eval_steps(model)  # the eval step's graph, kept across the trials
 
 
 def vehicleid_trials(cfg, model, dataset, logger):

@@ -24,7 +24,7 @@ import argparse
 
 from mpreid_tpu_torch.config import get_default_cfg
 from mpreid_tpu_torch.data import build_dataset, make_dataloader
-from mpreid_tpu_torch.engine import do_inference, do_inference_ttpt
+from mpreid_tpu_torch.engine import do_inference, do_inference_ttpt, release_eval_steps
 from mpreid_tpu_torch.models import load_param, make_model_uniprompt, switch_to_moe
 from mpreid_tpu_torch.test import is_torch_weight, vehicleid_trials
 from mpreid_tpu_torch.train import start
@@ -63,11 +63,14 @@ def main(argv=None):
         load_param(cfg.TEST.WEIGHT, model)
         logger.info(f"Loading pretrained model from {cfg.TEST.WEIGHT}")
 
-    if dataset is not None:
-        return vehicleid_trials(cfg, model, dataset, logger)
-    if cfg.TEST.TTPT.ENABLED or cfg.TEST.TTA_ENABLED:
-        return do_inference_ttpt(cfg, model, val_loader, num_query)
-    return do_inference(cfg, model, val_loader, num_query)
+    try:
+        if dataset is not None:
+            return vehicleid_trials(cfg, model, dataset, logger)
+        if cfg.TEST.TTPT.ENABLED or cfg.TEST.TTA_ENABLED:
+            return do_inference_ttpt(cfg, model, val_loader, num_query)
+        return do_inference(cfg, model, val_loader, num_query)
+    finally:
+        release_eval_steps(model)
 
 
 if __name__ == "__main__":

@@ -336,6 +336,7 @@ def test_do_train_stage1_splits_the_epoch_as_jax(monkeypatch, caplog):
             seen["step"].append(len(labels))
             return fn(state, feats, labels, views, lr)
 
+        step.release = fn.release
         return step
 
     monkeypatch.setattr(tuni, "make_stage1_epoch", spy_epoch)

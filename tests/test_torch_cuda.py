@@ -1322,3 +1322,212 @@ def test_a_generator_snapshot_cannot_serve_a_captured_recompute(card):
     clone.set_offset(gen.get_offset() + before_forward)
     graph.replay()
     assert torch.equal(forward, recompute)
+
+
+# ---------------------------------------------------------------------------
+# the compiled steps: each graphed step against its eager body, bit for bit
+# ---------------------------------------------------------------------------
+
+def _eval_batches(n, seed=0, hw=(64, 32), batch=8):
+    rng = np.random.default_rng(seed)
+    return [{"images": rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8),
+             "pids": np.arange(batch, dtype=np.int32),
+             "camids": rng.integers(0, 6, batch).astype(np.int32),
+             "trackids": np.zeros(batch, np.int32)} for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_graphed_eval_step_equals_its_eager_body(card):
+    """Five batches through ``make_eval_step`` (two warm-up calls, the third
+    captures, two replays) against ``_make_eval_body`` on the same batches:
+    every batch's features bit for bit, each a copy of the graph's static
+    output; 2 attention launches a replayed batch, counted."""
+    from mpreid_tpu_torch.engine import make_eval_step
+    from mpreid_tpu_torch.engine.steps import _make_eval_body
+    from mpreid_tpu_torch.models import make_model
+
+    cfg = _graph_cfg()
+    model = make_model(cfg, 8, camera_num=6, view_num=1).eval()
+    depth = len(model.image_encoder.transformer.resblocks)
+    step = make_eval_step(model, cfg)
+    body = _make_eval_body(lambda: model, cfg)
+    batches = _eval_batches(5)
+    before = tattn.fused_attention.launches
+    got = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    assert tattn.fused_attention.launches - before == 5 * depth
+    want = [body(torch.from_numpy(b["images"]).to(card), None, None)[0] for b in batches]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert g.data_ptr() != step.compiled.static[0].data_ptr()
+    assert step.compiled.stats["captures"] == 1 and step.compiled.stats["replays"] == 3
+    assert step.compiled.stats["pool_bytes"] > 0
+    step.release()
+
+
+@pytest.mark.cuda
+def test_graphed_bank_and_text_steps_equal_their_eager_bodies(card):
+    """``make_image_bank_step`` over four batches and ``make_text_step`` over
+    four full batches and a short tail (eager, the graph kept), each against
+    its eager body bit for bit."""
+    from mpreid_tpu_torch.engine import make_image_bank_step, make_text_step
+    from mpreid_tpu_torch.engine.steps import _make_bank_body, _make_text_body
+    from mpreid_tpu_torch.models import make_model_uniprompt
+
+    cfg = _graph_cfg()
+    model = make_model_uniprompt(cfg, 8, 14, 15)
+    bank, bank_body = make_image_bank_step(model, cfg), _make_bank_body(model, cfg)
+    for b in _eval_batches(4, seed=1):
+        got = bank(b)
+        assert not got.is_inference()
+        assert torch.equal(got, bank_body(torch.from_numpy(b["images"]).to(card))[0])
+    assert bank.compiled.stats["captures"] == 1 and bank.compiled.stats["replays"] == 2
+    text, text_body = make_text_step(model, "2"), _make_text_body(model, "2")
+    for lo, hi in ((0, 3), (3, 6), (0, 3), (5, 8), (6, 8)):
+        labels = torch.arange(lo, hi, device=card)
+        held = text.compiled.key
+        assert torch.equal(text(labels), text_body(labels, None)[0])
+        if hi - lo == 2:
+            assert text.compiled.key == held
+    assert text.compiled.stats == dict(text.compiled.stats, captures=1, replays=2, eager_steps=3)
+    bank.release()
+    text.release()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["baseline", "baseline_fused_adam", "moe_dropout_remat"])
+def test_graphed_train_step_equals_its_eager_body(card, case, monkeypatch):
+    """Six steps over host (numpy) PK batches at two lr, augmentation on,
+    bf16: ``make_train_step`` (two warm-up steps, the third captures, three
+    replays) against ``_make_step_body`` called eagerly on the same batches
+    from one state and generator state: every loss and accuracy, parameter,
+    buffer, moment, the step and the generator bit for bit; the kernel
+    launches counted for every replay."""
+    import copy
+
+    from mpreid_tpu_torch.engine import initial_state, make_train_step
+    from mpreid_tpu_torch.engine import precompute_text_features
+    from mpreid_tpu_torch.engine.steps import _make_step_body
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model, make_model_uniprompt, switch_to_moe
+    from mpreid_tpu_torch.ops import adam
+    from mpreid_tpu_torch.solver import make_optimizer
+    from mpreid_tpu_torch.solver import optim as toptim
+
+    if case == "baseline_fused_adam":
+        monkeypatch.setattr(toptim, "MIN_FUSED_SIZE", 4096)  # the tiny model's larger leaves
+    cfg = _graph_cfg(0.1 if case == "moe_dropout_remat" else None,
+                     remat=case == "moe_dropout_remat", fused=case == "baseline_fused_adam")
+    if case == "moe_dropout_remat":
+        dense = cfg.clone()
+        dense.MODEL.MOE.ENABLED = False
+        model = switch_to_moe(cfg, make_model_uniprompt(dense, 8, 6, 15))
+        kwargs = dict(uniprompt=True, text_features=precompute_text_features(cfg, model, 8))
+        opt_cfg, stage = cfg.SOLVER.STAGE2, "stage2b"
+    else:
+        model = make_model(cfg, 8, camera_num=6, view_num=1)
+        kwargs, opt_cfg, stage = {}, cfg.SOLVER, "baseline"
+    loss_fn, _ = make_loss(cfg, 8)
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (48, 64, 32, 3), dtype=np.uint8)
+    pids = np.repeat(np.arange(8), 6).astype(np.int32)
+    batches = [{"images": images[row], "pids": pids[row],
+                "camids": np.zeros(8, np.int32), "trackids": np.zeros(8, np.int32)}
+               for row in _graph_rows(3)]
+    runs = []
+    for mode in ("graph", "eager"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(opt_cfg, m, stage=stage)
+        state = initial_state(m, opt)
+        gen = torch.Generator(device=card).manual_seed(11)
+        step = make_train_step(m, cfg, loss_fn, opt, **kwargs)
+        body = _make_step_body(m, cfg, loss_fn, opt, None, None, kwargs.get("uniprompt", False),
+                               kwargs.get("text_features"))
+        fwd, adam0 = tattn.fused_attention.launches, adam.fused_adam_leaf.launches
+        out = []
+        for i, batch in enumerate(batches):
+            lr = 1e-3 if i < 3 else 2e-4
+            if mode == "graph":
+                state, metrics = step(state, batch, lr, gen)
+            else:
+                opt.set_lr(state.opt_state, lr)
+                state, metrics = body(state, torch.from_numpy(batch["images"]).to(card),
+                                      torch.from_numpy(batch["pids"]).to(card), None, None, gen)
+            out += [metrics["loss"][None], metrics["acc"][None]]
+        torch.cuda.synchronize()
+        if mode == "graph":
+            assert step.compiled.stats["captures"] == 1 and step.compiled.stats["replays"] == 4
+        launched = (tattn.fused_attention.launches - fwd, adam.fused_adam_leaf.launches - adam0)
+        runs.append(([torch.cat(out[0::2]), torch.cat(out[1::2])], launched, m.state_dict(),
+                     state.opt_state.mu, state.opt_state.nu, state.opt_state.step,
+                     gen.get_state()))
+        step.release()
+    (g_out, g_n, *g_rest), (e_out, e_n, *e_rest) = runs
+    _assert_same(g_out, e_out)
+    _assert_same(g_rest, e_rest)
+    assert g_n == e_n and g_n[0] > 0 and (g_n[1] > 0) == (case == "baseline_fused_adam")
+    assert int(runs[0][5]) == 6
+
+
+@pytest.mark.cuda
+def test_graphed_stage1_trailing_step_equals_its_eager_body(card):
+    """The trailing partial batch of ``do_train_stage1`` (5 bank rows) over
+    four epochs through ``make_stage1_step``: eager in the first two, captured
+    in the third, replayed in the fourth, against ``_make_stage1_body``
+    bit for bit: losses, contexts and moments."""
+    import copy
+
+    from mpreid_tpu_torch.engine import initial_state, make_stage1_step
+    from mpreid_tpu_torch.engine.steps import _make_stage1_body
+    from mpreid_tpu_torch.models import make_model_uniprompt
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = _graph_cfg()
+    model = make_model_uniprompt(cfg, 8, 14, 15)
+    rng = np.random.default_rng(3)
+    feats = torch.from_numpy(rng.standard_normal((45, 32)).astype(np.float32)).to(card)
+    feats = feats.to(torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 8, 45)).to(card)
+    views = torch.from_numpy(rng.integers(0, 15, 45)).to(card)
+    runs = []
+    for mode in ("graph", "eager"):
+        m = copy.deepcopy(model)
+        opt = make_optimizer(cfg.SOLVER.STAGE1B, m, stage="stage1b")
+        state = initial_state(m, opt)
+        step, body = make_stage1_step(m, cfg, opt, "1b"), _make_stage1_body(opt, "1b")
+        losses = []
+        for epoch in range(4):
+            sel = torch.as_tensor(np.random.default_rng(epoch).permutation(45)[40:], device=card)
+            lr = 1e-3 / (1 + epoch)
+            if mode == "graph":
+                state, metrics = step(state, feats[sel], labels[sel], views[sel], lr)
+                losses.append(metrics["loss"][None])
+            else:
+                opt.set_lr(state.opt_state, lr)
+                losses.append(body(state, feats[sel], labels[sel], views[sel])[None])
+        torch.cuda.synchronize()
+        if mode == "graph":
+            assert step.compiled.stats["captures"] == 1 and step.compiled.stats["replays"] == 2
+        runs.append(copy.deepcopy((torch.cat(losses), m.state_dict(), state.opt_state.mu,
+                                   state.opt_state.nu, state.opt_state.step)))
+        step.release()
+    _assert_same(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card):
+    """A body that reads a device value on the host cannot be captured: the
+    third call raises and nothing carries on eagerly."""
+    from mpreid_tpu_torch.engine.compiled import CompiledStep
+
+    def body(x):
+        return (x * float(x.sum()),)
+
+    step = CompiledStep(card)
+    x = np.ones(4, np.float32)
+    for _ in range(2):
+        assert step(body, (x,))[0].tolist() == [4.0] * 4
+    with pytest.raises(RuntimeError):
+        step(body, (x,))
+    assert step.graph is None
+    torch.cuda.synchronize()
