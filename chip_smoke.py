@@ -94,7 +94,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    against 24 of the step loop over the same batches from one state and one
    generator state, and both modes' img/s in turns;
 12. the TTA / TTPT eval modes (``test_uniprompt``'s branches, through
-   ``do_inference_ttpt``) on phase 8's model after stage 2, over 256 + 256
+   ``do_inference_ttpt``, whose steps replay CUDA graphs from their third
+   call) on phase 8's model after stage 2, over 256 + 256
    seeded images at batch 64: Option A (4 vision forwards a query batch),
    then Option B with TTA on and 5 tuning steps a query batch over all
    1,000 classes (the text tower's attention forward and backward at B
@@ -200,13 +201,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    trailing step replays in the third). Per case: the kernels one replay
    ran, counted in its trace and held against the counters, the rates of
    both modes in turns (graph, eager, eager, graph, twice), the traced idle
-   share over 4 replays and the graph pool's bytes.
+   share over 4 replays and the graph pool's bytes;
+19. the TTA / TTPT steps (``engine/ttpt.py``: the TTA query step, the plain
+   step with the norm fused, the TTPT query input and the tuner, each a
+   ``CompiledStep`` kept on the model) on phase 12's model and images, with
+   224 queries so that the fourth batch straddles the split: (a) Option A
+   and (b) Option B through ``do_inference_ttpt``, twice graphed (the
+   second call only replays and captures nothing) and once with every step
+   replaced by its eager body (``_make_tta_query_body``,
+   ``_make_eval_body(feat_norm)``, ``_make_ttpt_query_body``,
+   ``_make_tuner_body``): every step call's outputs (features, the query
+   inputs, tuned features, entropy traces and ``sim``), Option B's
+   distances, CMC and mAP bit for bit (``torch.equal``), each call's
+   launches and peak allocated memory; query images/s of both modes in
+   turns (graph, eager, eager, graph, twice) and, for the tuner alone,
+   seconds per tuned batch the same way; per step the kernels of 4 traced
+   replays against the counters, the idle share over them and the graph
+   pool's bytes; then every graph is released.
 
-Phase 12 runs after phase 8 (on its model), phase 13 after phase 6 and
+Phase 12 runs after phase 8 (on its model), phase 19 after phase 12 (on
+its model), phase 13 after phase 6 and
 phases 17 and 18 after phase 11 (on its resident set and its loader). On
 the card every step of every phase runs through a compiled step or epoch:
 the per-call steps (``make_eval_step``, ``make_image_bank_step``,
-``make_text_step``, ``make_train_step``, ``make_stage1_step``) replay a
+``make_text_step``, ``make_train_step``, ``make_stage1_step``, and the TTA /
+TTPT steps of phases 12 and 19) replay a
 captured graph from their third call with a key on, the epochs of phases
 8, 9, 10, 11 and 16 that run through ``do_train_stage1`` or a
 device-resident ``do_train`` / ``do_train_stage2`` from their third step;
@@ -266,6 +285,7 @@ from mpreid_tpu_torch.engine import (
     run_validation, stage1_loss_and_grads,
 )
 from mpreid_tpu_torch.engine import processor
+from mpreid_tpu_torch.engine import ttpt as ttpt_engine
 from mpreid_tpu_torch.engine import uniprompt as uni_engine
 from mpreid_tpu_torch.engine.processor import TRACE_FILE
 from mpreid_tpu_torch.engine.steps import (
@@ -273,7 +293,7 @@ from mpreid_tpu_torch.engine.steps import (
     labels_for,
 )
 from mpreid_tpu_torch.engine.compiled import WARMUP_STEPS
-from mpreid_tpu_torch.engine.ttpt import make_ttpt_tuner, ttpt_query_input
+from mpreid_tpu_torch.engine.ttpt import cached_ttpt_tuner, make_ttpt_tuner, ttpt_query_input
 from mpreid_tpu_torch.kernels import build
 from mpreid_tpu_torch.losses import make_loss
 from mpreid_tpu_torch.losses.triplet import euclidean_dist, triplet_loss
@@ -1790,23 +1810,27 @@ def ttpt_cfg(tta: bool, ttpt: bool, dtype: str = "bfloat16", device: str = CARD)
     return cfg
 
 
-def query_agg(model, cfg, images: np.ndarray, device) -> torch.Tensor:
-    """TTPT's query input for uint8 ``images``, as ``do_inference_ttpt`` builds it."""
-    x = eval_preprocess(torch.from_numpy(images).to(device), mean=cfg.INPUT.PIXEL_MEAN,
-                        std=cfg.INPUT.PIXEL_STD)
-    return ttpt_query_input(model, cfg, x)
+def query_agg(model, cfg, images: np.ndarray) -> torch.Tensor:
+    """TTPT's query input for uint8 ``images``, as ``do_inference_ttpt`` builds it
+    (``ttpt_query_input``: the query-input step kept on the model)."""
+    labels = np.zeros(len(images), np.int32)
+    return ttpt_query_input(model, cfg, {"images": images, "camids": labels, "trackids": labels})
 
 
 def run_ttpt(model, profile: bool) -> dict:
     """The TTA / TTPT eval modes (``test_uniprompt``'s branches) on the
     Uni-Prompt model after stage 2, over TTPT_QUERY + TTPT_GALLERY seeded
     images at batch 64, bf16: Option A through ``do_inference_ttpt`` with
-    TTA on and TTPT off (4 vision forwards a query batch), then Option B
-    with TTA on (2 vision forwards a query batch and, for each, TTPT_STEPS
-    + 1 text forwards and TTPT_STEPS backwards over all UNI_CLASSES
-    classes); each with its launches, all on "tc". Then one query batch's
-    tuning alone, timed, and its entropy trace (``profile``: traced, by
-    kernel and operator group, with the device's idle share)."""
+    TTA on and TTPT off (4 vision forwards a query batch; timed after a
+    warm-up run, so every step replays a CUDA graph), then Option B with
+    TTA on (2 vision forwards a query batch and, for each, TTPT_STEPS + 1
+    text forwards and TTPT_STEPS backwards over all UNI_CLASSES classes;
+    timed cold: two eager query batches, the tuner's capture, one replay);
+    each with its launches, all on "tc". Then one query batch's
+    tuning alone through the tuner ``do_inference_ttpt`` keeps (replays),
+    timed, and its entropy trace (``profile``: a new tuner's first call,
+    eager, traced by kernel and operator group, with the device's idle
+    share)."""
     vdepth = len(model.image_encoder.transformer.resblocks)
     tdepth = len(model.text_encoder.transformer.resblocks)
     loader = InMemoryBatcher(TTPT_QUERY, TTPT_GALLERY, BATCH, HW, seed=13)
@@ -1814,7 +1838,7 @@ def run_ttpt(model, profile: bool) -> dict:
     n = TTPT_QUERY + TTPT_GALLERY
     res = {}
     cfg = ttpt_cfg(tta=True, ttpt=False)
-    do_inference_ttpt(cfg, model, InMemoryBatcher(BATCH, BATCH, BATCH, HW, seed=14), BATCH)
+    do_inference_ttpt(cfg, model, loader, TTPT_QUERY)  # warm-up and capture: the timed run replays
     reset_counts()
     (r1, r5), secs = timed(lambda: do_inference_ttpt(cfg, model, loader, TTPT_QUERY))
     counts = read_counts()
@@ -1833,8 +1857,8 @@ def run_ttpt(model, profile: bool) -> dict:
         "attention_fwd": vdepth * (2 * nq + ng) + tdepth * (TTPT_STEPS + 1) * nq,
         "attention_bwd": tdepth * TTPT_STEPS * nq})
     peak = torch.cuda.max_memory_allocated() / 1e9
-    tuner = make_ttpt_tuner(model, cfg)
-    agg = query_agg(model, cfg, loader.images[:BATCH], CARD)
+    tuner = cached_ttpt_tuner(model, cfg)
+    agg = query_agg(model, cfg, loader.images[:BATCH])
     tune_s = []
     for _ in range(3):
         (feats, trace, sim), t = timed(lambda: tuner(agg))
@@ -1845,14 +1869,15 @@ def run_ttpt(model, profile: bool) -> dict:
             and tuple(sim.shape) == (BATCH, UNI_CLASSES)):
         raise AssertionError(f"TTPT tuner: trace {trace}, features {tuple(feats.shape)}")
     res["ttpt"] = dict(images=n, seconds=secs, query_images_per_s=TTPT_QUERY / secs,
+                       timed="the first call: two eager query batches, the capture, a replay",
                        steps=TTPT_STEPS, classes=UNI_CLASSES, rank1=r1, rank5=r5,
                        peak_mem_gb=peak, launches=counts,
                        seconds_per_tuned_batch=statistics.median(tune_s),
                        tuned_batch_seconds=tune_s, entropy_trace=trace)
     if profile:
         res["tuner_profile"] = profile_idle(
-            lambda: tuner(agg), f"one tuned query batch ({TTPT_STEPS} steps, text B "
-                                f"{UNI_CLASSES}, bf16)",
+            lambda: make_ttpt_tuner(model, cfg)(agg),
+            f"one tuned query batch, eager ({TTPT_STEPS} steps, text B {UNI_CLASSES}, bf16)",
             TTPT_OP_GROUPS)
     log(f"TTA / TTPT {json.dumps(res)}")
     return res
@@ -1877,7 +1902,7 @@ def ttpt_cross_check(model) -> dict:
         m.load_state_dict(weights, strict=True)
         m = m.to(device).eval()
         if agg is None:
-            agg = query_agg(m, c, images[:TTPT_CHECK_QUERIES], "cpu")
+            agg = query_agg(m, c, images[:TTPT_CHECK_QUERIES])
         (feats, trace, sim), secs = timed(lambda: make_ttpt_tuner(m, c)(agg.to(device)))
         out[device] = (feats.cpu(), trace.cpu(), sim.cpu(), secs)
         del m
@@ -4886,6 +4911,212 @@ def run_compiled_steps(market_loader) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the TTA / TTPT steps as CUDA graphs against their eager bodies
+# ---------------------------------------------------------------------------
+
+TTPT_GRAPH_QUERY = TTPT_QUERY - BATCH // 2  # phase 19's queries: the fourth batch straddles
+# engine/ttpt.py's steps, by the getter do_inference_tta / do_inference_ttpt takes each from
+TTPT_STEP_GETTERS = {"tta_query": "cached_tta_query_step", "plain": "cached_eval_step",
+                     "ttpt_query": "cached_ttpt_query_step", "tuner": "cached_ttpt_tuner"}
+
+
+def batch_on_card(cfg, batch) -> tuple:
+    """A numpy batch's images and labels on the card, as a compiled step uploads them."""
+    return (to_card(batch["images"]), *map(to_card, labels_for(cfg, batch)))
+
+
+def eager_ttpt_step(kind: str, model, cfg, feat_norm: bool = False):
+    """Step ``kind`` of engine/ttpt.py as its eager body, called on the card
+    with the compiled step's signature."""
+    def model_of():
+        return model
+
+    if kind == "tuner":
+        return ttpt_engine._make_tuner_body(model_of, cfg)
+    if kind == "tta_query":
+        body = ttpt_engine._make_tta_query_body(model_of, cfg)
+        return lambda batch, boundary: body(*batch_on_card(cfg, batch),
+                                            torch.tensor(boundary, device=CARD))[0]
+    body = (_make_eval_body(model_of, cfg, feat_norm) if kind == "plain"
+            else ttpt_engine._make_ttpt_query_body(model_of, cfg))
+    return lambda batch: body(*batch_on_card(cfg, batch))[0]
+
+
+@contextlib.contextmanager
+def ttpt_steps(mode: str, seen: dict):
+    """Inside, ``do_inference_tta`` / ``do_inference_ttpt`` take their steps
+    as ``mode`` says ("graph": the compiled steps kept on the model; "eager":
+    their bodies), and each call's outputs land in ``seen[kind]``, the
+    metrics in ``seen["metrics"]`` and Option B's distances in
+    ``seen["distmat"]``."""
+    real = {kind: getattr(ttpt_engine, name) for kind, name in TTPT_STEP_GETTERS.items()}
+    real_evaluator, real_cmc_map = ttpt_engine.R1mAPEvaluator, ttpt_engine.cmc_map
+
+    def getter(kind):
+        def get(model, cfg, **kwargs):
+            step = (real[kind](model, cfg, **kwargs) if mode == "graph"
+                    else eager_ttpt_step(kind, model, cfg, **kwargs))
+
+            def call(*args):
+                out = step(*args)
+                seen.setdefault(kind, []).append(out if isinstance(out, tuple) else (out,))
+                return out
+
+            return call
+
+        return get
+
+    class Recording(real_evaluator):
+        def compute(self):
+            out = super().compute()
+            seen["metrics"] = (out[0], out[1])
+            return out
+
+    def cmc_map(distmat, *args, **kwargs):
+        out = real_cmc_map(distmat, *args, **kwargs)
+        seen["distmat"], seen["metrics"] = distmat, (out[0].cpu().numpy(), float(out[1]))
+        return out
+
+    for kind, name in TTPT_STEP_GETTERS.items():
+        setattr(ttpt_engine, name, getter(kind))
+    ttpt_engine.R1mAPEvaluator, ttpt_engine.cmc_map = Recording, cmc_map
+    try:
+        yield
+    finally:
+        for kind, name in TTPT_STEP_GETTERS.items():
+            setattr(ttpt_engine, name, real[kind])
+        ttpt_engine.R1mAPEvaluator, ttpt_engine.cmc_map = real_evaluator, real_cmc_map
+
+
+def seen_diffs(got: dict, want: dict) -> dict:
+    """{what: '' when bit-equal, else how} between two ``ttpt_steps`` records."""
+    out = {}
+    for key, calls in want.items():
+        if key == "metrics":
+            (cmc, m_ap), (want_cmc, want_map) = got[key], calls
+            out["cmc"] = "" if np.array_equal(cmc, want_cmc) else "differs"
+            out["mAP"] = "" if m_ap == want_map else f"{m_ap!r} against {want_map!r}"
+        elif key == "distmat":
+            out[key] = first_difference({key: got[key]}, {key: calls})
+        elif len(got.get(key, [])) != len(calls):
+            out[key] = f"{len(got.get(key, []))} calls against {len(calls)}"
+        else:
+            def flat(c):
+                return {f"call {i} output {j}": t for i, outs in enumerate(c)
+                        for j, t in enumerate(outs)}
+            out[key] = first_difference(flat(got[key]), flat(calls))
+    return out
+
+
+def run_compiled_ttpt(model) -> dict:
+    """Phase 19 (module docstring): Option A and Option B through
+    ``do_inference_ttpt`` on phase 12's model and images with
+    TTPT_GRAPH_QUERY queries, each step graphed against its eager body."""
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    loader = InMemoryBatcher(TTPT_QUERY, TTPT_GALLERY, BATCH, HW, seed=13)
+    nq = TTPT_GRAPH_QUERY
+    batches = list(loader.iter_sequential())
+    bounds = [int(np.clip(nq - BATCH * i, 0, BATCH)) for i in range(len(batches))]
+    n_query = sum(k > 0 for k in bounds)  # query batches (the straddling one included)
+    n_gallery_only = bounds.count(0)
+    n_with_gallery = sum(k < BATCH for k in bounds)
+    options = {"19a": ttpt_cfg(tta=True, ttpt=False), "19b": ttpt_cfg(tta=True, ttpt=True)}
+    per_call = {"19a": {"attention_fwd": vdepth * (4 * n_query + n_gallery_only)},
+                "19b": {"attention_fwd": vdepth * (2 * n_query + n_with_gallery)
+                        + tdepth * (TTPT_STEPS + 1) * n_query,
+                        "attention_bwd": tdepth * TTPT_STEPS * n_query}}
+    per_replay = {"tta_query": {"attention_fwd": 4 * vdepth}, "plain": {"attention_fwd": vdepth},
+                  "ttpt_query": {"attention_fwd": 2 * vdepth},
+                  "tuner": {"attention_fwd": (TTPT_STEPS + 1) * tdepth,
+                            "attention_bwd": TTPT_STEPS * tdepth}}
+    what = {"tta_query": "the TTA query step (4 views, boundary an input)",
+            "plain": "the plain step, norm fused (the gallery-only batches)",
+            "ttpt_query": "the TTPT query input (plain + h-flip, projected, norm)",
+            "tuner": f"the TTPT tuner ({TTPT_STEPS} steps over {UNI_CLASSES} classes)"}
+    release_eval_steps(model)  # phase 12's steps: this phase captures its own
+    torch.cuda.empty_cache()
+    out = {}
+    for phase, cfg in options.items():
+        t0 = time.perf_counter()
+        option = "Option A" if phase == "19a" else "Option B"
+        kinds = ("tta_query", "plain") if phase == "19a" else ("ttpt_query", "tuner", "plain")
+        reported = kinds[:2]  # 19b's plain step is 19a's (one key), reported there
+        feat_norm = cfg.TEST.FEAT_NORM == "yes"
+
+        def step_of(kind):
+            return getattr(ttpt_engine, TTPT_STEP_GETTERS[kind])(
+                model, cfg, **({"feat_norm": feat_norm} if kind == "plain" else {}))
+
+        def entry(mode, seen=None):
+            with ttpt_steps(mode, {} if seen is None else seen):
+                return do_inference_ttpt(cfg, model, loader, nq)
+
+        runs, seen, peak = [], {}, {}
+        for i, mode in enumerate(("graph", "graph", "eager")):
+            seen[i] = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            runs.append(entry(mode, seen[i]))
+            torch.cuda.synchronize()
+            expect_counts(f"{phase} {option}, {mode} call {i + 1}", read_counts(), per_call[phase])
+            peak[f"{mode}_call_{i + 1}_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if i == 0:
+                first_stats = {k: dict(step_of(k).compiled.stats) for k in kinds}
+        stats = {k: dict(step_of(k).compiled.stats) for k in kinds}
+        recaptured = {k: stats[k]["captures"] - first_stats[k]["captures"] for k in kinds}
+        if any(recaptured.values()) or any(s["captures"] != 1 for s in stats.values()):
+            raise AssertionError(f"{phase}: the second do_inference_ttpt call captured again or a "
+                                 f"step captured other than once: {stats}")
+        if not runs[0] == runs[1] == runs[2]:
+            raise AssertionError(f"{phase}: ranks {runs}")
+        # the graphed call that only replays against the eager bodies, bit for bit
+        diffs = seen_diffs(seen[1], seen[2])
+        query_calls = len(seen[1]["tta_query" if phase == "19a" else "ttpt_query"])
+        if query_calls != n_query:  # the straddling batch's among them, replayed
+            raise AssertionError(f"{phase}: {query_calls} query-step calls, not {n_query}")
+        rates = graph_turns(lambda mode, rows: entry(mode), lambda i: range(nq), 1,
+                            other="eager")
+        if phase == "19b":
+            aggs = [a for (a,) in seen[1]["ttpt_query"]]
+            tuner, eager_tuner = step_of("tuner"), eager_ttpt_step("tuner", model, cfg)
+            tuned = graph_turns(lambda mode, rows: [(tuner if mode == "graph" else eager_tuner)(a)
+                                                    for a in rows],
+                                lambda i: aggs[i % len(aggs):][:1], 1, other="eager")
+            tuned["seconds_per_tuned_batch"] = {
+                k: 1 / v for k, v in tuned["median_per_s"].items()}
+        calls = {"tta_query": [(b, k) for b, k in zip(batches, bounds) if k > 0],
+                 "plain": [(b,) for b, k in zip(batches, bounds) if k == 0],
+                 "ttpt_query": [(b,) for b, k in zip(batches, bounds) if k > 0]}
+        if phase == "19b":
+            calls["tuner"] = [(a,) for a in aggs]
+        for kind in reported:
+            step = step_of(kind)
+            reset_counts()
+            trace = traced_graphed_epoch(lambda: [step(*c) for c in calls[kind]], step.compiled)
+            counts = read_counts()
+            extra = dict(stats=dict(step.compiled.stats), recaptured_by_second_call=recaptured,
+                         ranks=runs[1], peak_allocated=peak, queries=nq,
+                         query_images_per_s=rates["median_per_s"])
+            kind_rates, unit = rates, f"query images/s through do_inference_ttpt, {option}"
+            if kind == "tuner":
+                kind_rates, unit = tuned, "tuned batches/s (one tuner call of 64 queries)"
+                extra["seconds_per_tuned_batch"] = tuned["seconds_per_tuned_batch"]
+            out[f"{phase}_{kind}"] = graph_report(
+                f"{phase} {option}: {what[kind]}, configs/ours/cctv_ir_cctv_rgb.yml, "
+                f"{nq} + {len(loader.pids) - nq} images, batch {BATCH}", diffs,
+                per_replay_counts(step), per_replay[kind], counts,
+                len(calls[kind]) * trace["trace_attempts"], kind_rates, trace,
+                step.compiled.stats["pool_bytes"], unit, extra, phase=phase[:2],
+                against="its eager body")
+        log(f"  {phase} seconds {time.perf_counter() - t0:.1f}")
+    release_eval_steps(model)
+    torch.cuda.empty_cache()
+    return out
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -4992,8 +5223,13 @@ def main() -> None:
     t0 = time.perf_counter()
     ttpt_res = run_ttpt(uni_model, args.profile)
     ttpt_res["fp32_card_vs_cpu"] = ttpt_cross_check(uni_model)
-    del uni_model
     log(f"  TTA / TTPT phase seconds {time.perf_counter() - t0:.1f}")
+    log("compiled TTA / TTPT steps (19a Option A, 19b Option B) as CUDA graphs against their "
+        "eager bodies, on phase 12's model:")
+    t0 = time.perf_counter()
+    ttpt_graph_res = run_compiled_ttpt(uni_model)
+    del uni_model
+    log(f"  compiled TTA / TTPT phase seconds {time.perf_counter() - t0:.1f}")
     uni_res = uni["res"]
     after_1b, uni_data = uni.pop("after_1b"), uni.pop("data")
     del uni
@@ -5107,6 +5343,8 @@ def main() -> None:
                                            for k, v in graph_res.items()},
             "launches_per_replayed_compiled_step": {k: v["launches_per_replayed_step"][name]
                                                     for k, v in step_res.items()},
+            "launches_per_replayed_ttpt_step": {k: v["launches_per_replayed_step"][name]
+                                                for k, v in ttpt_graph_res.items()},
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},

@@ -3,9 +3,11 @@
 
 ref mpreid_tpu/engine/steps.py::make_train_step, ::make_eval_step,
 ::make_image_bank_step, ::make_text_step, ::make_stage1_step,
-::make_train_epoch, ::make_stage1_epoch: the JAX package compiles each step,
-and each whole-epoch ``lax.scan``, into one XLA program. On the card the
-counterpart of one such program is a CUDA graph: the step body is captured
+::make_train_epoch, ::make_stage1_epoch and mpreid_tpu/engine/ttpt.py::
+_eval_feature_step_cached, ::_tta_query_step, ::_make_ttpt_tuner_cached: the
+JAX package compiles each step, each whole-epoch ``lax.scan`` and the TTPT
+tuner's ``lax.scan`` over its tuning steps, into one XLA program. On the
+card the counterpart of one such program is a CUDA graph: the step body is captured
 once per key into a ``torch.cuda.CUDAGraph`` and replayed, so a step costs
 the host one replay and a few copies instead of issuing each of its
 thousands of kernels. Two runners share one warm-up and one capture
@@ -13,8 +15,11 @@ thousands of kernels. Two runners share one warm-up and one capture
 
 - ``CompiledStep`` runs one call of a step (``make_train_step``,
   ``make_eval_step``, ``make_image_bank_step``, ``make_text_step``,
-  ``make_stage1_step``). A call's key holds its inputs' shapes and dtypes,
-  which optional inputs it has, the generator and the storage of every
+  ``make_stage1_step``; ``engine/ttpt.py``'s ``make_tta_query_step``,
+  ``make_ttpt_query_step`` and ``make_ttpt_tuner``, whose body
+  differentiates under ``enable_grad`` inside the capture). A call's key
+  holds its inputs' shapes and dtypes, which optional inputs it has, the
+  generator and the storage of every
   tensor the step binds. The first ``WARMUP_STEPS`` calls with a key run
   eagerly; the next one captures and replays, and every later one replays:
   its inputs (numpy arrays or tensors) are copied into the graph's static

@@ -15,8 +15,9 @@ epochs replays the graph captured at the first one, and a model whose
 storage changed is captured again. The cache is held weakly on the model
 (a freed model takes its steps with it, so its reused ``id`` cannot hit),
 and ``do_train``, the Uni-Prompt stage 2 and the test entry points release
-it when they end (``release_eval_steps``). The train step of the step loop
-is one ``steps.make_train_step`` a run: on the card its third step
+it when they end (``release_eval_steps``). The same cache keeps the TTA /
+TTPT steps of ``engine/ttpt.py`` (``cached_step``). The train step of the
+step loop is one ``steps.make_train_step`` a run: on the card its third step
 captures a CUDA graph and every later one replays it
 (``engine/compiled.py``); ``do_train`` releases it at the end.
 
@@ -105,26 +106,42 @@ INERT_KEYS = (
 )
 
 
-# the eval steps kept across validations (ref processor.py::_EVAL_STEP_CACHE):
-# {model: {config key: step}}, held weakly on the model
+# the eval steps kept across validations (ref processor.py::_EVAL_STEP_CACHE)
+# and the TTA / TTPT steps kept across evaluations (ref ttpt.py's lru_caches):
+# {model: {key: step}}, held weakly on the model
 _EVAL_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def cached_eval_step(model, cfg):
-    """The eval step of ``model`` under ``cfg``, made at the first call and
-    kept on the model (ref ``_cached_eval_step``'s key: the compute dtype,
-    the pixel mean and std and the SIE switches); the step holds the model
-    weakly, so the cache keeps no model alive."""
-    key = (cfg.TPU.COMPUTE_DTYPE, tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD),
-           cfg.MODEL.SIE_CAMERA, cfg.MODEL.SIE_VIEW)
+def eval_key(cfg) -> tuple:
+    """What an eval step's program depends on beyond the model (ref
+    ``_cached_eval_step``'s key): the compute dtype, the pixel mean and std
+    and the SIE switches."""
+    return (cfg.TPU.COMPUTE_DTYPE, tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD),
+            cfg.MODEL.SIE_CAMERA, cfg.MODEL.SIE_VIEW)
+
+
+def cached_step(model, key: tuple, make: Callable):
+    """The step ``make()`` made at the first call with ``key`` and kept on
+    ``model`` until ``release_eval_steps``; ``make`` must hold the model
+    weakly (``steps.model_step(..., weak=True)``), so the cache keeps no
+    model alive."""
     steps = _EVAL_STEPS.setdefault(model, {})
     if key not in steps:
-        steps[key] = make_eval_step(model, cfg, weak=True)
+        steps[key] = make()
     return steps[key]
 
 
+def cached_eval_step(model, cfg, feat_norm: bool = False):
+    """The eval step of ``model`` under ``cfg`` (``feat_norm``: the L2 norm
+    fused, ref ``ttpt.py::_eval_feature_step_cached(model, feat_norm)``),
+    kept on the model."""
+    return cached_step(model, ("eval", *eval_key(cfg), feat_norm),
+                       lambda: make_eval_step(model, cfg, weak=True, feat_norm=feat_norm))
+
+
 def release_eval_steps(model) -> None:
-    """Free the graphs of ``model``'s cached eval steps and forget them."""
+    """Free the graphs of ``model``'s cached steps (eval, TTA and TTPT) and
+    forget them."""
     for step in _EVAL_STEPS.pop(model, {}).values():
         step.release()
 

@@ -5,7 +5,8 @@ ref mpreid_tpu/engine/steps.py::make_train_step, ::_train_step_impl,
 ::make_stage1_step, ::_stage1_step_impl. The JAX package compiles one
 program per step (``jax.jit``). Here each step is a body over device
 tensors (``_make_step_body``, ``_make_stage1_body``, ``_make_eval_body``,
-``_make_bank_body``, ``_make_text_body``) run by ``engine/compiled.py``: on
+``_make_bank_body``, ``_make_text_body``; the TTA / TTPT steps' bodies are in
+``engine/ttpt.py``) run by ``engine/compiled.py``: on
 the card a ``CompiledStep`` runs a key's first two calls eagerly, captures
 the body into a CUDA graph at the third and replays it at every later one;
 on the CPU the same decisions run the body eagerly. A call copies its host
@@ -73,10 +74,6 @@ def labels_for(cfg, batch):
 
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
-
-
-def _to(device, a):
-    return None if a is None else torch.as_tensor(a).to(device, non_blocking=True)
 
 
 def augment_args(cfg) -> dict:
@@ -340,47 +337,61 @@ def module_tensors(model) -> list:
     return [*model.parameters(), *model.buffers()]
 
 
-def _make_eval_body(model_of: Callable, cfg):
-    """The eval step's body (ref ``make_eval_step``): ``body(images, cam,
-    view)`` on device tensors → (features,), under ``inference_mode``;
-    ``model_of()`` is the model."""
+def _make_eval_body(model_of: Callable, cfg, feat_norm: bool = False):
+    """The eval step's body (ref ``make_eval_step``; with ``feat_norm`` ref
+    ``ttpt.py::_eval_feature_step_cached(model, True)``, the L2 norm fused):
+    ``body(images, cam, view)`` on device tensors → (features,), under
+    ``inference_mode``; ``model_of()`` is the model."""
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
 
     @torch.inference_mode()
     def body(images, cam, view):
-        x = eval_preprocess(images, mean=mean, std=std)
-        return (model_of().forward_eval(x, cam, view),)
+        feat = model_of().forward_eval(eval_preprocess(images, mean=mean, std=std), cam, view)
+        return (feat / torch.linalg.norm(feat, dim=1, keepdim=True) if feat_norm else feat,)
 
     return body
 
 
-def make_eval_step(model, cfg, weak: bool = False):
-    """→ ``step(batch)``: numpy batch dict → features on the device.
-
-    The body (``_make_eval_body``) runs through a ``CompiledStep`` keyed on
-    the batch's shapes, its camera and view labels (as the config's SIE
-    switches take them) and the storage of every parameter and buffer: on
-    the card one graph serves a whole evaluation (the loader pads the last
-    batch to full width) and every later one while the model's storage is
-    unchanged. With ``weak`` the step holds the model through a weak
-    reference (``processor.cached_eval_step`` keeps steps on the model).
-    Over more than one rank the step runs eagerly, as logged when it is
-    made."""
+def model_step(model, make_body: Callable, inputs: Callable, what: str, weak: bool = False,
+               one: bool = False):
+    """→ ``step(*args)``: ``make_body(model_of)``'s outputs (with ``one`` its
+    only output) for the inputs ``inputs(*args)`` (numpy arrays, tensors or
+    None), through a
+    ``CompiledStep`` keyed on their shapes and on the storage of every
+    parameter and buffer of the model (``step.compiled``; ``step.release()``
+    frees its graph). ``model_of()`` is the model, held through a weak
+    reference with ``weak`` (``processor.cached_step`` keeps steps on the
+    model). Over more than one rank the step runs eagerly (a sliced model's
+    layers meet through collectives), as logged when it is made."""
     model_of = weakref.ref(model) if weak else (lambda: model)
-    body = _make_eval_body(model_of, cfg)
+    body = make_body(model_of)
     eager = world_size() > 1
     if eager and is_main():
-        logger.info(f"The eval step over {world_size()} ranks runs eagerly")
+        logger.info(f"The {what} over {world_size()} ranks runs eagerly")
     compiled = CompiledStep(_device_of(model), eager=eager)
 
-    def step(batch) -> torch.Tensor:
-        (feat,) = compiled(body, (batch["images"], *labels_for(cfg, batch)),
-                           bound=module_tensors(model_of()))
-        return feat
+    def step(*args):
+        out = compiled(body, inputs(*args), bound=module_tensors(model_of()))
+        return out[0] if one else out
 
     step.compiled = compiled
     step.release = compiled.release
     return step
+
+
+def make_eval_step(model, cfg, weak: bool = False, feat_norm: bool = False):
+    """→ ``step(batch)``: numpy batch dict → features on the device, with
+    ``feat_norm`` L2-normalised.
+
+    The body (``_make_eval_body``) runs through ``model_step``: its key
+    holds the batch's shapes, its camera and view labels (as the config's
+    SIE switches take them) and the storage of every parameter and buffer,
+    so on the card one graph serves a whole evaluation (the loader pads the
+    last batch to full width) and every later one while the model's storage
+    is unchanged."""
+    return model_step(model, lambda model_of: _make_eval_body(model_of, cfg, feat_norm),
+                      lambda batch: (batch["images"], *labels_for(cfg, batch)), "eval step",
+                      weak, one=True)
 
 
 def _make_bank_body(model, cfg):

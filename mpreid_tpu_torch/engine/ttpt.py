@@ -1,8 +1,9 @@
 """Test-time augmentation and test-time prompt tuning eval modes.
 
 ref mpreid_tpu/engine/ttpt.py::tta_views, ::tta_aggregate, ::do_inference_tta,
-::_log_and_return_ranks, ::_make_ttpt_tuner_cached, ::do_inference_ttpt
-(reference ``processor_uniprompt_stage2.py:269-693``, against the current
+::_log_and_return_ranks, ::_eval_feature_step_cached, ::_tta_query_step,
+::_make_ttpt_tuner_cached, ::do_inference_ttpt (reference
+``processor_uniprompt_stage2.py:269-693``, against the current
 ``PromptLearner``, whose tuned context is ``ctx_generic``).
 
 * Option A (``do_inference_tta``, ``TEST.TTA_ENABLED``): each query
@@ -18,10 +19,33 @@ ref mpreid_tpu/engine/ttpt.py::tta_views, ::tta_aggregate, ::do_inference_tta,
   same-pid same-camera filter (``camera_filter=True``, as the reference's
   TTPT paths do).
 
-The tuner never writes into the model: the tuned context is a tensor of its
+Both run through four compiled steps (``steps.model_step`` over
+``engine/compiled.py::CompiledStep``: two eager calls a key, a CUDA graph
+captured at the third, replays after it), kept on the model across calls
+as the JAX package's ``lru_cache``s keep its jitted programs
+(``processor.cached_step``, released by ``release_eval_steps``):
+
+- the TTA query step (``make_tta_query_step``, ref ``_tta_query_step``):
+  the four view forwards, their mean, ``where(row < boundary, mean,
+  plain)`` and the norm under ``TEST.FEAT_NORM``; ``boundary`` is an input
+  tensor, so a batch that straddles the split replays the same graph;
+- the plain features with the norm fused (``processor.cached_eval_step(
+  model, cfg, feat_norm)``, ref ``_eval_feature_step_cached``): the
+  gallery-only batches and the gallery rows;
+- the TTPT query input (``make_ttpt_query_step``, ref ``do_inference_ttpt``
+  ``:284-291``): the projected features of the plain and, under
+  ``TEST.TTA_ENABLED``, the h-flipped view, their mean, the norm, fp32;
+- the tuner (``make_ttpt_tuner``, ref ``_make_ttpt_tuner_cached``): every
+  tuning step unrolled in one body, then the final text forward, the
+  argmax and the gather.
+
+Each body takes the uint8 batch and preprocesses it on the device. The
+tuner never writes into the model: the tuned context is a tensor of its
 own, passed to ``get_text`` as ``ctx_generic``, and differentiated with
 ``torch.autograd.grad``; the model's parameters take no gradient while it
-runs (their ``requires_grad`` flags are restored after).
+runs (their ``requires_grad`` flags are restored after). Its graph holds
+the text tower's forward and backward over every class, so its memory pool
+holds about the eager tuner's peak for as long as the step is kept.
 """
 
 from __future__ import annotations
@@ -37,7 +61,8 @@ from mpreid_tpu_torch.ops import cmc_map
 from mpreid_tpu_torch.ops.augment import eval_preprocess
 
 from .evaluator import R1mAPEvaluator
-from .steps import _device_of, _to, labels_for
+from .processor import cached_eval_step, cached_step, eval_key
+from .steps import _device_of, labels_for, model_step
 
 
 def tta_views(x: torch.Tensor) -> List[torch.Tensor]:
@@ -57,46 +82,85 @@ def _l2(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=1, keepdim=True)
 
 
-def _batches(cfg, model, val_loader):
-    """(preprocessed images, camera and view labels on the device, batch)
-    of each eval batch in order."""
-    device = _device_of(model)
+def _batch_inputs(cfg, batch) -> tuple:
+    return (batch["images"], *labels_for(cfg, batch))
+
+
+def _make_tta_query_body(model_of: Callable, cfg):
+    """The TTA query step's body (ref ``_tta_query_step``): ``body(images,
+    cam, view, boundary)`` → (features,), under ``inference_mode``: rows
+    below ``boundary`` (a 0-dim int64 tensor) the mean over the four views,
+    the rest the plain view's, L2-normalised under ``TEST.FEAT_NORM``."""
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
-    for batch in val_loader.iter_sequential():
-        x = eval_preprocess(_to(device, batch["images"]), mean=mean, std=std)
-        cam, view = (_to(device, a) for a in labels_for(cfg, batch))
-        yield x, cam, view, batch
-
-
-@torch.no_grad()
-def do_inference_tta(cfg, model, val_loader, num_query: int):
-    """Option A → (rank-1, rank-5): TTA-aggregated query features, plain
-    gallery features, through ``R1mAPEvaluator`` (``TEST.RE_RANKING`` and
-    ``TEST.CAMERA_FILTER`` as the config says)."""
-    logger = logging.getLogger("mpreid_tpu_torch.test_tta")
-    logger.info("Enter inferencing with TTA (Option A - Image Feature Evaluation)")
     feat_norm = cfg.TEST.FEAT_NORM == "yes"
-    evaluator = R1mAPEvaluator(num_query, feat_norm=feat_norm, reranking=cfg.TEST.RE_RANKING,
-                               camera_filter=cfg.TEST.CAMERA_FILTER, device=_device_of(model))
-    processed = 0
-    for x, cam, view, batch in _batches(cfg, model, val_loader):
-        n = batch["count"]
-        # rows [0, boundary) are queries, the rest gallery
-        boundary = int(np.clip(num_query - processed, 0, n))
-        if boundary > 0:
-            agg, plain = tta_aggregate(lambda v: model.forward_eval(v, cam, view), x)
-            rows = torch.arange(agg.shape[0], device=agg.device)[:, None]
-            feat = torch.where(rows < boundary, agg, plain)
-        else:
-            feat = model.forward_eval(x, cam, view)
-        if feat_norm:
-            feat = _l2(feat)
-        evaluator.update((feat[:n], batch["pids"][:n], batch["camids"][:n]))
-        processed += n
-    cmc, mAP, *_ = evaluator.compute()
-    logger.info("Validation Results (TTA Option A - Image Features)")
-    logger.info("mAP: {:.1%}".format(mAP))
-    return log_and_return_ranks(logger, cmc)
+
+    @torch.inference_mode()
+    def body(images, cam, view, boundary):
+        model = model_of()
+        x = eval_preprocess(images, mean=mean, std=std)
+        agg, plain = tta_aggregate(lambda v: model.forward_eval(v, cam, view), x)
+        rows = torch.arange(agg.shape[0], device=agg.device)[:, None]
+        feat = torch.where(rows < boundary, agg, plain)
+        return (_l2(feat) if feat_norm else feat,)
+
+    return body
+
+
+def make_tta_query_step(model, cfg, weak: bool = False):
+    """→ ``step(batch, boundary)``: the features of a numpy batch whose rows
+    below ``boundary`` are queries (``_make_tta_query_body``)."""
+    return model_step(model, lambda model_of: _make_tta_query_body(model_of, cfg),
+                      lambda batch, boundary: (*_batch_inputs(cfg, batch), np.int64(boundary)),
+                      "TTA query step", weak, one=True)
+
+
+def cached_tta_query_step(model, cfg):
+    """``make_tta_query_step`` kept on the model (ref ``_tta_query_step``'s
+    cache: the model and the norm, with the eval step's key)."""
+    return cached_step(model, ("tta_query", *eval_key(cfg), cfg.TEST.FEAT_NORM == "yes"),
+                       lambda: make_tta_query_step(model, cfg, weak=True))
+
+
+def _make_ttpt_query_body(model_of: Callable, cfg):
+    """The TTPT query input's body (ref ``do_inference_ttpt`` ``:284-291``):
+    ``body(images, cam, view)`` → (the last ``in_planes_proj`` columns of the
+    eval features, averaged with the h-flip's under ``TEST.TTA_ENABLED``,
+    L2-normalised under ``TEST.FEAT_NORM``, fp32,). Under ``no_grad``, not
+    ``inference_mode``: the tuner's autograd saves it."""
+    mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
+    tta, feat_norm = cfg.TEST.TTA_ENABLED, cfg.TEST.FEAT_NORM == "yes"
+
+    @torch.no_grad()
+    def body(images, cam, view):
+        model = model_of()
+        x = eval_preprocess(images, mean=mean, std=std)
+        dim = model.in_planes_proj
+        views = [x, x.flip(2)] if tta else [x]
+        agg = torch.stack([model.forward_eval(v, cam, view)[:, -dim:] for v in views]).mean(dim=0)
+        return ((_l2(agg) if feat_norm else agg).float(),)
+
+    return body
+
+
+def make_ttpt_query_step(model, cfg, weak: bool = False):
+    """→ ``step(batch)``: the tuner's input for a numpy batch
+    (``_make_ttpt_query_body``), an ordinary tensor."""
+    return model_step(model, lambda model_of: _make_ttpt_query_body(model_of, cfg),
+                      lambda batch: _batch_inputs(cfg, batch), "TTPT query step", weak, one=True)
+
+
+def cached_ttpt_query_step(model, cfg):
+    """``make_ttpt_query_step`` kept on the model: the eval step's key, the
+    norm and ``TEST.TTA_ENABLED``."""
+    return cached_step(model, ("ttpt_query", *eval_key(cfg), cfg.TEST.FEAT_NORM == "yes",
+                               cfg.TEST.TTA_ENABLED),
+                       lambda: make_ttpt_query_step(model, cfg, weak=True))
+
+
+def ttpt_query_input(model, cfg, batch) -> torch.Tensor:
+    """The tuner's input for a numpy batch, as ``do_inference_ttpt`` makes it
+    (``cached_ttpt_query_step``)."""
+    return cached_ttpt_query_step(model, cfg)(batch)
 
 
 def log_and_return_ranks(logger, cmc) -> Tuple[float, float]:
@@ -125,50 +189,38 @@ def _no_parameter_grads(model):
             p.requires_grad_(flag)
 
 
-@torch.no_grad()
-def ttpt_query_input(model, cfg, x: torch.Tensor, cam=None, view=None) -> torch.Tensor:
-    """The tuner's input for a preprocessed batch: the last
-    ``in_planes_proj`` columns of the eval features, averaged with the
-    h-flip's under ``TEST.TTA_ENABLED``, L2-normalised under
-    ``TEST.FEAT_NORM``, fp32 (made under ``no_grad``, not ``inference_mode``:
-    the tuner's autograd saves it)."""
-    dim = model.in_planes_proj
-    views = [x, x.flip(2)] if cfg.TEST.TTA_ENABLED else [x]
-    agg = torch.stack([model.forward_eval(v, cam, view)[:, -dim:] for v in views]).mean(dim=0)
-    if cfg.TEST.FEAT_NORM == "yes":
-        agg = _l2(agg)
-    return agg.float()
-
-
-def make_ttpt_tuner(model, cfg):
-    """→ ``tune(img_feat_agg) → (tuned query features, entropy trace, sim)``.
+def _make_tuner_body(model_of: Callable, cfg):
+    """The tuner's body (ref ``_make_ttpt_tuner_cached``'s ``tune``):
+    ``body(img_feat_agg)`` → (tuned query features, entropy trace, sim).
 
     ``img_feat_agg`` is the (B, embed_dim) fp32 query image features. Each
-    of ``TEST.TTPT.STEPS`` steps takes the text features of every class
-    with the current context, the mean entropy of softmax(agg · textᵀ / T)
-    and its gradient with respect to the context, and an AdamW update in
-    the JAX package's form (ctx − lr·(m̂/(√v̂ + eps) + wd·ctx)). The trace
+    of ``TEST.TTPT.STEPS`` steps (unrolled: on the card they are one graph)
+    takes the text features of every class with the current context, the
+    mean entropy of softmax(agg · textᵀ / T) and its gradient with respect
+    to the context, and an AdamW update in the JAX package's form (ctx −
+    lr·(m̂/(√v̂ + eps) + wd·ctx), the bias corrections constants). The trace
     holds the entropy before each update. The class of each query is the
-    argmax of ``sim``, the last step's (B, num_classes) similarities
-    (before its update; the initial context's with no steps), and its
-    feature is that class's L2-normalised text feature with the final
-    context."""
+    argmax of ``sim``, the last step's (B, num_classes) similarities (before
+    its update; the initial context's with no steps), and its feature is
+    that class's L2-normalised text feature with the final context."""
     lr, steps, temp = cfg.TEST.TTPT.LR, cfg.TEST.TTPT.STEPS, cfg.TEST.TTPT.TEMPERATURE
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 1e-2  # torch AdamW's defaults
-    ctx0 = model.prompt_learner.ctx_generic
-    labels = torch.arange(ctx0.shape[0], device=ctx0.device)
 
-    def text_all(ctx):
-        return model.get_text(labels, None, "2", ctx_generic=ctx)
+    def body(img_feat_agg: torch.Tensor):
+        model = model_of()
+        ctx0 = model.prompt_learner.ctx_generic
+        labels = torch.arange(ctx0.shape[0], device=ctx0.device)
 
-    def entropy_and_sim(ctx, agg):
-        tf = text_all(ctx)
-        sim = torch.matmul(agg, tf.float().t())
-        probs = torch.softmax(sim / temp, dim=-1)
-        ent = -torch.sum(probs * torch.log(probs + 1e-9), dim=-1)
-        return ent.mean(), sim, tf
+        def text_all(ctx):
+            return model.get_text(labels, None, "2", ctx_generic=ctx)
 
-    def tune(img_feat_agg: torch.Tensor):
+        def entropy_and_sim(ctx, agg):
+            tf = text_all(ctx)
+            sim = torch.matmul(agg, tf.float().t())
+            probs = torch.softmax(sim / temp, dim=-1)
+            ent = -torch.sum(probs * torch.log(probs + 1e-9), dim=-1)
+            return ent.mean(), sim, tf
+
         agg = img_feat_agg.float()
         ctx = ctx0.detach().clone()
         m, v = torch.zeros_like(ctx), torch.zeros_like(ctx)
@@ -181,9 +233,8 @@ def make_ttpt_tuner(model, cfg):
                 with torch.no_grad():
                     m = b1 * m + (1 - b1) * g
                     v = b2 * v + (1 - b2) * torch.square(g)
-                    t = float(i + 1)
-                    mh = m / (1 - b1 ** t)
-                    vh = v / (1 - b2 ** t)
+                    mh = m / (1 - b1 ** (i + 1))
+                    vh = v / (1 - b2 ** (i + 1))
                     ctx = ctx - lr * (mh / (torch.sqrt(vh) + eps) + wd * ctx)
                 trace.append(loss.detach())
                 sim = sim.detach()
@@ -196,7 +247,55 @@ def make_ttpt_tuner(model, cfg):
             trace = torch.stack(trace) if trace else sim.new_zeros(0)
             return _l2(final_tf)[best], trace, sim
 
-    return tune
+    return body
+
+
+def make_ttpt_tuner(model, cfg, weak: bool = False):
+    """→ ``tune(img_feat_agg) → (tuned query features, entropy trace, sim)``
+    (``_make_tuner_body``) on a (B, embed_dim) fp32 tensor of the model's
+    device. On the card the graph binds every parameter and buffer: a reload
+    of the weights into new storage is a new key, captured anew."""
+    return model_step(model, lambda model_of: _make_tuner_body(model_of, cfg),
+                      lambda agg: (agg,), "TTPT tuner", weak)
+
+
+def cached_ttpt_tuner(model, cfg):
+    """``make_ttpt_tuner`` kept on the model (ref ``_make_ttpt_tuner_cached``'s
+    key: the class count, ``TEST.TTPT.LR``, ``STEPS`` and ``TEMPERATURE``, with
+    the eval step's key)."""
+    return cached_step(model, ("ttpt_tuner", *eval_key(cfg),
+                               model.prompt_learner.ctx_generic.shape[0],
+                               cfg.TEST.TTPT.LR, cfg.TEST.TTPT.STEPS,
+                               cfg.TEST.TTPT.TEMPERATURE),
+                       lambda: make_ttpt_tuner(model, cfg, weak=True))
+
+
+@torch.no_grad()
+def do_inference_tta(cfg, model, val_loader, num_query: int):
+    """Option A → (rank-1, rank-5): TTA-aggregated query features, plain
+    gallery features, through ``R1mAPEvaluator`` (``TEST.RE_RANKING`` and
+    ``TEST.CAMERA_FILTER`` as the config says). A batch with query rows
+    goes through the TTA query step, a gallery-only one through the plain
+    step with the norm fused."""
+    logger = logging.getLogger("mpreid_tpu_torch.test_tta")
+    logger.info("Enter inferencing with TTA (Option A - Image Feature Evaluation)")
+    feat_norm = cfg.TEST.FEAT_NORM == "yes"
+    evaluator = R1mAPEvaluator(num_query, feat_norm=feat_norm, reranking=cfg.TEST.RE_RANKING,
+                               camera_filter=cfg.TEST.CAMERA_FILTER, device=_device_of(model))
+    plain_step = cached_eval_step(model, cfg, feat_norm=feat_norm)
+    query_step = cached_tta_query_step(model, cfg)
+    processed = 0
+    for batch in val_loader.iter_sequential():
+        n = batch["count"]
+        # rows [0, boundary) are queries, the rest gallery
+        boundary = int(np.clip(num_query - processed, 0, n))
+        feat = query_step(batch, boundary) if boundary > 0 else plain_step(batch)
+        evaluator.update((feat[:n], batch["pids"][:n], batch["camids"][:n]))
+        processed += n
+    cmc, mAP, *_ = evaluator.compute()
+    logger.info("Validation Results (TTA Option A - Image Features)")
+    logger.info("mAP: {:.1%}".format(mAP))
+    return log_and_return_ranks(logger, cmc)
 
 
 def do_inference_ttpt(cfg, model, val_loader, num_query: int):
@@ -214,24 +313,22 @@ def do_inference_ttpt(cfg, model, val_loader, num_query: int):
                 f"Temp={cfg.TEST.TTPT.TEMPERATURE}")
     feat_norm = cfg.TEST.FEAT_NORM == "yes"
     feat_dim = model.in_planes_proj
-    tuner = make_ttpt_tuner(model, cfg)
+    plain_step = cached_eval_step(model, cfg, feat_norm=feat_norm)
+    query_step = cached_ttpt_query_step(model, cfg)
+    tuner = cached_ttpt_tuner(model, cfg)
 
     qf, q_pids, q_camids = [], [], []
     gf, g_pids, g_camids = [], [], []
     processed = 0
-    for x, cam, view, batch in _batches(cfg, model, val_loader):
+    for batch in val_loader.iter_sequential():
         n = batch["count"]
         boundary = int(np.clip(num_query - processed, 0, n))
         if boundary < n:
-            with torch.no_grad():
-                feat = model.forward_eval(x, cam, view)
-            if feat_norm:
-                feat = _l2(feat)
-            gf.append(feat[boundary:n])
+            gf.append(plain_step(batch)[boundary:n])
             g_pids.extend(batch["pids"][boundary:n])
             g_camids.extend(batch["camids"][boundary:n])
         if boundary > 0:
-            query_feat, ent, _ = tuner(ttpt_query_input(model, cfg, x, cam, view))
+            query_feat, ent, _ = tuner(query_step(batch))
             if len(ent) and logger.isEnabledFor(logging.INFO):
                 ent_np = ent.cpu().numpy()  # one transfer
                 logger.info("TTPT entropy: %.4f -> %.4f over %d steps",

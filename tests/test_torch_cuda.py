@@ -1531,3 +1531,106 @@ def test_a_failed_capture_raises(card):
         step(body, (x,))
     assert step.graph is None
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the TTA / TTPT steps (engine/ttpt.py): each graphed step against its eager
+# body, bit for bit
+# ---------------------------------------------------------------------------
+
+def _ttpt_graph_model(dtype):
+    from mpreid_tpu_torch.models import make_model_uniprompt
+
+    cfg = _graph_cfg()
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.TEST.TTA_ENABLED = True
+    cfg.TEST.TTPT.STEPS = 3
+    return cfg, make_model_uniprompt(cfg, 8, 14, 15).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_tta_and_ttpt_steps_equal_their_eager_bodies(card, dtype):
+    """The four steps of engine/ttpt.py, each over five calls with one key
+    (two warm-up calls, the third captures, two replays), against its eager
+    body on the same inputs, bit for bit: (a) the TTA query step at
+    boundaries 0, 3, 8, 5 and 8 on one graph, (b) the plain step with the
+    norm fused, (c) the TTPT query input (ordinary tensors), (d) the tuner
+    (3 steps over 8 classes) on (c)'s outputs: features, entropy trace and
+    sim; the tuner's launches counted for every replay; the model
+    untouched."""
+    from mpreid_tpu_torch.engine import (
+        make_eval_step, make_tta_query_step, make_ttpt_query_step, make_ttpt_tuner,
+    )
+    from mpreid_tpu_torch.engine import ttpt
+    from mpreid_tpu_torch.engine.steps import _make_eval_body
+
+    cfg, model = _ttpt_graph_model(dtype)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tdepth = len(model.text_encoder.transformer.resblocks)
+    batches = _eval_batches(5, seed=7)
+
+    def images(batch):
+        return torch.from_numpy(batch["images"]).to(card)
+
+    def same(step, body_of, calls, eager_inputs):
+        body = body_of(lambda: model, cfg)
+        outs = []
+        for call in calls:
+            got = step(*call)
+            want = body(*eager_inputs(*call))
+            got = got if isinstance(got, tuple) else (got,)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            outs.append(got)
+        stats = step.compiled.stats
+        assert stats["captures"] == 1 and stats["replays"] == 3 and stats["pool_bytes"] > 0
+        return outs
+
+    same(make_tta_query_step(model, cfg), ttpt._make_tta_query_body,
+         list(zip(batches, (0, 3, 8, 5, 8))),
+         lambda b, k: (images(b), None, None, torch.tensor(k, device=card)))
+    same(make_eval_step(model, cfg, feat_norm=True),
+         lambda m, c: _make_eval_body(m, c, feat_norm=True), [(b,) for b in batches],
+         lambda b: (images(b), None, None))
+    aggs = [a for (a,) in same(make_ttpt_query_step(model, cfg), ttpt._make_ttpt_query_body,
+                               [(b,) for b in batches], lambda b: (images(b), None, None))]
+    assert not any(a.is_inference() for a in aggs)
+    fwd, bwd = tattn.fused_attention.launches, tattn.fused_attention_bwd.launches
+    tuner = make_ttpt_tuner(model, cfg)
+    outs = same(tuner, ttpt._make_tuner_body, [(a,) for a in aggs], lambda a: (a,))
+    torch.cuda.synchronize()
+    assert tattn.fused_attention.launches - fwd == 2 * 5 * 4 * tdepth  # graphed and eager
+    assert tattn.fused_attention_bwd.launches - bwd == 2 * 5 * 3 * tdepth
+    assert all(o[1].shape == (3,) and torch.isfinite(o[1]).all() for o in outs)
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    tuner.release()
+
+
+@pytest.mark.cuda
+def test_a_failed_tuner_capture_raises(card):
+    """A tuner whose text forward reads a device value on the host cannot be
+    captured: its third call raises, no graph is kept, nothing carries on
+    eagerly, and the parameters' requires_grad flags are restored."""
+    from mpreid_tpu_torch.engine import make_ttpt_tuner
+
+    cfg, model = _ttpt_graph_model("bfloat16")
+    flags = {n: p.requires_grad for n, p in model.named_parameters()}
+    real = model.get_text
+
+    def syncing(*args, **kwargs):
+        out = real(*args, **kwargs)
+        float(out.detach().sum())  # a host read, which a capture refuses
+        return out
+
+    model.get_text = syncing
+    tuner = make_ttpt_tuner(model, cfg)
+    agg = torch.nn.functional.normalize(torch.randn(6, 32, device=card), dim=1)
+    for _ in range(2):
+        assert tuner(agg)[1].shape == (3,)
+    with pytest.raises(RuntimeError):
+        tuner(agg)
+    assert tuner.compiled.graph is None
+    assert {n: p.requires_grad for n, p in model.named_parameters()} == flags
+    torch.cuda.synchronize()
