@@ -21,7 +21,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    64)
    and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW;
    its step scalars [lr·mult, 1 − b1^t, 1 − b2^t] read from device memory;
-   two launches bit-equal);
+   two launches bit-equal); the L1 and min-sum kernels; the batch-hard
+   kernel (the PK batch 64 × 768 in fp32 and bf16, ragged, grid cases, 600
+   rows in two tiles; timed at B 64, 128 and 512 × 768 beside
+   ``torch.cdist`` and an empty kernel launched the same way, the launch
+   floor, and at each of its two shapes; its ptxas report, which must show
+   no spill);
 4. the baseline eval path (ViT-B/16, 256×128, bf16, batch 64) at full width
    on seeded random weights through ``engine.processor.do_inference``,
    counting the forward kernel's launches in that run;
@@ -375,6 +380,10 @@ QUANTIZED_VALUE_BAR = 0.15
 QUANTIZED_MAP_DELTA = 0.005
 # batch-hard mining: the PK batch of the training paths, feats[1]'s width
 HARD = dict(b=BATCH, d=768)
+# the batches also timed at that width: stage 2 at batch 128, and 512, where
+# every cluster's reads of all rows (B/8 clusters x B rows) add up in L2
+HARD_TIMED = (128, 512)
+HARD_TILED = 600  # past the 512-column tile of 16 anchor rows a cluster: two tiles
 HARD_TOL = 1e-5  # relative to max(1, max |plain|): dot products summed in another order
 # the Uni-Prompt slice (configs/ours/cctv_ir_cctv_rgb.yml at full ViT-B/16 width)
 UNI_CLASSES = 1000  # bench.py's full-run class count
@@ -604,6 +613,30 @@ def check_attention_bwd(case: dict, dtype: torch.dtype, layout: str, timed: bool
 SPILL_FREE = ("attention_fwd", "attention_bwd")
 
 
+def ptxas_entries(text: str) -> list:
+    """[(mangled entry name, {"registers", "spill_stores", "spill_loads",
+    "static_smem_bytes"})] of each kernel in ptxas's ``-v`` report ``text``."""
+    found = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            found.append((m.group(1), {}))
+            continue
+        if not found:
+            continue
+        current = found[-1][1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            current["static_smem_bytes"] = int(m.group(1))
+    return found
+
+
 def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) -> dict:
     """Registers, spills and static shared memory that ptxas reported for each
     kernel of ``names`` built in this process, by head width (``dh64``), or
@@ -616,29 +649,13 @@ def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) ->
         if text is None:
             out[name] = "built before this process: not reported"
             continue
-        found, current = [], None
-        for line in text.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                mangled, pos, kernel = m.group(1), 3, ""
-                while (n := re.match(r"\d+", mangled[pos:])):  # _ZN <len><name>... I
-                    pos += n.end() + int(n.group())
-                    kernel = mangled[pos - int(n.group()):pos]
-                dh = re.search(r"ILi(\d+)E", mangled).group(1)
-                current = {}
-                found.append((kernel, dh, current))
-                continue
-            if current is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m:
-                current.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                current["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            if m:
-                current["static_smem_bytes"] = int(m.group(1))
+        found = []
+        for mangled, props in ptxas_entries(text):
+            pos, kernel = 3, ""
+            while (n := re.match(r"\d+", mangled[pos:])):  # _ZN <len><name>... I
+                pos += n.end() + int(n.group())
+                kernel = mangled[pos - int(n.group()):pos]
+            found.append((kernel, re.search(r"ILi(\d+)E", mangled).group(1), props))
         several = len({kernel for kernel, _, _ in found}) > 1
         out[name] = {f"{kernel}_dh{dh}" if several else f"dh{dh}": props
                      for kernel, dh, props in found}
@@ -830,11 +847,15 @@ def check_batch_hard(name: str, b: int, d: int, dtype: torch.dtype, timed: bool,
                rows_without_negative=int((~fin).sum()), max_abs_err=err, tol=tol, ok=ok)
     if timed:
         row["ms"] = cuda_ms(lambda: bh.batch_hard_mining(f, lab))
+        row["floor_ms"] = cuda_ms(lambda: bh.launch_floor(f, lab))
         row["plain_ms"] = cuda_ms(lambda: bh.batch_hard_plain(f, lab))
         x = f.float()
         row["library_ms"] = cuda_ms(lambda: torch.cdist(x, x))
         row["library"] = "torch.cdist(x, x): the distance matrix alone"
         row["bound_ms"], row["bound_by"] = batch_hard_bound_ms(b, d, dtype)
+        row["smem_bytes"] = bh.shared_bytes(b, d)
+        row["shape_ms"] = {f"{rows}_rows": cuda_ms(lambda: bh.launch_at_shape(f, lab, shape))
+                           for shape, rows in enumerate((8, 16))}
     log(f"  batch_hard {json.dumps(row)}")
     if not ok:
         raise AssertionError(f"batch-hard kernel disagrees with its plain version: {row}")
@@ -843,15 +864,46 @@ def check_batch_hard(name: str, b: int, d: int, dtype: torch.dtype, timed: bool,
 
 def batch_hard_rows() -> list:
     """Phase 3's batch-hard cases: the PK batch (64 × 768) in fp32 (timed)
-    and bf16, a ragged 60-row batch, and on grid features a batch with a
-    singleton identity and a single-identity batch (no negatives)."""
+    and bf16, a ragged 60-row batch, on grid features a batch with a
+    singleton identity and a single-identity batch (no negatives), a batch
+    of ``HARD_TILED`` rows in fp32 and bf16 (two tiles), and the fp32
+    batches of ``HARD_TIMED`` (timed)."""
     b, d = HARD["b"], HARD["d"]
     singleton = [i // K_INST for i in range(b - 1)] + [b]
     return [check_batch_hard("pk", b, d, torch.float32, timed=True),
             check_batch_hard("pk", b, d, torch.bfloat16, timed=False),
             check_batch_hard("ragged", 60, d, torch.float32, timed=False),
             check_batch_hard("singleton", b, d, torch.float32, False, singleton, grid=True),
-            check_batch_hard("one_identity", b, d, torch.bfloat16, False, [0] * b, grid=True)]
+            check_batch_hard("one_identity", b, d, torch.bfloat16, False, [0] * b, grid=True),
+            check_batch_hard("two_tiles", HARD_TILED, d, torch.float32, timed=False),
+            check_batch_hard("two_tiles", HARD_TILED, d, torch.bfloat16, timed=False)] + [
+        check_batch_hard("pk", n, d, torch.float32, timed=True) for n in HARD_TIMED]
+
+
+def batch_hard_ptxas() -> dict:
+    """Registers, spills and static shared memory that ptxas reported for each
+    kernel of ``batch_hard.cu`` built in this process, by instantiation
+    (``fp32_w8_rw1_rg2_cg1_m1``: the feature type, warps a block, anchor
+    rows a warp, anchor rows and columns an item, items a thread;
+    ``floor_fp32``: the empty kernel); raises on a spill. Its shared memory
+    is dynamic: ``smem_bytes`` of each timed row."""
+    text = build.LOGS.get("batch_hard")
+    if text is None:
+        return {"batch_hard": "built before this process: not reported"}
+    out = {}
+    kind = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    for mangled, props in ptxas_entries(text):
+        k = re.search(r"batch_hard_kernelI(f|13__nv_bfloat16)" + r"Li(\d+)E" * 5, mangled)
+        e = re.search(r"empty_kernelI(f|13__nv_bfloat16)E", mangled)
+        key = (kind[k.group(1)] + "".join(f"_{n}{v}" for n, v in zip(
+                   ("w", "rw", "rg", "cg", "m"), k.groups()[1:])) if k
+               else f"floor_{kind[e.group(1)]}" if e else mangled)
+        out[key] = props
+    log(f"  ptxas batch_hard {json.dumps(out)}")
+    spilled = {k: v for k, v in out.items() if v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"batch_hard.cu spills registers: {spilled}")
+    return out
 
 
 class InMemoryBatcher:
@@ -4106,16 +4158,20 @@ TRACE_KERNELS = {"attention_fwd": r"\bmha_fwd(_tc)?_kernel<",
                  "minsum_cross": r"\bcross_kernel<MinOp>", "batch_hard": r"\bbatch_hard_kernel<"}
 
 
-def trace_kernel_counts(path: str) -> dict:
+def trace_kernel_counts(path: str, span: str = None) -> dict:
     """How many times each counted wrapper's kernel ran in each CUDA graph
-    launch of a Chrome trace that ``torch.profiler`` wrote: ``{launch's
+    launch of a Chrome trace that ``torch.profiler`` wrote (with ``span``,
+    each launch made inside the events of that name): ``{launch's
     correlation id: {name: count}}`` in launch order (``TRACE_KERNELS``;
     every kernel of one replay carries its launch's correlation id)."""
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "cuda_runtime")]
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    marks = [(e["ts"], e["ts"] + e["dur"]) for e in events if span is not None
+             and e["name"] == span]
+    events = [e for e in events if e.get("cat") in ("kernel", "cuda_runtime")]
     launches = sorted((e["ts"], e["args"]["correlation"]) for e in events
-                      if e["cat"] == "cuda_runtime" and e["name"].startswith("cudaGraphLaunch"))
+                      if e["cat"] == "cuda_runtime" and e["name"].startswith("cudaGraphLaunch")
+                      and (span is None or any(lo <= e["ts"] <= hi for lo, hi in marks)))
     out = {c: dict.fromkeys(TRACE_KERNELS, 0) for _, c in launches}
     for e in events:
         c = e.get("args", {}).get("correlation")
@@ -4137,24 +4193,35 @@ def traced_graphed_epoch(fn, compiled, attempts: int = 3) -> dict:
     that end inside its window, and one traced epoch lacked 5 of its 416
     Adam kernel records without that margin. Now and then the profiler
     keeps no record of a kernel inside the window too (two runs lost 1 and
-    2 of one replay's 12 attention records): a run whose replays' traced
-    kernels disagree is logged, with the launches that differ by their place
-    in launch order, and traced again; one of ``attempts`` must agree."""
+    2 of one replay's 12 attention records). The first graph launch of a
+    profiling session lost one of its 12 attention records in all three
+    traced runs of phase 18b's text step in two runs of this script, with
+    the window opened 50 ms before it or not; so each profiling session
+    runs ``fn()`` once before the checked span, and only the launches
+    inside the span are checked. A run whose checked replays'
+    traced kernels disagree is logged, with the launches that differ by
+    their place in launch order, and traced again; one of ``attempts``
+    must agree."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(1, attempts + 1):
-        replays, captures = compiled.stats["replays"], compiled.stats["captures"]
+        captures = compiled.stats["captures"]
         with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                replays = compiled.stats["replays"]
                 with record_function("graphed_epoch"):
                     fn()
                     torch.cuda.synchronize()
+                replays = compiled.stats["replays"] - replays
                 time.sleep(0.05)
             path = os.path.join(tmp, "graphed_epoch.json")
             prof.export_chrome_trace(path)
             res = trace_idle_share(path, span="graphed_epoch")
-            per_launch = trace_kernel_counts(path)
-        replays = compiled.stats["replays"] - replays
+            per_launch = trace_kernel_counts(path, span="graphed_epoch")
         if res["device_spans"] <= 0:
             raise AssertionError(f"the traced graphed epoch shows no device work: {res}")
         if compiled.stats["captures"] != captures or replays <= 0:
@@ -4172,7 +4239,7 @@ def traced_graphed_epoch(fn, compiled, attempts: int = 3) -> dict:
             raise AssertionError(what)
         log(f"  traced run {attempt} of {attempts}: {what}; tracing again")
     res.update(replays=replays, launches_per_replay_traced=next(iter(seen.values())),
-               trace_attempts=attempt)
+               trace_attempts=attempt, fn_calls=2 * attempt)
     return res
 
 
@@ -5108,7 +5175,7 @@ def run_compiled_ttpt(model) -> dict:
                 f"{phase} {option}: {what[kind]}, configs/ours/cctv_ir_cctv_rgb.yml, "
                 f"{nq} + {len(loader.pids) - nq} images, batch {BATCH}", diffs,
                 per_replay_counts(step), per_replay[kind], counts,
-                len(calls[kind]) * trace["trace_attempts"], kind_rates, trace,
+                len(calls[kind]) * trace["fn_calls"], kind_rates, trace,
                 step.compiled.stats["pool_bytes"], unit, extra, phase=phase[:2],
                 against="its eager body")
         log(f"  {phase} seconds {time.perf_counter() - t0:.1f}")
@@ -5142,6 +5209,7 @@ def main() -> None:
     secs = build.build(verbose=True)
     log(f"  built {json.dumps(secs)} (seconds per source, 0 = already built)")
     ptxas = ptxas_report()
+    hard_ptxas = batch_hard_ptxas()
 
     log("kernels against their plain versions on the card:")
     rows, bwd_rows = [], []
@@ -5468,8 +5536,14 @@ def main() -> None:
                          "launches it 0 times",
         "max_abs_err": max(r["max_abs_err"] for r in hard_rows),
         **timing(hard_rows[0]),
+        "floor_ms": hard_rows[0]["floor_ms"],
         "library": hard_rows[0]["library"],
         "shape": f"PK batch {HARD['b']} x {HARD['d']} fp32 (feats[1]), labels 16 x 4",
+        "timed_batches": {f"b{r['shape'][0]}": {**timing(r), "floor_ms": r["floor_ms"],
+                                                 "smem_bytes": r["smem_bytes"],
+                                                 "shape_ms": r["shape_ms"]}
+                          for r in hard_rows if "ms" in r},
+        "ptxas": hard_ptxas,
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

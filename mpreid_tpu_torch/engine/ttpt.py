@@ -189,6 +189,15 @@ def _no_parameter_grads(model):
             p.requires_grad_(flag)
 
 
+def _bias_corrections(b: float, steps: int) -> torch.Tensor:
+    """(steps,) fp32 CPU tensor of 1 − b^t for t = 1..steps as the JAX tuner
+    forms them: fp32 ``b`` raised to an fp32 ``t``, subtracted in fp32 (in
+    double 1 − 0.999^t lies up to 2e-5 relative above: fp32 cancels)."""
+    base = torch.tensor(b, dtype=torch.float32)
+    return torch.tensor([(1 - torch.pow(base, torch.tensor(float(t)))).item()
+                         for t in range(1, steps + 1)], dtype=torch.float32)
+
+
 def _make_tuner_body(model_of: Callable, cfg):
     """The tuner's body (ref ``_make_ttpt_tuner_cached``'s ``tune``):
     ``body(img_feat_agg)`` → (tuned query features, entropy trace, sim).
@@ -198,17 +207,25 @@ def _make_tuner_body(model_of: Callable, cfg):
     takes the text features of every class with the current context, the
     mean entropy of softmax(agg · textᵀ / T) and its gradient with respect
     to the context, and an AdamW update in the JAX package's form (ctx −
-    lr·(m̂/(√v̂ + eps) + wd·ctx), the bias corrections constants). The trace
+    lr·(m̂/(√v̂ + eps) + wd·ctx), the bias corrections fp32 constants,
+    ``_bias_corrections``, copied to the model's device by the first call
+    (before any capture) so that m and v are divided by a tensor: torch's
+    CUDA division by a Python number multiplies by its reciprocal). The trace
     holds the entropy before each update. The class of each query is the
     argmax of ``sim``, the last step's (B, num_classes) similarities (before
     its update; the initial context's with no steps), and its feature is
     that class's L2-normalised text feature with the final context."""
     lr, steps, temp = cfg.TEST.TTPT.LR, cfg.TEST.TTPT.STEPS, cfg.TEST.TTPT.TEMPERATURE
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 1e-2  # torch AdamW's defaults
+    corrections = torch.stack([_bias_corrections(b1, steps), _bias_corrections(b2, steps)])
+    on_device = {}
 
     def body(img_feat_agg: torch.Tensor):
         model = model_of()
         ctx0 = model.prompt_learner.ctx_generic
+        if ctx0.device not in on_device:
+            on_device[ctx0.device] = corrections.to(ctx0.device)
+        bc1, bc2 = on_device[ctx0.device]
         labels = torch.arange(ctx0.shape[0], device=ctx0.device)
 
         def text_all(ctx):
@@ -233,8 +250,8 @@ def _make_tuner_body(model_of: Callable, cfg):
                 with torch.no_grad():
                     m = b1 * m + (1 - b1) * g
                     v = b2 * v + (1 - b2) * torch.square(g)
-                    mh = m / (1 - b1 ** (i + 1))
-                    vh = v / (1 - b2 ** (i + 1))
+                    mh = m / bc1[i]
+                    vh = v / bc2[i]
                     ctx = ctx - lr * (mh / (torch.sqrt(vh) + eps) + wd * ctx)
                 trace.append(loss.detach())
                 sim = sim.detach()

@@ -1,5 +1,5 @@
-// Host emulation of the inline-PTX primitives of kernels/csrc/mma_bf16.cuh
-// and kernels/csrc/mma_tf32.cuh. A copy of each header with its primitives
+// Host emulation of the inline-PTX primitives of kernels/csrc/mma_bf16.cuh,
+// kernels/csrc/mma_tf32.cuh and kernels/csrc/cluster.cuh. A copy of each header with its primitives
 // cut out includes this file, whose definitions at global scope the kernels
 // then reach. Each warp-wide step puts every lane's operands on the table,
 // waits for the warp, and computes this lane's share as the PTX ISA defines
@@ -14,6 +14,23 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {}
+
+__device__ __forceinline__ void cp_async_commit() {}
+
+__device__ __forceinline__ void cp_async_wait_prior() {}
+
+// ---- clusters (cluster.cuh), under emu::launch_cluster ----
+
+__device__ __forceinline__ unsigned cluster_rank() { return emu::cluster_rank; }
+
+__device__ __forceinline__ void cluster_sync() { emu::cluster_bar->arrive_and_wait(); }
+
+// the same offset in the dynamic shared memory of the block of that rank
+__device__ __forceinline__ float* cluster_map(float* p, unsigned rank) {
+  const char* mine = reinterpret_cast<const char*>(emu::blk->smem.get());
+  char* theirs = reinterpret_cast<char*>((*emu::cluster_blocks)[rank]->smem.get());
+  return reinterpret_cast<float*>(theirs + (reinterpret_cast<const char*>(p) - mine));
+}
 
 // ---- bf16 (mma_bf16.cuh): two waits a step, the table reused ----
 

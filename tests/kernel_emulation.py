@@ -1,4 +1,4 @@
-"""The attention kernels' CUDA sources built for the CPU: the shared home of
+"""The port's CUDA sources built for the CPU: the shared home of
 ``tests/test_torch_kernel_emulation*.py``.
 
 ``kernels/csrc/attention_{fwd,bwd}_tc.cu`` (bf16) and
@@ -17,6 +17,11 @@ The cases are spread over several test files, by length, because
 barriers make the long lengths slow: ``CASES`` and ``FP32_CASES`` list them
 all and ``SHARES`` and ``FP32_SHARES`` give each file its part. Each file
 builds its own libraries (the fixtures are module-scoped).
+
+``kernels/csrc/batch_hard.cu`` builds the same way against the emulated
+``cluster.cuh`` (``batch_hard_library``): ``emu::launch_cluster`` runs the
+8 blocks of a cluster together, with a barrier over all of them and each
+block's shared memory reachable from its siblings by rank.
 """
 
 import contextlib
@@ -41,6 +46,8 @@ PRIMITIVES = {
     "mma_bf16.cuh": ("smem_addr", "cp_async_16", "cp_async_wait_all", "ldmatrix_x4",
                      "ldmatrix_x4_trans", "mma"),
     "mma_tf32.cuh": ("smem_addr", "cp_async_16", "cp_async_wait_all", "mma_m16n8k8"),
+    "cluster.cuh": ("smem_addr", "cluster_rank", "cluster_sync", "cluster_map", "cp_async_16",
+                    "cp_async_commit", "cp_async_wait_prior", "cp_async_wait_all"),
 }
 
 
@@ -49,7 +56,7 @@ def _emulated_header(name: str) -> str:
     ``warp_prims.h``, which defines them at global scope, included."""
     text = (build.CSRC / name).read_text()
     for prim in PRIMITIVES[name]:
-        pattern = r"(//[^\n]*\n)*__device__ __forceinline__ \w+ " + prim + r"\(.*?\n}\n"
+        pattern = r"(//[^\n]*\n)*__device__ __forceinline__ [\w*]+ " + prim + r"\(.*?\n}\n"
         text, n = re.subn(pattern, "", text, count=1, flags=re.S)
         assert n == 1, f"{name} has no {prim} to replace"
     anchor = "\nnamespace "
@@ -72,6 +79,34 @@ def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1
                     "-o", str(lib), str(out / f"{source}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
+
+
+def batch_hard_library(out: Path) -> ctypes.CDLL:
+    """``csrc/batch_hard.cu`` built for the CPU against the emulated
+    ``cluster.cuh``: its launch runs as ``emu::launch_cluster`` (the
+    blocks of a cluster together), its dynamic shared memory is each
+    block's own. C signatures declared."""
+    (out / "cluster.cuh").write_text(_emulated_header("cluster.cuh"))
+    src, n = re.subn(r"(\w+)<<<([^,]*), ([^,]*), ([^,]*), [^>]*>>>\(",
+                     r"emu::launch_cluster(kCluster, \2, \3, \4, \1, ",
+                     (build.CSRC / "batch_hard.cu").read_text())
+    assert n == 1
+    src, n = re.subn(r"extern __shared__ __align__\(16\) float smem\[\];",
+                     "float* smem = emu::block_smem<float>();", src)
+    assert n == 1
+    (out / "batch_hard.cpp").write_text('#include "cuda_runtime.h"\n' + src)
+    lib = out / "libbatch_hard.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
+                    "-o", str(lib), str(out / "batch_hard.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    head = [p] * 6 + [i, i, ctypes.c_longlong, i]
+    lib.mpreid_batch_hard.argtypes = head + [p]
+    lib.mpreid_batch_hard_tiled.argtypes = head + [i, i, i, p]
+    lib.mpreid_batch_hard.restype = lib.mpreid_batch_hard_tiled.restype = i
+    return lib
 
 
 @pytest.fixture(scope="module")

@@ -535,7 +535,8 @@ def _hard_case(card, b, d, dtype, grid=False, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,d", [(64, 768), (60, 768), (16, 32), (12, 40), (200, 129), (3, 8)])
+@pytest.mark.parametrize("b,d", [(64, 768), (60, 768), (16, 32), (12, 40), (200, 129), (3, 8),
+                                 (100, 768), (600, 96)])
 def test_batch_hard_kernel_matches_plain(card, dtype, b, d):
     from mpreid_tpu_torch.ops import batch_hard as bh
 
@@ -714,6 +715,64 @@ def test_tiny_ttpt_tuner_on_the_card(card, dtype):
         assert (t_card - t_cpu).norm().item() <= 1e-5 * t_cpu.norm().item()
         assert (f_card - f_cpu).abs().max().item() <= 1e-4
         assert torch.equal(s_card.argmax(1), s_cpu.argmax(1))
+
+
+def _tuner_update_mismatches(device) -> list:
+    """Run the fp32 tuner's eager body (3 steps over 8 classes) on
+    ``device``, recording each context that reaches ``get_text`` and each
+    gradient; recompute every AdamW update from the recorded gradients in
+    fp32 numpy, with the JAX tuner's bias corrections (fp32 1 − b^t) and true
+    division, from the recorded context before it. The square root alone is
+    the device's own ``torch.sqrt`` of the host's v̂ (torch's CPU one is not
+    correctly rounded everywhere). → for each step, the count of elements of
+    the recomputed context that differ from the recorded one."""
+    from mpreid_tpu_torch.engine import ttpt
+    from mpreid_tpu_torch.models import make_model_uniprompt
+
+    cfg = _tiny_uniprompt_cfg("float32")
+    steps, lr = cfg.TEST.TTPT.STEPS, cfg.TEST.TTPT.LR
+    model = make_model_uniprompt(cfg, 8, 14, 15, device=device)
+    agg = np.random.default_rng(19).standard_normal((6, 32)).astype(np.float32)
+    agg /= np.linalg.norm(agg, axis=1, keepdims=True)
+    ctxs, grads = [], []
+    get_text = model.get_text
+
+    def recording(*args, ctx_generic=None, **kwargs):
+        ctxs.append(ctx_generic.detach().cpu().numpy())
+        if ctx_generic.requires_grad:
+            ctx_generic.register_hook(lambda g: grads.append(g.detach().cpu().numpy()))
+        return get_text(*args, ctx_generic=ctx_generic, **kwargs)
+
+    model.get_text = recording
+    ttpt._make_tuner_body(lambda: model, cfg)(torch.from_numpy(agg).to(device))
+    assert len(ctxs) == steps + 1 and len(grads) == steps
+    f = np.float32
+    b1, b2, eps, wd = 0.9, 0.999, 1e-8, 1e-2
+    t = np.arange(1, steps + 1, dtype=f)
+    bc1, bc2 = f(1) - np.power(f(b1), t), f(1) - np.power(f(b2), t)
+    m = v = np.zeros_like(ctxs[0])
+    wrong = []
+    for i, g in enumerate(grads):
+        m = f(b1) * m + f(1 - b1) * g
+        v = f(b2) * v + f(1 - b2) * np.square(g)
+        mh, vh = m / bc1[i], v / bc2[i]
+        root = torch.sqrt(torch.from_numpy(vh).to(device)).cpu().numpy()
+        want = ctxs[i] - f(lr) * (mh / (root + f(eps)) + f(wd) * ctxs[i])
+        wrong.append(int(np.sum(want != ctxs[i + 1])))
+    return wrong
+
+
+@pytest.mark.cuda
+def test_tuner_update_is_the_fp32_host_update_on_the_card(card):
+    """Every context the tuner makes on the card equals, bit for bit, the
+    AdamW update recomputed on the host in fp32 from the card's gradients,
+    as the JAX tuner forms it (``_tuner_update_mismatches``): the card
+    divides m and v by the fp32 bias corrections. (A division by a Python
+    number, which torch's CUDA kernel turns into a product with the
+    reciprocal, is an ulp off in some elements.) The graphed tuner equals
+    this eager body bit for bit
+    (``test_graphed_tta_and_ttpt_steps_equal_their_eager_bodies``)."""
+    assert _tuner_update_mismatches(card) == [0, 0, 0]
 
 
 @pytest.mark.cuda

@@ -223,6 +223,66 @@ def test_tuner_matches_jax(agg, steps):
         np.testing.assert_allclose(tq, unit[np.argmax(sim, axis=1)], atol=1e-6)
 
 
+def _contexts(steps, agg, monkeypatch):
+    """(JAX's, the port's) contexts that reach ``get_text`` in a tuner run of
+    ``steps``: ctx_0 .. ctx_steps, fp32 numpy. JAX's come out of its jitted
+    program through an ordered debug callback in a stand-in ``get_text``, in
+    a fresh trace of the tuner (``_make_ttpt_tuner_cached`` unwrapped)."""
+    jmodel, variables, tmodel = _models(NC)
+    jcfg, tcfg = _cfgs(None, **{"TEST.TTPT.STEPS": steps})
+    seen_jax, seen_torch = [], []
+
+    class Recording:
+        @staticmethod
+        def get_text(module, *args, **kwargs):
+            ctx = module.variables["params"]["prompt_learner"]["ctx_generic"]
+            jax.debug.callback(lambda c: seen_jax.append(np.asarray(c)), ctx, ordered=True)
+            return JaxUniPromptReID.get_text(module, *args, **kwargs)
+
+    monkeypatch.setattr(jttpt, "UniPromptReID", Recording)
+    tune = jttpt._make_ttpt_tuner_cached.__wrapped__(
+        jmodel, NC, jcfg.TEST.TTPT.LR, steps, jcfg.TEST.TTPT.TEMPERATURE)
+    jax.block_until_ready(tune(variables["params"], variables["batch_stats"],
+                               jnp.asarray(agg)))
+    get_text = tmodel.get_text
+
+    def recording(*args, ctx_generic=None, **kwargs):
+        seen_torch.append(_np(ctx_generic))
+        return get_text(*args, ctx_generic=ctx_generic, **kwargs)
+
+    monkeypatch.setattr(tmodel, "get_text", recording)
+    tttpt.make_ttpt_tuner(tmodel, tcfg)(torch.from_numpy(agg))
+    monkeypatch.delattr(tmodel, "get_text")
+    assert len(seen_jax) == len(seen_torch) == steps + 1
+    return seen_jax, seen_torch
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_tuner_bias_corrections_are_jax_fp32(agg, steps, monkeypatch):
+    """Each AdamW update of the tuner, recovered from the contexts as
+    (ctx_{t-1} − ctx_t)/lr − wd·ctx_{t-1}, against the JAX tuner's, whose
+    bias corrections 1 − b^t are fp32 (in double 1 − 0.999^t lies 0.7e-5 to
+    2e-5 relative above). Step 1's update is ±(1 − b1)/bc1·√(bc2/(1 − b2))
+    per element whatever the gradient, so the towers' rounding cancels:
+    1e-6 norm-relative (fp32 corrections 6.1e-7, double ones 6.9e-6). Later
+    updates carry the towers' rounding through the moments (~9e-6
+    norm-relative either way, per element of both signs), so every step is
+    held by the median of the per-element relative difference: 1e-6 (fp32
+    corrections ≤ 1.2e-11, double ones 2.1e-6 to 9.2e-6)."""
+    seen_jax, seen_torch = _contexts(steps, agg, monkeypatch)
+    _, tcfg = _cfgs(None)
+    lr, wd = tcfg.TEST.TTPT.LR, 1e-2
+
+    def update(ctx, t):
+        return (ctx[t - 1].astype(np.float64) - ctx[t]) / lr - wd * ctx[t - 1].astype(np.float64)
+
+    want, got = update(seen_jax, 1), update(seen_torch, 1)
+    assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
+    for t in range(1, steps + 1):
+        want, got = update(seen_jax, t), update(seen_torch, t)
+        assert abs(np.median(got / want - 1)) <= 1e-6, t
+
+
 def test_tuner_is_pure(agg):
     """Every parameter and buffer bit-equal after tuning, the requires_grad
     flags as they were (one of them off), and no parameter has a gradient."""
