@@ -182,7 +182,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    replay launched, counted by name in the trace of one graphed epoch that
    only replays and held against the launch counters (which a capture
    records and every replay adds), the rates of both modes in turns
-   (graph, loop, loop, graph, twice), the device's idle share over that
+   (graph, loop, loop, graph, once), the device's idle share over that
    traced epoch and the graph pool's bytes. The eager reference is the
    step body itself (``_make_stage1_body``, ``_make_step_body``);
 18. the compiled steps (``engine/compiled.py::CompiledStep``: two eager
@@ -205,7 +205,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    epochs, and ``do_train_stage1`` over 3 epochs of a bank with a tail (its
    trailing step replays in the third). Per case: the kernels one replay
    ran, counted in its trace and held against the counters, the rates of
-   both modes in turns (graph, eager, eager, graph, twice), the traced idle
+   both modes in turns (graph, eager, eager, graph, once), the traced idle
    share over 4 replays and the graph pool's bytes;
 19. the TTA / TTPT steps (``engine/ttpt.py``: the TTA query step, the plain
    step with the norm fused, the TTPT query input and the tuner, each a
@@ -219,10 +219,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    inputs, tuned features, entropy traces and ``sim``), Option B's
    distances, CMC and mAP bit for bit (``torch.equal``), each call's
    launches and peak allocated memory; query images/s of both modes in
-   turns (graph, eager, eager, graph, twice) and, for the tuner alone,
+   turns (graph, eager, eager, graph, once) and, for the tuner alone,
    seconds per tuned batch the same way; per step the kernels of 4 traced
    replays against the counters, the idle share over them and the graph
-   pool's bytes; then every graph is released.
+   pool's bytes; then every graph is released;
+20. from image files (``DATALOADER.NATIVE_DECODE``): a probe of what the
+   native decoder needs on this host (g++, the libjpeg and libpng headers,
+   Pillow, the host's CPUs, what ``native/`` builds), then a synthetic
+   Market-1501 tree of JPEG files (750 identities × 4 images in train,
+   query and gallery, 128×64, resized to 256×128), each sub-phase with the
+   PIL decoder and, where the native one builds and self-checks, with it in
+   turns: (a) ``ImageBatcher.decode_records`` over the 3,000 train files,
+   the arrays byte for byte, images/s; (b) configs/person/vit_base.yml with
+   ``SOLVER.FUSED_ADAM``, the graphed ``make_train_step`` fed by
+   ``make_dataloader``'s ``TrainLoader``: six steps' losses, parameters,
+   buffers, moments, step and generator bit for bit between the decoders,
+   img/s in turns, the kernels of traced replays and the idle share over
+   them; (c) ``run_validation`` over the query and gallery files: features,
+   CMC and mAP bit for bit, feats/s; (d) ``native/rerank.py`` on the host
+   against the card's dense ``re_ranking`` at 512 × 2,048 rows, both timed,
+   on seeded clustered features (RERANK_TOL) and on (c)'s features (the
+   card's dense against the CPU's on a 2⁻¹⁰ grid, RERANK_TOL; the host's
+   native against both reported: neighbours tie there); (e)
+   ``build_device_dataset`` from the files, held to (a)'s bytes. Where the
+   native decoder cannot build, one line says what is missing and that
+   its side of (a), (b), (c), (e) did not run.
 
 Phase 12 runs after phase 8 (on its model), phase 19 after phase 12 (on
 its model), phase 13 after phase 6 and
@@ -394,7 +415,7 @@ STAGE2B_IDS = 192  # do_train_stage2's epoch of stage 2b: 192 ids × 4 = 12 batc
 # the device-resident epoch (TPU.DEVICE_DATASET) at Market-1501's train size
 MARKET_TRAIN = dict(images=12936, ids=751, cams=6)
 EPOCH_CHECK_STEPS = 24  # device epoch against the step loop; and each timed turn
-EPOCH_TURNS = 2  # rounds of (epoch, steps, steps, epoch)
+EPOCH_TURNS = 1  # rounds of (epoch, steps, steps, epoch)
 # the MoE Uni-Prompt pipeline: bench.py's MoE (4 experts, top-2, 2 MoE layers)
 MOE_BENCH = {"ENABLED": True, "NUM_EXPERTS": 4, "TOP_K": 2, "MOE_LAYERS": 2}
 MOE_IDS = 384  # the stage-2a and 2b epochs: 384 ids × 4 = 24 batches
@@ -1068,7 +1089,7 @@ class MemoryBatcher(ImageBatcher):
     def __init__(self, images: np.ndarray, pids: np.ndarray, batch_size: int, views=None):
         views = np.zeros(len(pids), np.int32) if views is None else views
         records = [(str(i), int(p), int(v), int(v)) for i, (p, v) in enumerate(zip(pids, views))]
-        super().__init__(records, images.shape[1:3], batch_size, num_workers=4)
+        super().__init__(records, images.shape[1:3], batch_size, num_workers=4, native=False)
         self.images = images
 
     def _decode(self, rec):
@@ -2201,12 +2222,13 @@ def run_device_epoch() -> dict:
             _, secs = timed(lambda: turn(mode, rows))
             rates[mode].append(EPOCH_CHECK_STEPS * BATCH / secs)
     res_rates = dict(steps_per_turn=EPOCH_CHECK_STEPS, batch=BATCH, order="epoch steps steps "
-                     "epoch, twice", img_per_s=rates,
+                     f"epoch, {EPOCH_TURNS} round(s)", img_per_s=rates,
                      median_img_per_s={k: float(np.median(v)) for k, v in rates.items()},
                      card=CARD_LINE)
     log(f"device epoch against the step loop, img/s in turns {json.dumps(res_rates)}")
     rate_line("device-epoch vs step-loop train img/s (configs/person/vit_base.yml, batch 64, "
-              "medians of 4 turns of 24 steps)", res_rates["median_img_per_s"])
+              f"medians of {2 * EPOCH_TURNS} turns of {EPOCH_CHECK_STEPS} steps)",
+              res_rates["median_img_per_s"])
     for r in runs.values():
         r["epoch"].release()
     del runs
@@ -3039,7 +3061,7 @@ def rerank_msmt(profile: bool) -> dict:
 
 DP_RANKS = 2  # ranks sharing the one card over gloo (NCCL refuses two ranks on one device)
 DP_TIMEOUT = 600  # seconds each spawned two-rank job may take
-DP_TIMED_STEPS = 6
+DP_TIMED_STEPS = 2  # after a warm-up step: two ranks over gloo time gloo, not the card
 ZERO_STEPS = 3
 DP_LR = 1e-3
 DP_SEED = 17  # the global batch's images and the step generator
@@ -3296,6 +3318,29 @@ def dp_eval_job(plan: dict) -> dict:
     return out
 
 
+def rank_jobs(plan: dict, jobs: tuple) -> dict:
+    """Each ``(key, job)`` of ``jobs`` on this rank in turn, in one spawned
+    group (the ranks start once for all of them) → ``{key: job(plan)}``
+    and each job's seconds under ``"seconds"``."""
+    out, seconds = {}, {}
+    for key, job in jobs:
+        t0 = time.perf_counter()
+        out[key] = job(plan)
+        torch.distributed.barrier()
+        seconds[key] = time.perf_counter() - t0
+        if torch.device(plan["device"]).type == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    return out
+
+
+def dp_jobs(plan: dict) -> dict:
+    """Phase 14b–e on one rank: ``dp_train_job``, ``dp_uniprompt_job`` and
+    ``dp_eval_job`` in one group."""
+    return rank_jobs(plan, (("14b", dp_train_job), ("14d", dp_uniprompt_job),
+                            ("14e", dp_eval_job)))
+
+
 def nccl_world_one(plan_path: str) -> None:
     """Phase 14a, in a process started with torchrun's variables for a world
     of 1: ``init_distributed`` makes the NCCL group (gloo on the CPU), one
@@ -3341,8 +3386,8 @@ def nccl_world_one(plan_path: str) -> None:
 
 def run_data_parallel(plan: dict) -> dict:
     """Phase 14: 14a in a subprocess with torchrun's variables, then 14b–e
-    as spawned two-rank gloo jobs sharing the card, each with its own
-    timeout; every check raises on failure."""
+    in one spawned two-rank gloo job sharing the card (``dp_jobs``); every
+    check raises on failure."""
     from mpreid_tpu_torch.parallel.launch import free_port, spawn
 
     res = {}
@@ -3369,10 +3414,13 @@ def run_data_parallel(plan: dict) -> dict:
     res["14a"] = a
 
     t0 = time.perf_counter()
-    ranks = spawn(dp_train_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    jobs = spawn(dp_jobs, DP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    log(f"  14b-e one two-rank job of {time.perf_counter() - t0:.1f} s, rank 0's jobs "
+        f"{json.dumps(jobs[0]['seconds'])}")
+    ranks = [job["14b"] for job in jobs]
     b = ranks[0]
     b_res = dict(fp32=b["fp32"], bf16=b["bf16"], fused=b["fused"],
-                 seconds=time.perf_counter() - t0)
+                 seconds=jobs[0]["seconds"]["14b"])
     log(f"  14b data parallel, 2 ranks on one card over gloo {json.dumps(b_res)}")
     f32 = b["fp32"]
     if not (f32["loss_rel"] <= LOSS_RTOL and f32["worst_grad_rel"] <= GRAD_RTOL
@@ -3410,10 +3458,9 @@ def run_data_parallel(plan: dict) -> dict:
     res["14c"]["launches"] = {r: out["zero"]["bfloat16_fused_True"]["launches"]
                               for r, out in enumerate(ranks)}
 
-    t0 = time.perf_counter()
-    d = spawn(dp_uniprompt_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)[0]
+    d = jobs[0]["14d"]
     log(f"  14d Uni-Prompt stage 2a and MoE stage 2b, fp32 {json.dumps(d)} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({jobs[0]['seconds']['14d']:.1f} s)")
     for name, c in d.items():
         if not (c["loss_rel"] <= LOSS_RTOL and c["worst_grad_rel"] <= GRAD_RTOL
                 and c["bn_stats_worst_rel"] <= DP_STATS_RTOL and c["params_ok"]):
@@ -3421,10 +3468,9 @@ def run_data_parallel(plan: dict) -> dict:
                                  f"process's: {c}")
     res["14d"] = d
 
-    t0 = time.perf_counter()
-    e = spawn(dp_eval_job, DP_RANKS, (plan,), timeout=DP_TIMEOUT)[0]
+    e = jobs[0]["14e"]
     log(f"  14e gallery-sharded eval at Market-1501's scale {json.dumps(e)} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({jobs[0]['seconds']['14e']:.1f} s)")
     for name, c in e.items():
         if not (c["cmc_equal"] and c["map_abs_diff"] <= 1e-6):
             raise AssertionError(f"14e {name}: sharded metrics differ from the dense ones: {c}")
@@ -3438,7 +3484,7 @@ def run_data_parallel(plan: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2  # a 1 × 2 mesh: the model axis over two ranks sharing the card (gloo)
-TP_TIMED_STEPS = 4
+TP_TIMED_STEPS = 2  # after a warm-up step, as DP_TIMED_STEPS
 # fp32 model-axis step against one process on the same card (15a, 15b): only
 # the order of the sums across ranks differs (measured: loss ~2e-7 relative,
 # gradients <= 7.1e-6 norm-relative), well below the card-vs-CPU limits
@@ -3701,20 +3747,30 @@ def sparse_sharded_job(plan: dict) -> dict:
     return res
 
 
+def tp_jobs(plan: dict) -> dict:
+    """Phase 15a–b, d and e on one rank: ``tp_train_job``, ``pp_job`` and
+    ``sparse_sharded_job`` in one group (PP_STAGES = TP_RANKS ranks)."""
+    return rank_jobs(plan, (("15a", tp_train_job), ("15d", pp_job),
+                            ("15e", sparse_sharded_job)))
+
+
 def run_model_axis(plan: dict) -> dict:
-    """Phase 15: (a, b) the model axis at full width, (c) the dry run over
-    four ranks, (d) GPipe over the text tower, (e) the gallery-sharded
-    sparse re-ranking, each a spawned gloo job of ranks sharing the card
-    with its own timeout; every check raises on failure."""
+    """Phase 15: (a, b) the model axis at full width, (d) GPipe over the
+    text tower and (e) the gallery-sharded sparse re-ranking in one spawned
+    two-rank gloo job sharing the card (``tp_jobs``), (c) the dry run over
+    four ranks; every check raises on failure."""
     from mpreid_tpu_torch.parallel.dryrun import dryrun_multichip
     from mpreid_tpu_torch.parallel.launch import spawn
 
     res = {}
     t0 = time.perf_counter()
-    ranks = spawn(tp_train_job, TP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    jobs = spawn(tp_jobs, TP_RANKS, (plan,), timeout=DP_TIMEOUT)
+    log(f"  15a-b, d, e one two-rank job of {time.perf_counter() - t0:.1f} s, rank 0's jobs "
+        f"{json.dumps(jobs[0]['seconds'])}")
+    ranks = [job["15a"] for job in jobs]
     a = ranks[0]
     res["15a"] = {k: a[k] for k in ("fp32_fused_False", "fp32_fused_True", "bf16")}
-    res["15a"]["seconds"] = time.perf_counter() - t0
+    res["15a"]["seconds"] = jobs[0]["seconds"]["15a"]
     log(f"  15a configs/person/vit_base.yml on a 1x2 mesh, TP towers {json.dumps(res['15a'])}")
     for fused in (False, True):
         c = a[f"fp32_fused_{fused}"]
@@ -3760,9 +3816,8 @@ def run_model_axis(plan: dict) -> dict:
             raise AssertionError(f"15c rank {r}: no re-ranking kernel launch: {out}")
     res["15c"] = c
 
-    t0 = time.perf_counter()
-    pp = spawn(pp_job, PP_STAGES, (plan,), timeout=DP_TIMEOUT)
-    d = dict(seconds=time.perf_counter() - t0, ranks=pp)
+    pp = [job["15d"] for job in jobs]
+    d = dict(seconds=jobs[0]["seconds"]["15d"], ranks=pp)
     log(f"  15d GPipe, {PP_STAGES} stages over the text tower {json.dumps(d)}")
     for out in pp:
         if not (out["y_rel"] <= PP_TOL and out["dx_rel"] <= PP_TOL
@@ -3775,9 +3830,8 @@ def run_model_axis(plan: dict) -> dict:
                                  f"expected {per} each way")
     res["15d"] = d
 
-    t0 = time.perf_counter()
-    e = spawn(sparse_sharded_job, TP_RANKS, (plan,), timeout=DP_TIMEOUT)
-    res["15e"] = dict(seconds=time.perf_counter() - t0, ranks=e)
+    e = [job["15e"] for job in jobs]
+    res["15e"] = dict(seconds=jobs[0]["seconds"]["15e"], ranks=e)
     log(f"  15e re_ranking_sparse_sharded at Market-1501's scale {json.dumps(res['15e'])}")
     if not e[0]["max_abs_diff"] <= SPARSE_SHARD_TOL:
         raise AssertionError(f"15e: the sharded sparse re-ranking differs: {e[0]}")
@@ -4137,6 +4191,10 @@ def run_async_checkpoint(tmp: str) -> dict:
 
 GRAPH_LRS = (1e-4, 3e-5)  # the two checked epochs' lr: a baked-in lr would show
 GRAPH_ROWS = {"stage1": 24, "vit": 8}  # rows of each checked epoch and of each timed turn
+GRAPH_TRACED_ROWS = {"stage1": 8, "vit": 4}  # replays of each traced graphed epoch
+# rounds of timed turns (graph, loop or eager, twice, graph) of phases 17-19:
+# medians of 2 turns a mode
+TURN_ROUNDS = 1
 GRAPH_SEED = 29  # the step generator of both modes
 GRAPH_MOE_DROPOUT = 0.1
 
@@ -4243,19 +4301,24 @@ def traced_graphed_epoch(fn, compiled, attempts: int = 3) -> dict:
     return res
 
 
-def graph_turns(turn, rows_of, per_turn: int, other: str = "loop") -> dict:
-    """Both modes' rates (rows or images a second), in turns: (graph,
-    ``other``, ``other``, graph), twice; ``turn(mode, rows)`` runs one turn."""
-    rates = {"graph": [], other: []}
-    for rnd in range(2):
-        for i, mode in enumerate(("graph", other, other, "graph")):
+def graph_turns(turn, rows_of, per_turn: int, other: str = "loop", rounds: int = TURN_ROUNDS,
+                first: str = "graph") -> dict:
+    """Both modes' rates (rows or images a second), in turns: (``first``,
+    ``other``, ``other``, ``first``), ``rounds`` times, or four turns of
+    ``first`` a round with ``other`` None; ``turn(mode, rows)`` runs one
+    turn."""
+    order = (first, other, other, first) if other else (first,) * 4
+    rates = {mode: [] for mode in order}
+    for rnd in range(rounds):
+        for i, mode in enumerate(order):
             rows = rows_of(100 + 4 * rnd + i)
             _, secs = timed(lambda: turn(mode, rows))
             rates[mode].append(len(rows) * per_turn / secs)
-    return dict(order=f"graph {other} {other} graph, twice", per_s=rates,
-                median_per_s={k: float(np.median(v)) for k, v in rates.items()},
-                **{f"graph_over_{other}": float(np.median(rates["graph"])
-                                                / np.median(rates[other]))})
+    res = dict(order=f"{' '.join(order)}, {rounds} round(s)", per_s=rates,
+               median_per_s={k: float(np.median(v)) for k, v in rates.items()})
+    if other:
+        res[f"{first}_over_{other}"] = res["median_per_s"][first] / res["median_per_s"][other]
+    return res
 
 
 def graph_report(what: str, diffs: dict, per_step: dict, want: dict, counts: dict,
@@ -4275,7 +4338,8 @@ def graph_report(what: str, diffs: dict, per_step: dict, want: dict, counts: dic
                                                            "replays")},
                graph_pool_gb=pool_bytes / 1e9, card=CARD_LINE, **extra)
     log(f"  {phase} {json.dumps(res)}")
-    rate_line(f"{phase} {what}: graphed against {against} ({unit}, medians of 4 turns)",
+    rate_line(f"{phase} {what}: graphed against {against} ({unit}, medians of "
+              f"{len(rates['per_s']['graph'])} turns)",
               {"graph": rates["median_per_s"]["graph"], other: rates["median_per_s"][other],
                "idle_share_graphed": trace["device_idle_share"],
                "graph_pool_gb": pool_bytes / 1e9})
@@ -4355,7 +4419,8 @@ def graph_stage1(model, cfg, bank, stage: str) -> dict:
              else f"{g['steps_taken']} / {lp['steps_taken']}"}
     per_step = per_replay_counts(g["epoch"])
     rates = graph_turns(turn, rows_of, BATCH)
-    trace = traced_graphed_epoch(lambda: turn("graph", rows_of(200)), g["epoch"].compiled)
+    traced_rows = rows_of(200)[:GRAPH_TRACED_ROWS["stage1"]]
+    trace = traced_graphed_epoch(lambda: turn("graph", traced_rows), g["epoch"].compiled)
     pool = g["epoch"].compiled.stats["pool_bytes"]
     tdepth = len(model.text_encoder.transformer.resblocks)
     res = graph_report(f"17a stage {stage} (configs/ours/cctv_ir_cctv_rgb.yml, text tower "
@@ -4439,7 +4504,8 @@ def graph_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dic
              "generator": "" if torch.equal(g["gen_state"], lp["gen_state"]) else "differs"}
     per_step = per_replay_counts(g["epoch"])
     rates = graph_turns(turn, lambda e: rows_of(e)[:n], BATCH)
-    trace = traced_graphed_epoch(lambda: turn("graph", rows_of(200)[:n]), g["epoch"].compiled)
+    traced_rows = rows_of(200)[:GRAPH_TRACED_ROWS["vit"]]
+    trace = traced_graphed_epoch(lambda: turn("graph", traced_rows), g["epoch"].compiled)
     pool = g["epoch"].compiled.stats["pool_bytes"]
     res = graph_report(what, diffs, per_step, want, g["counts"], 2 * n, rates, trace, pool,
                        "img/s", dict(loss=float(g["out"][0, 0]), stats=g["epoch"].compiled.stats,
@@ -4613,7 +4679,7 @@ def step_case(what: str, step, eager, calls: list, unit: str, per_call: int, wan
               diffs: dict, counts: dict, n_calls: int, stats: dict, extra: dict) -> dict:
     """Phase 18's report of one step: the rates of ``step(call)`` against
     ``eager(call)`` over ``calls`` in turns (graph, eager, eager, graph,
-    twice; ``per_call`` units a call), the kernels of STEP_TRACED traced
+    TURN_ROUNDS times; ``per_call`` units a call), the kernels of STEP_TRACED traced
     replays against the counters, the idle share over them, and
     ``graph_report``'s checks of the bit-for-bit ``diffs`` and the checked
     run's ``counts`` over ``n_calls`` calls."""
@@ -5184,6 +5250,381 @@ def run_compiled_ttpt(model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: from image files, DATALOADER.NATIVE_DECODE off against on
+# ---------------------------------------------------------------------------
+
+# 3,000 train, query and gallery images each: the writer numbers the test
+# identities after the train ones, and the Market-1501 parser takes ids up
+# to 1501, so 750 train identities (Market-1501 has 751)
+FILE_IDS, FILE_IMGS_PER_ID = 750, 4
+FILE_SOURCE_HW = (128, 64)  # Market-1501's own image size, resized to HW
+FILE_WORKERS = 8  # vit_base.yml's DATALOADER.NUM_WORKERS: the PIL side's threads
+FILE_CHECK_STEPS = 6  # checked train steps: two warm-up, a capture, three replays
+FILE_RERANK = dict(q=512, g=2048, k1=K1, k2=15, lam=0.3)  # 20d: the evaluator's k1, k2, λ
+
+
+def native_probe() -> dict:
+    """20-probe: what the native path needs on this host: g++, the libjpeg
+    and libpng headers, Pillow (its self-check and the tree's writer), the
+    host's cores, and what the two native libraries say."""
+    from mpreid_tpu_torch.native import imageio as native_io
+    from mpreid_tpu_torch.native import rerank as native_rr
+
+    def gxx(args, stdin=None):
+        try:
+            p = subprocess.run(["g++", *args], input=stdin, capture_output=True, text=True,
+                               timeout=60)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        return p.stdout.splitlines()[0] if p.returncode == 0 and p.stdout else p.returncode == 0
+
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    res = dict(gxx=gxx(["--version"]) or None,
+               jpeglib_and_png_headers=bool(gxx(["-fsyntax-only", "-x", "c++", "-"],
+                                                "#include <cstdio>\n#include <jpeglib.h>\n"
+                                                "#include <png.h>\n")),
+               pillow=pillow, cpu_count=os.cpu_count(),
+               native_imageio=native_io.native_imageio_available(),
+               native_imageio_why=native_io.why_unavailable(),
+               native_rerank=native_rr.native_available(),
+               native_rerank_why=native_rr.why_unavailable(), card=CARD_LINE)
+    log(f"  20-probe {json.dumps(res)}")
+    return res
+
+
+def decoder_turns(turn, modes: tuple, rows_of, per_turn: int) -> dict:
+    """``graph_turns`` over the decoders: (native, pil, pil, native) twice,
+    or four turns of the one decoder."""
+    return graph_turns(turn, rows_of, per_turn, other=modes[1] if len(modes) == 2 else None,
+                       rounds=len(modes), first=modes[0])
+
+
+def files_decode(records: list, modes: tuple) -> dict:
+    """20a: ``ImageBatcher.decode_records`` over the train files, CACHE_IMAGES
+    off, each decoder; the arrays byte for byte; images/s in turns."""
+    batchers = {m: ImageBatcher(records, HW, BATCH, FILE_WORKERS, native=m == "native")
+                for m in modes}
+    if [b.native for b in batchers.values()] != [m == "native" for m in modes]:
+        raise AssertionError(f"20a: the batchers took other paths than {modes}")
+    out = {}
+
+    def turn(mode, recs):
+        out[mode] = np.stack(batchers[mode].decode_records(recs))
+
+    rates = decoder_turns(turn, modes, lambda i: records, 1)
+    res = dict(images=len(records), size=list(HW), source_size=list(FILE_SOURCE_HW),
+               pil_workers=FILE_WORKERS, cpu_count=os.cpu_count(), rates=rates,
+               byte_equal=all(np.array_equal(out[m], out[modes[0]]) for m in modes),
+               card=CARD_LINE)
+    log(f"  20a decode {json.dumps(res)}")
+    rate_line(f"20a decode_records over {len(records)} JPEG files ({FILE_SOURCE_HW[0]}x"
+              f"{FILE_SOURCE_HW[1]} to {HW[0]}x{HW[1]}), images/s, medians of 4 turns, "
+              f"{os.cpu_count()} host CPUs", rates["median_per_s"])
+    if not res["byte_equal"]:
+        raise AssertionError(f"20a: the decoders' arrays differ: {res}")
+    return dict(res=res, images=out[modes[0]])
+
+
+def files_train(model, cfg, loaders: dict) -> dict:
+    """20b: the graphed ``make_train_step`` fed by each decoder's
+    ``TrainLoader`` from the files (``make_dataloader``), each on its own
+    copy of ``model`` from one generator state: FILE_CHECK_STEPS steps, the
+    losses and accuracies, parameters and buffers, moments, step and
+    generator bit for bit between the decoders; img/s in turns of
+    STEP_TURN_ROWS steps (the loader decoding while the steps run); the
+    traced idle share and the kernels of STEP_TRACED replays by decoder."""
+    seed = int(cfg.SOLVER.SEED)
+    loss_fn, _ = make_loss(cfg, FILE_IDS)
+    depth = len(model.image_encoder.transformer.resblocks)
+    want = {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES}
+    modes = {}
+    for mode, loader in loaders.items():
+        m = copy.deepcopy(model)
+        opt = make_optimizer(cfg.SOLVER, m, stage="baseline")
+        modes[mode] = dict(model=m, opt=opt, state=initial_state(m, opt), loader=loader,
+                           gen=torch.Generator(device=CARD).manual_seed(GRAPH_SEED),
+                           step=make_train_step(m, cfg, loss_fn, opt))
+    orders = {mode: epoch_perm(r["loader"], 0, seed) for mode, r in modes.items()}
+    if any(not np.array_equal(o, orders["pil"]) for o in orders.values()):
+        raise AssertionError("20b: the decoders' loaders sample other rows")
+
+    def turn(mode, rows, lr=STEP_LRS[-1]):
+        r, out = modes[mode], []
+        for batch in r["loader"].batcher.iter_indices(rows.reshape(-1), drop_last=True):
+            r["state"], metrics = r["step"](r["state"], batch, lr, r["gen"])
+            out.append(torch.stack([metrics["loss"], metrics["acc"]]))
+        return torch.stack(out, dim=1)
+
+    for mode, r in modes.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out = turn(mode, orders[mode][:FILE_CHECK_STEPS], STEP_LRS[0])
+        torch.cuda.synchronize()
+        st = r["state"].opt_state
+        r.update(counts=read_counts(), out=out.cpu(), weights=host_copy(r["model"].state_dict()),
+                 moments=host_copy({**st.mu, **{f"nu.{k}": v for k, v in st.nu.items()}}),
+                 steps_taken=int(st.step), gen_state=r["gen"].get_state())
+        expect_counts(f"20b {mode}: {FILE_CHECK_STEPS} steps", r["counts"],
+                      {k: v * FILE_CHECK_STEPS for k, v in want.items()})
+    pil = modes["pil"]
+    diffs = {}
+    if "native" in modes:
+        nat = modes["native"]
+        diffs = {"losses_and_accuracies": first_difference({"o": nat["out"]}, {"o": pil["out"]}),
+                 "parameters_and_buffers": first_difference(nat["weights"], pil["weights"]),
+                 "moments": first_difference(nat["moments"], pil["moments"]),
+                 "step": "" if nat["steps_taken"] == pil["steps_taken"] else "differs",
+                 "generator": "" if torch.equal(nat["gen_state"], pil["gen_state"])
+                 else "differs"}
+    rates = decoder_turns(turn, tuple(modes), lambda i: epoch_perm(
+        pil["loader"], i, seed)[:STEP_TURN_ROWS], BATCH)
+    traced = {}
+    for mode, r in modes.items():
+        trace = traced_graphed_epoch(lambda: turn(mode, epoch_perm(r["loader"], 200, seed)[
+            :STEP_TRACED]), r["step"].compiled)
+        per_step = per_replay_counts(r["step"])
+        traced[mode] = dict(launches_per_replay_counted=per_step,
+                            launches_per_replay_traced=trace["launches_per_replay_traced"],
+                            **{k: trace[k] for k in ("window_ms", "device_busy_ms",
+                                                     "device_idle_share", "replays")},
+                            stats=dict(r["step"].compiled.stats))
+        if not per_step == trace["launches_per_replay_traced"] == {
+                name: want.get(name, 0) for name in per_step}:
+            raise AssertionError(f"20b {mode}: launches a replay {traced[mode]}, expected {want}")
+        if r["step"].compiled.stats["captures"] != 1:
+            raise AssertionError(f"20b {mode}: not one captured graph: {traced[mode]}")
+    res = dict(config="configs/person/vit_base.yml + SOLVER.FUSED_ADAM, host loader from "
+                      f"{len(pil['loader'].batcher.records)} JPEG files",
+               checked_steps=FILE_CHECK_STEPS, loss=float(pil["out"][0, 0]),
+               losses_finite=bool(torch.isfinite(pil["out"]).all()),
+               bit_for_bit={k: not v for k, v in diffs.items()}, rates=rates, traced=traced,
+               card=CARD_LINE)
+    log(f"  20b {json.dumps(res)}")
+    rate_line("20b host-loader train step from JPEG files, img/s (configs/person/vit_base.yml, "
+              f"batch {BATCH}, medians of 4 turns of {STEP_TURN_ROWS} steps; "
+              f"{os.cpu_count()} host CPUs)",
+              {**rates["median_per_s"],
+               **{f"idle_share_{m}": t["device_idle_share"] for m, t in traced.items()}})
+    bad = {k: v for k, v in diffs.items() if v}
+    if bad or not res["losses_finite"]:
+        raise AssertionError(f"20b: the native-decoded steps differ from the PIL-decoded ones, "
+                             f"or a loss is not finite: {bad} {res}")
+    for r in modes.values():
+        r["step"].release()
+    return dict(res=res, model=pil["model"])
+
+
+def files_eval(model, cfg, loaders: dict, num_query: int) -> dict:
+    """20c: ``run_validation`` over the query and gallery files, each decoder
+    twice in turns: the features of every batch, CMC and mAP bit for bit
+    between the decoders; feats/s."""
+    kept = []
+
+    class Kept(R1mAPEvaluator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+    depth = len(model.image_encoder.transformer.resblocks)
+    n_images = len(loaders["pil"].records)
+    n_batches = len(loaders["pil"])
+    modes = tuple(loaders)
+    order = (modes[0], modes[1], modes[1], modes[0]) if len(modes) == 2 else modes * 2
+    runs = {m: [] for m in modes}
+    real, processor.R1mAPEvaluator = processor.R1mAPEvaluator, Kept
+    try:
+        for mode in order:
+            torch.cuda.synchronize()
+            reset_counts()
+            (cmc, mAP), secs = timed(lambda: run_validation(cfg, model, loaders[mode], num_query))
+            counts = read_counts()
+            expect_counts(f"20c {mode} run_validation", counts,
+                          {"attention_fwd": depth * n_batches})
+            runs[mode].append(dict(feats=torch.cat(kept[-1].feats).float(), cmc=cmc, mAP=mAP,
+                                   feats_per_s=n_images / secs))
+    finally:
+        processor.R1mAPEvaluator = real
+    first = {m: r[0] for m, r in runs.items()}
+    base = first["pil"]
+    diffs = {}
+    if "native" in first:
+        nat = first["native"]
+        diffs = {"features": "" if torch.equal(nat["feats"], base["feats"]) else "differ",
+                 "cmc": "" if np.array_equal(nat["cmc"], base["cmc"]) else "differs",
+                 "mAP": "" if nat["mAP"] == base["mAP"] else f"{nat['mAP']!r} / {base['mAP']!r}"}
+    rates = {m: [r["feats_per_s"] for r in rs] for m, rs in runs.items()}
+    res = dict(images=n_images, query=num_query, batches=n_batches, order=" ".join(order),
+               feats_per_s=rates, median_feats_per_s={m: float(np.median(v))
+                                                      for m, v in rates.items()},
+               rank1=float(base["cmc"][0]), mAP=float(base["mAP"]),
+               features_finite=bool(torch.isfinite(base["feats"]).all()),
+               feature_shape=list(base["feats"].shape),
+               bit_for_bit={k: not v for k, v in diffs.items()}, launches=counts,
+               card=CARD_LINE)
+    log(f"  20c {json.dumps(res)}")
+    rate_line(f"20c run_validation from {n_images} JPEG files ({num_query} query), feats/s, "
+              f"medians of 2 runs, {os.cpu_count()} host CPUs", res["median_feats_per_s"])
+    bad = {k: v for k, v in diffs.items() if v}
+    if bad or not res["features_finite"] or base["feats"].shape[0] != n_images:
+        raise AssertionError(f"20c: the decoders' eval results differ, or the features are "
+                             f"not whole and finite: {bad} {res}")
+    return dict(res=res, feats=base["feats"])
+
+
+def files_rerank(feats: torch.Tensor, num_query: int) -> dict:
+    """20d: ``native/rerank.py`` on the host against the card's dense
+    ``re_ranking`` (one L1 kernel launch a call) at FILE_RERANK's query ×
+    gallery shape, both timed. (a) On seeded clustered features
+    (``clustered_feats``, four rows an identity, as real ReID features
+    spread), whose neighbour sets no rounding moves: held to RERANK_TOL.
+    (b) On 20c's normalised features: a random-weight model's features lie
+    in a narrow band of distances where neighbours tie at the k1 and k2
+    boundaries, and tie order then decides the sets (the native
+    re-ranker's ``std::partial_sort``, the dense one's lower index first;
+    the JAX package's own pair differs there as much). So the host-vs-card
+    difference is reported beside the host's native against the port's
+    dense re-ranking on the host's CPU (the same inputs, no card), and the
+    card's dense against the CPU's dense on the features rounded to
+    multiples of 2⁻¹⁰ (exact distance products, one tie order: see
+    ``rerank_entry``) is held to RERANK_TOL."""
+    from mpreid_tpu_torch.native import re_ranking_native
+    from mpreid_tpu_torch.ops.reranking import re_ranking
+
+    p = FILE_RERANK
+    q, g = p["q"], p["g"]
+
+    def rerank(x):
+        return re_ranking(x[:q], x[q:], k1=p["k1"], k2=p["k2"], lambda_value=p["lam"])
+
+    def host_and_card(x):
+        rerank(x)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        card, card_s = timed(lambda: rerank(x).cpu())
+        counts = read_counts()
+        expect_counts("20d dense re_ranking on the card", counts, {"l1_cross": 1})
+        t0 = time.perf_counter()
+        host = re_ranking_native(x[:q].cpu().numpy(), x[q:].cpu().numpy(), k1=p["k1"],
+                                 k2=p["k2"], lambda_value=p["lam"])
+        return host, card.numpy(), dict(
+            card_seconds=card_s, host_seconds=time.perf_counter() - t0, launches=counts,
+            host_vs_card_max_abs=float(np.abs(host - card.numpy()).max()),
+            finite=bool(np.isfinite(host).all() and np.isfinite(card.numpy()).all()))
+
+    seeded = torch.from_numpy(clustered_feats(q, g, (q + g) // 4, seed=3)[0]).to(CARD)
+    _, _, clustered = host_and_card(seeded)
+    f = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
+    f = torch.cat([f[:q], f[num_query:num_query + g]]).to(CARD)
+    host, _, real = host_and_card(f)
+    grid = torch.round(f * 1024) / 1024
+    real.update(host_vs_host_dense_max_abs=float(np.abs(host - rerank(f.cpu()).numpy()).max()),
+                grid_card_vs_cpu_dense_max_abs=float(
+                    (rerank(grid).cpu() - rerank(grid.cpu())).abs().max()),
+                rows_with_other_neighbours=neighbour_flips(f, p["k1"] + 1))
+    res = dict(shape=[q, g], dim=f.shape[1], k1=p["k1"], k2=p["k2"], lam=p["lam"],
+               tol=RERANK_TOL, cpu_count=os.cpu_count(), card=CARD_LINE,
+               clustered=clustered, features_20c=real)
+    log(f"  20d re-ranking, host (native) against the card (dense) {json.dumps(res)}")
+    if not (clustered["host_vs_card_max_abs"] <= RERANK_TOL
+            and real["grid_card_vs_cpu_dense_max_abs"] <= RERANK_TOL
+            and clustered["finite"] and real["finite"]):
+        raise AssertionError(f"20d: re-ranked distances differ: {res}")
+    return res
+
+
+def files_device_dataset(loaders: dict, images: np.ndarray) -> dict:
+    """20e: ``build_device_dataset`` (TPU.DEVICE_DATASET's uint8 train set on
+    the card) from the files, each decoder, held to 20a's bytes."""
+    out = {}
+    for mode, loader in loaders.items():
+        torch.cuda.synchronize()
+        data, secs = timed(lambda: build_device_dataset(loader, torch.device(CARD)))
+        out[mode] = dict(seconds=secs, images=list(data[0].shape),
+                         equal_to_20a=bool(np.array_equal(data[0].cpu().numpy(), images)))
+        del data
+    res = dict(cpu_count=os.cpu_count(), card=CARD_LINE, **out)
+    log(f"  20e build_device_dataset from the files {json.dumps(res)}")
+    if not all(o["equal_to_20a"] for o in out.values()):
+        raise AssertionError(f"20e: the device-resident set differs from the decoded bytes: {res}")
+    return res
+
+
+def run_from_files() -> dict:
+    """Phase 20 (module docstring): a synthetic Market-1501 tree of JPEG
+    files; 20a decode alone, 20b the host-loader train step, 20c
+    run_validation, 20d the native re-ranker against the card's, 20e the
+    device-resident set; each with the native decoder off and, where it
+    builds and self-checks on this host, on."""
+    from mpreid_tpu_torch.data import make_dataloader
+    from mpreid_tpu_torch.data.synthetic import make_market1501
+
+    probe = native_probe()
+    missing = [what for what, ok in (("g++", probe["gxx"]),
+                                     ("the libjpeg / libpng headers",
+                                      probe["jpeglib_and_png_headers"]),
+                                     ("Pillow", probe["pillow"])) if not ok]
+    res = dict(probe=probe, missing=missing)
+    if probe["pillow"] is None:
+        log(f"  20: {', '.join(missing)} missing on this host: no file can be written; 20a, "
+            f"20b, 20c, 20d, 20e did not run")
+        return res
+    modes = ("native", "pil") if probe["native_imageio"] else ("pil",)
+    skipped = [] if probe["native_imageio"] else ["20a", "20b", "20c", "20e"]
+    if not probe["native_rerank"]:
+        skipped.append("20d")
+    log(f"  20: native decode {probe['native_imageio']} on this host"
+        + (f" ({probe['native_imageio_why']}; missing: {', '.join(missing) or 'nothing'}): "
+           f"the PIL side of 20a, 20b, 20c, 20e ran, their native side did not"
+           if not probe["native_imageio"] else "")
+        + (f"; 20d did not run ({probe['native_rerank_why']})"
+           if not probe["native_rerank"] else ""))
+    res["native_side_not_run"] = skipped
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_market1501(tmp, n_ids=FILE_IDS, imgs_per_id=FILE_IMGS_PER_ID, size=FILE_SOURCE_HW,
+                        identity_signal=True)
+        res["tree_seconds"] = time.perf_counter() - t0
+        cfgs, loaders = {}, {}
+        for mode in modes:
+            cfg = vit_base_cfg()
+            cfg.DATASETS.ROOT_DIR = tmp
+            cfg.DATALOADER.NUM_WORKERS = FILE_WORKERS
+            cfg.DATALOADER.NATIVE_DECODE = mode == "native"
+            cfg.SOLVER.FUSED_ADAM = True
+            cfgs[mode], loaders[mode] = cfg, make_dataloader(cfg)
+        train, _, _, num_query, classes, cams, _ = loaders["pil"]
+        if classes != FILE_IDS or [b.native for m in modes for b in (
+                loaders[m][0].batcher, loaders[m][2])] != [m == "native" for m in modes
+                                                             for _ in (0, 1)]:
+            raise AssertionError(f"20: the tree's loaders: {classes} classes, decoders "
+                                 f"{[loaders[m][2].native for m in modes]} for {modes}")
+        log(f"  20 tree of {len(train.batcher.records)} train, {num_query} query and "
+            f"{len(loaders['pil'][2].records) - num_query} gallery JPEG files written in "
+            f"{res['tree_seconds']:.1f} s")
+        t0 = time.perf_counter()
+        decoded = files_decode(train.batcher.records, modes)
+        res["20a"] = decoded["res"]
+        model = make_model(cfgs["pil"], num_class=classes, camera_num=cams, view_num=1)
+        trained = files_train(model, cfgs["pil"], {m: loaders[m][0] for m in modes})
+        res["20b"], model = trained["res"], trained["model"]
+        evaluated = files_eval(model, cfgs["pil"], {m: loaders[m][2] for m in modes}, num_query)
+        res["20c"] = evaluated["res"]
+        release_eval_steps(model)
+        del model, trained
+        if probe["native_rerank"]:
+            res["20d"] = files_rerank(evaluated.pop("feats"), num_query)
+        res["20e"] = files_device_dataset({m: loaders[m][0] for m in modes},
+                                          decoded["images"])
+        res["seconds_20a_to_20e"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return res
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -5384,8 +5825,25 @@ def main() -> None:
         async_res = run_async_checkpoint(tmp)
     log(f"  remat and async-checkpoint phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("from image files (20a decode, 20b the host-loader train step, 20c run_validation, "
+        "20d the native re-ranker, 20e the device-resident set), DATALOADER.NATIVE_DECODE off "
+        "and on, full width:")
+    t0 = time.perf_counter()
+    files_res = run_from_files()
+    log(f"  from-files phase seconds {time.perf_counter() - t0:.1f}")
+
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    def files_launches(name):
+        """Phase 20's launches of kernel ``name`` on the PIL side (0 where a
+        sub-phase did not run): a replayed train step, one run_validation
+        over the files, the two dense re-rankings of 20d."""
+        b, c, d = (files_res.get(k) for k in ("20b", "20c", "20d"))
+        return {"per_replayed_train_step": b["traced"]["pil"]["launches_per_replay_traced"][name]
+                if b else 0, "run_validation": c["launches"][name] if c else 0,
+                "rerank_20d": sum(d[k]["launches"][name] for k in ("clustered", "features_20c"))
+                if d else 0}
 
     def pick(found, case, dtype="bfloat16"):  # the packed row
         return next(r for r in found
@@ -5415,6 +5873,7 @@ def main() -> None:
                                                 for k, v in ttpt_graph_res.items()},
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
+            "launches_from_files": files_launches(name),
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
             "launches_ttpt": {k: ttpt_res[k]["launches"][name] for k in ("tta", "ttpt")},
             "launches_margin": {k: margin_res[k]["launches"][name] for k in MARGIN_KINDS},
@@ -5494,6 +5953,7 @@ def main() -> None:
             "launches_per_replayed_step"]["adam"],
         "launches_per_replayed_compiled_step": step_res["18c_vit_fused_adam_on"][
             "launches_per_replayed_step"]["adam"],
+        "launches_from_files": files_launches("adam"),
         "bit_equal_repeats": all(r["bit_equal_repeat"] for r in adam_rows),
         "scalars": "[lr*mult, 1-b1^t, 1-b2^t] fp32, read from device memory",
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
@@ -5506,6 +5966,7 @@ def main() -> None:
         "replaces": "mpreid_tpu/ops/pallas_kernels.py:192",
         "launches": entry_res["launches"]["l1_cross"],
         "launches_market_dense": market_res["launches"]["l1_cross"],
+        "launches_from_files": files_launches("l1_cross"),
         "launches_dryrun": {r: v["l1_cross"] for r, v in mp_res["15c"]["launches"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in l1_rows),
         **timing(l1_rows[0]),

@@ -143,7 +143,7 @@ def get_default_cfg() -> CN:
     # Keep decoded uint8 images in RAM after first epoch (small datasets)
     _C.DATALOADER.CACHE_IMAGES = False
     # batch decode+resize in native C++ (libjpeg/libpng + PIL-exact bicubic,
-    # mpreid_tpu/native/imageio.cpp). 'auto' uses it when it builds and its
+    # mpreid_tpu_torch/native/imageio.cpp). 'auto' uses it when it builds and its
     # byte-parity self-check against PIL passes; True forces (with a warning
     # fallback), False keeps the threaded-PIL path.
     _C.DATALOADER.NATIVE_DECODE = "auto"

@@ -1,11 +1,16 @@
 """Host-side image loading feeding the device pipeline.
 
-ref mpreid_tpu/data/loader.py::ImageBatcher, ::make_dataloader. A copy of
-the PIL path: a thread pool decodes and bicubically resizes each image into
-uint8 numpy batches, and all augmentation and normalisation run on the
-device. The native C++ batch decoder of the JAX package is not carried
-over. Pillow is imported only inside the decoder, so the package imports
-without it. The factory keeps the reference's loader contract:
+ref mpreid_tpu/data/loader.py::ImageBatcher, ::make_dataloader. Each batch
+is decoded and bicubically resized into uint8 numpy arrays on the host, and
+all augmentation and normalisation run on the device. Two decoders give the
+same bytes: a thread pool over Pillow (``decode_resize``), and the native
+OpenMP batch decoder (``native/imageio.py``), one C call a batch, which
+``DATALOADER.NATIVE_DECODE`` chooses: ``'auto'`` takes it when it builds
+and passes its byte-for-byte self-check against Pillow, True asks for it
+(a warning, then Pillow, where it cannot), False keeps Pillow. A row the
+native decoder fails on is decoded by Pillow alone. Pillow is imported only
+inside the decoders, so the package imports without it. The factory keeps
+the reference's loader contract:
 
     make_dataloader(cfg) → (train_loader_stage2, train_loader_stage1,
                             val_loader, num_query, num_classes,
@@ -51,21 +56,39 @@ def decode_resize(path: str, size_hw) -> np.ndarray:
         return np.zeros((h, w, 3), np.uint8)
 
 
+def use_native_decode(native) -> bool:
+    """Whether a batcher takes the native decoder (``DATALOADER.NATIVE_DECODE``):
+    ``'auto'`` when it builds and self-checks on this host; True the same,
+    with a warning where it cannot; False never."""
+    if native != "auto" and not native:
+        return False
+    from mpreid_tpu_torch.native.imageio import native_imageio_available, why_unavailable
+
+    if native_imageio_available():
+        return True
+    if native != "auto":
+        logger.warning("DATALOADER.NATIVE_DECODE requested but the native imageio library is "
+                       "unavailable (%s); using the PIL path", why_unavailable())
+    return False
+
+
 class ImageBatcher:
-    """Threaded decode of record batches into fixed-size numpy batches."""
+    """Threaded (or native batch) decode of record batches into fixed-size
+    numpy batches."""
 
     def __init__(self, records: Sequence[Record], size_hw, batch_size: int,
-                 num_workers: int = 8, cache=False):
+                 num_workers: int = 8, cache=False, native="auto"):
         self.records = list(records)
         self.size_hw = tuple(size_hw)
         self.batch_size = batch_size
+        self.native = use_native_decode(native)
         self._num_workers = max(1, num_workers)
-        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool: Optional[ThreadPoolExecutor] = None  # made on first use: native never does
         # a dedicated prefetch thread assembles batches; decode tasks go to
         # the worker pool (one shared pool would deadlock)
         self.prefetcher = ThreadPoolExecutor(max_workers=1)
-        # optional decoded-uint8 cache; pass a dict to share it between
-        # batchers over the same records
+        # optional decoded-uint8 cache, keyed by (path, size); pass a dict to
+        # share it between batchers (and decoders) over the same records
         if isinstance(cache, dict):
             self._cache: Optional[dict] = cache
         else:
@@ -80,6 +103,33 @@ class ImageBatcher:
             self._cache[key] = img
         return img
 
+    def _decode_batch_native(self, recs: Sequence[Record]) -> list:
+        """One native call for the records the cache lacks; a row it fails
+        on is decoded by Pillow."""
+        from mpreid_tpu_torch.native.imageio import decode_resize_batch_native
+
+        images: list = [None] * len(recs)
+        miss = []
+        for i, r in enumerate(recs):
+            hit = None if self._cache is None else self._cache.get((r[0], self.size_hw))
+            if hit is None:
+                miss.append(i)
+            else:
+                images[i] = hit
+        if miss:
+            batch, status = decode_resize_batch_native([recs[i][0] for i in miss], self.size_hw)
+            for j, i in enumerate(miss):
+                if status[j] == 0:
+                    # a cached row is copied out: a view would pin the whole
+                    # batch buffer and share writable memory with the batch
+                    img = np.array(batch[j]) if self._cache is not None else batch[j]
+                else:
+                    img = decode_resize(recs[i][0], self.size_hw)
+                images[i] = img
+                if self._cache is not None:
+                    self._cache[(recs[i][0], self.size_hw)] = img
+        return images
+
     def __len__(self):
         return (len(self.records) + self.batch_size - 1) // self.batch_size
 
@@ -90,6 +140,10 @@ class ImageBatcher:
         return self._pool
 
     def decode_records(self, recs: Sequence[Record]) -> list:
+        """Decode any records through the active path (native batch call or
+        Pillow thread pool): the one entry point for callers outside."""
+        if self.native:
+            return self._decode_batch_native(recs)
         return list(self.pool.map(self._decode, recs))
 
     def _load_batch(self, indices: Sequence[int]) -> Dict:
@@ -225,8 +279,9 @@ def make_dataloader(cfg, dataset: Optional[ReIDDataset] = None):
 
     # one shared decode cache for both train batchers (same records/size)
     cache = {} if cfg.DATALOADER.CACHE_IMAGES else False
+    native = cfg.DATALOADER.NATIVE_DECODE
     train_batcher = ImageBatcher(dataset.train, size_train, stage2_bs, num_workers,
-                                 cache=cache)
+                                 cache=cache, native=native)
     if "triplet" in cfg.DATALOADER.SAMPLER:
         sampler = RandomIdentitySampler(
             dataset.train, stage2_bs, cfg.DATALOADER.NUM_INSTANCE, seed=cfg.SOLVER.SEED
@@ -238,12 +293,12 @@ def make_dataloader(cfg, dataset: Optional[ReIDDataset] = None):
         raise ValueError(f"unsupported sampler {cfg.DATALOADER.SAMPLER!r}")
 
     stage1_batcher = ImageBatcher(dataset.train, size_train, stage1_bs, num_workers,
-                                  cache=cache)
+                                  cache=cache, native=native)
     train_loader_stage1 = ShuffledLoader(stage1_batcher, cfg.SOLVER.SEED)
 
     val_records = list(dataset.query) + list(dataset.gallery)
     val_loader = ImageBatcher(val_records, size_test, cfg.TEST.IMS_PER_BATCH,
-                              num_workers, cache=cache)
+                              num_workers, cache=cache, native=native)
 
     return (
         train_loader_stage2,

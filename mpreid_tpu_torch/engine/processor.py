@@ -58,8 +58,9 @@ nothing, as in the JAX package (``check_tpu_keys`` logs so), and so does
 
 ``TPU.ASYNC_CHECKPOINT`` writes each checkpoint on a background thread
 (``utils/checkpoint.py``); ``do_train`` joins the last write before it
-returns. ``TPU.COMPILE_CACHE_DIR`` and ``DATALOADER.NATIVE_DECODE`` mean
-nothing here: the entry points log them (``log_inert_keys``).
+returns. ``TPU.COMPILE_CACHE_DIR`` means nothing here: the entry points
+log it (``log_inert_keys``). ``DATALOADER.NATIVE_DECODE`` chooses the
+loader's decoder (``data/loader.py``).
 """
 
 from __future__ import annotations
@@ -101,8 +102,6 @@ TRACE_FILE = "trace.json"  # the profiler trace's name in TPU.PROFILE_DIR
 INERT_KEYS = (
     ("TPU", "COMPILE_CACHE_DIR", "",
      "it is XLA's compile cache; the port's kernels build into mpreid_tpu_torch/kernels/_build/"),
-    ("DATALOADER", "NATIVE_DECODE", "auto",
-     "the JAX package's native image decoder is not carried over; PIL decodes"),
 )
 
 

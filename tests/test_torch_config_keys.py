@@ -9,7 +9,8 @@ syntax tree, so docstrings and comments do not count: an attribute
 the port reads some keys through a node it was handed, as
 ``solver/schedules.py`` reads ``stage_cfg.BASE_LR``), or stand in
 ``engine/processor.py::INERT_KEYS``, the keys the port logs as doing
-nothing, and not both. ``TPU.REMAT`` and ``TPU.ASYNC_CHECKPOINT`` must
+nothing, and not both; ``DATALOADER.NATIVE_DECODE`` is read, and picks
+each batcher's decoder. ``TPU.REMAT`` and ``TPU.ASYNC_CHECKPOINT`` must
 be read, not logged: a config that set either ran in the port as though it did not.
 Each key of ``INERT_KEYS``, set, logs one line at the entry points' common
 start (``train.py::start``), and nothing when left at its default.
@@ -102,9 +103,7 @@ def _start_logs(cfg, tmp_path) -> list:
     return [m for m in records if "does nothing in the port" in m]
 
 
-@pytest.mark.parametrize("node,key,value", [("TPU", "COMPILE_CACHE_DIR", "xla_cache"),
-                                            ("DATALOADER", "NATIVE_DECODE", True),
-                                            ("DATALOADER", "NATIVE_DECODE", False)])
+@pytest.mark.parametrize("node,key,value", [("TPU", "COMPILE_CACHE_DIR", "xla_cache")])
 def test_each_inert_key_logs_one_line_when_set(tmp_path, node, key, value):
     assert (node, key) in INERT
     cfg = get_default_cfg()
@@ -121,3 +120,26 @@ def test_the_inert_keys_log_nothing_at_their_defaults(tmp_path):
     cfg.merge_from_file(str(REPO / "configs" / "tpu" / "uniprompt_tuned.yml"))
     cfg.MODEL.DEVICE = "cpu"
     assert [m.split(" ")[0] for m in _start_logs(cfg, tmp_path)] == ["TPU.COMPILE_CACHE_DIR"]
+
+
+@pytest.mark.parametrize("value", [True, False, "auto"])
+def test_native_decode_picks_the_path_of_every_batcher(tmp_path, value):
+    """``DATALOADER.NATIVE_DECODE`` is read, not logged: ``make_dataloader``
+    hands it to the stage-2, stage-1 and val batchers, which take the native
+    decoder under True and ``'auto'`` where it builds and self-checks, and
+    Pillow under False."""
+    from mpreid_tpu_torch.data import make_dataloader
+    from mpreid_tpu_torch.data.synthetic import make_market1501
+    from mpreid_tpu_torch.native.imageio import native_imageio_available
+
+    assert ("DATALOADER", "NATIVE_DECODE") not in INERT and "NATIVE_DECODE" in PORT_READS
+    make_market1501(str(tmp_path / "market"), n_ids=4, imgs_per_id=4)
+    cfg = get_default_cfg()
+    cfg.MODEL.DEVICE = "cpu"
+    cfg.DATASETS.NAMES, cfg.DATASETS.ROOT_DIR = "market1501", str(tmp_path / "market")
+    cfg.DATALOADER.SAMPLER, cfg.DATALOADER.NUM_INSTANCE = "softmax_triplet", 4
+    cfg.DATALOADER.NATIVE_DECODE = value
+    assert _start_logs(cfg, tmp_path / "out") == []
+    stage2, stage1, val, *_ = make_dataloader(cfg)
+    want = bool(value) and native_imageio_available()
+    assert [b.native for b in (stage2.batcher, stage1.batcher, val)] == [want] * 3

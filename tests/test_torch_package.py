@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax_or_optional_packages():
             "mpreid_tpu_torch.parallel", "mpreid_tpu_torch.parallel.dist",
             "mpreid_tpu_torch.parallel.collectives", "mpreid_tpu_torch.parallel.mesh",
             "mpreid_tpu_torch.parallel.zero", "mpreid_tpu_torch.parallel.sharded_eval",
-            "mpreid_tpu_torch.parallel.launch"} <= set(MODULES)
+            "mpreid_tpu_torch.parallel.launch", "mpreid_tpu_torch.native",
+            "mpreid_tpu_torch.native.build", "mpreid_tpu_torch.native.imageio",
+            "mpreid_tpu_torch.native.rerank"} <= set(MODULES)
 
 
 def test_chip_smoke_imports_without_jax_and_builds_every_source():
