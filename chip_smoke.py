@@ -193,7 +193,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    (``torch.equal``): (a) ``run_validation`` on configs/person/vit_base.yml
    at Market-1501's query + gallery size (3,368 + 15,913 seeded images,
    batch 64, the last batch padded): every batch's features, CMC and mAP,
-   the step kept in the eval cache; (b) ``build_image_bank`` (4,096 images)
+   the step kept in the eval cache (its rates timed over the first 76
+   batches); (b) ``build_image_bank`` (4,096 images)
    and ``precompute_text_features`` (1,000 classes: 15 replayable widths and
    an eager tail of 40) on configs/ours/cctv_ir_cctv_rgb.yml; (c) the train
    step over host batches of phase 11's loader, as ``train_epochs`` feeds
@@ -243,7 +244,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    native against both reported: neighbours tie there); (e)
    ``build_device_dataset`` from the files, held to (a)'s bytes. Where the
    native decoder cannot build, one line says what is missing and that
-   its side of (a), (b), (c), (e) did not run.
+   its side of (a), (b), (c), (e) did not run;
+21. the measured programs of ``mpreid_tpu_torch/utils/benchkit.py`` (the
+   port of the JAX package's ``utils/benchkit.py``, which bench.py and
+   tools/bench_*.py time) at bench.py's full-run widths, on
+   ``uniprompt_env()`` (ViT-B/16 + the 12 × 512 text tower, 1,000 classes,
+   256×128, bf16, seed 0) and ``rn50_env()`` (seed 1): (a, b) the stage-1a
+   and 1b epoch windows (``stage1_harness`` + ``epoch_window``, 50 × 64
+   bank rows), (c) the stage-2a step window (``stage2_harness`` +
+   ``step_window``, 20 steps of 64), (d) the ViT eval scan (40 forwards of
+   128) and (e) the TTA scan (10 of 128), (f) ``do_inference_tta`` over a
+   ``SyntheticValLoader`` of 4 + 4 batches of 128 on the card, (g) the RN50
+   baseline step window (``baseline_harness``, 20 of 64) and (h) the RN50
+   eval scan. Each is timed by ``benchkit.best_of`` over 2 windows after the
+   runner's own warm-up (so the windows timed only replay), with each
+   window's kernel launches held to the program's (the counters set to 0
+   before each); the capture's seconds and the graph pool's bytes
+   reported apart; the step counter equal to the windows × the steps of a
+   window; a scan's timed windows equal bit for bit and equal to the same
+   chained forwards run eagerly; ``do_inference_tta``'s ranks the same in
+   every window; and the memory allocated after ``benchkit.release`` within
+   1 MiB of its level before the harness.
 
 Phase 12 runs after phase 8 (on its model), phase 19 after phase 12 (on
 its model), phase 13 after phase 6 and
@@ -336,6 +357,7 @@ from mpreid_tpu_torch.ops.reranking import smallest_k
 from mpreid_tpu_torch.ops.reranking_sparse import re_ranking_sparse_rows
 from mpreid_tpu_torch.ops.augment import eval_preprocess
 from mpreid_tpu_torch.solver import make_optimizer, make_scheduler
+from mpreid_tpu_torch.utils import benchkit
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 and bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -4618,6 +4640,7 @@ STEP_CHECK_ROWS = 3  # checked train steps at each of STEP_LRS: two warm-up, a c
 STEP_LRS = (1e-4, 3e-5)
 STEP_TURN_ROWS = 8  # train steps a timed turn
 STEP_TRACED = 4  # replays a traced run
+EVAL_TURN_BATCHES = 76  # 18a's batches a timed turn: a quarter of Market-1501's 302
 STAGE1_TAIL = 40  # rows of stage 1's trailing partial batch (a bank of 4,096 + 40)
 STAGE1_TAIL_EPOCHS = 4
 
@@ -4699,7 +4722,7 @@ def compiled_eval() -> dict:
     """18a: ``run_validation`` on configs/person/vit_base.yml at Market-1501's
     query + gallery size, batch 64, the last batch padded: every batch's
     features, CMC and mAP against the eager body's bit for bit; the eval
-    feats/s of both modes in turns."""
+    feats/s of both modes in turns over the first EVAL_TURN_BATCHES batches."""
     cfg = vit_base_cfg()
     model = make_model(cfg, num_class=NUM_CLASSES, camera_num=6, view_num=1)
     depth = len(model.image_encoder.transformer.resblocks)
@@ -4747,7 +4770,7 @@ def compiled_eval() -> dict:
     del kept, reference
     res = step_case(f"18a run_validation, configs/person/vit_base.yml, Market-1501 query + "
                     f"gallery ({MARKET['q']} + {MARKET['g']}), batch {BATCH}, padded tail",
-                    step, eager, list(loader.iter_sequential()), "feats/s",
+                    step, eager, list(loader.iter_sequential())[:EVAL_TURN_BATCHES], "feats/s",
                     len(pids) / n_batches,
                     {"attention_fwd": depth}, diffs, counts, n_batches,
                     dict(step.compiled.stats), dict(run_validation_seconds=secs,
@@ -5625,6 +5648,221 @@ def run_from_files() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the measured programs (utils/benchkit.py) at bench.py's widths
+# ---------------------------------------------------------------------------
+
+# bench.py's full-run sizes (bench.py:262-268; its TTA section's loader,
+# :819): 1,000 classes, batch 64, stage-1 epochs of 50 rows, step windows of
+# 20 steps, eval scans of 40 forwards of 128, the TTA scan 10 of 128, 4 + 4
+# val batches of 128
+BENCH = dict(classes=1000, batch=64, stage1_iters=50, step_iters=20, eval_batch=128,
+             eval_iters=40, tta_iters=10, val_batches=(4, 4))
+BENCH_WINDOWS = 2  # the windows best_of times, as bench.py's
+BENCH_MEMORY_SLACK = 2 ** 20  # bytes a released harness may leave allocated
+
+
+def allocated() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def prime_streams() -> None:
+    """Make the cuBLAS and cuBLASLt workspaces of the current stream and of
+    the compiled steps' side stream, which the first product of each kind
+    on a stream allocates and the process keeps (32 MiB each on this card):
+    phase 21's memory checks then see only what a harness holds."""
+    from mpreid_tpu_torch.engine.compiled import side_stream
+
+    device = torch.device(CARD, torch.cuda.current_device())
+    for stream in (torch.cuda.current_stream(device), side_stream(device)):
+        with torch.cuda.stream(stream):
+            for dtype in (torch.bfloat16, torch.float32):
+                w = torch.ones(64, 64, device=device, dtype=dtype, requires_grad=True)
+                b = torch.ones(64, device=device, dtype=dtype, requires_grad=True)
+                x = torch.ones(8, 64, device=device, dtype=dtype)
+                F.linear(x, w, b).float().sum().backward()  # addmm (Lt), mm
+                torch.bmm(x[None], w[None]).sum().item()
+    torch.cuda.synchronize()
+
+
+def bench_best_of(what: str, run, per_window: dict) -> dict:
+    """``benchkit.best_of(run)`` over BENCH_WINDOWS windows after the
+    runner's own warm-up; every window's kernel launches (the warm-up's
+    too) held to ``per_window``, the counters set to 0 before each."""
+    seconds = []
+
+    def counted():
+        reset_counts()
+        secs = run()
+        expect_counts(f"21 {what}, window {len(seconds) + 1}", read_counts(), per_window)
+        seconds.append(secs)
+        return secs
+
+    counted.warmup = run.warmup
+    best = benchkit.best_of(counted, windows=BENCH_WINDOWS)
+    return dict(best_s=best, window_s=seconds, warmup_windows=run.warmup,
+                launches_per_window={k: per_window.get(k, 0) for k in COUNTED})
+
+
+def bench_report(case: str, what: str, timing: dict, items: int, unit: str, stats: dict,
+                 before: int, extra: dict) -> dict:
+    """Phase 21's report of one program: its rate over the best window,
+    the capture's seconds and the graph pool's bytes apart from it, and the
+    memory allocated before the harness and after its release, which must
+    agree to BENCH_MEMORY_SLACK; every compiled runner captured once."""
+    after = allocated()
+    res = dict(case=case, program=what, rate=items / timing["best_s"], unit=unit,
+               items_per_window=items, **timing, graph=stats, allocated_before=before,
+               allocated_after_release=after, card=CARD_LINE, **extra)
+    log(f"  21 {json.dumps(res)}")
+    rate_line(f"21 {case} {what}: best of {BENCH_WINDOWS} windows after "
+              f"{timing['warmup_windows']} ({unit})",
+              dict(rate=res["rate"], capture_seconds=stats["capture_seconds"],
+                   graph_pool_gb=stats["pool_bytes"] / 1e9,
+                   allocated_after_release_minus_before=after - before))
+    if stats["captures"] != 1 or stats["pool_bytes"] <= 0:
+        raise AssertionError(f"21 {case}: not one captured graph: {stats}")
+    if after - before > BENCH_MEMORY_SLACK:
+        raise AssertionError(f"21 {case}: {after - before} bytes still allocated after release")
+    return res
+
+
+def bench_epochs(cfg, model, stage: str) -> dict:
+    """21a / 21b: ``stage1_harness`` + ``epoch_window``, stage 1a or 1b."""
+    iters, batch = BENCH["stage1_iters"], BENCH["batch"]
+    depth = len(model.text_encoder.transformer.resblocks)
+    before = allocated()
+    h = benchkit.stage1_harness(cfg, model, stage=stage, iters=iters, batch=batch,
+                                num_classes=BENCH["classes"],
+                                embed_dim=model.clip_config.embed_dim,
+                                random_views=stage == "1b", rng=np.random.RandomState(0))
+    timing = bench_best_of(f"stage {stage} epoch", benchkit.epoch_window(h),
+                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters})
+    steps, losses = int(h["state"].opt_state.step), h["losses"].tolist()
+    if steps != len(timing["window_s"]) * iters or not np.isfinite(losses).all():
+        raise AssertionError(f"21 stage {stage}: step {steps} after {timing['window_s']} "
+                             f"windows of {iters}, losses {losses}")
+    stats = benchkit.graph_stats(h)
+    benchkit.release(h)
+    return bench_report("21a" if stage == "1a" else "21b",
+                        f"stage-{stage} epoch window ({iters} × {batch} bank rows, "
+                        f"{BENCH['classes']} classes)", timing, iters * batch, "bank rows/s",
+                        stats, before, dict(step=steps, last_losses=losses[-3:]))
+
+
+def bench_steps(case: str, what: str, h, before: int, depth: int) -> dict:
+    """21c / 21g: ``step_window`` over a built harness."""
+    iters = BENCH["step_iters"]
+    timing = bench_best_of(what, benchkit.step_window(h, iters=iters),
+                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters})
+    steps, loss = int(h["state"].opt_state.step), float(h["metrics"]["loss"])
+    if steps != len(timing["window_s"]) * iters or not np.isfinite(loss):
+        raise AssertionError(f"21 {case}: step {steps} after {timing['window_s']} windows of "
+                             f"{iters}, loss {loss}")
+    stats = benchkit.graph_stats(h)
+    benchkit.release(h)
+    return bench_report(case, f"{what} step window ({iters} steps, batch {BENCH['batch']})",
+                        timing, iters * BENCH["batch"], "img/s", stats, before,
+                        dict(step=steps, last_loss=loss))
+
+
+def bench_scan(case: str, what: str, make, cfg, model, iters: int, per_forward: int) -> dict:
+    """21d / 21e / 21h: an eval or TTA scan; its timed windows' values equal
+    bit for bit, and equal to the same chained forwards run eagerly."""
+    before = allocated()
+    scan = make(cfg, model, batch=BENCH["eval_batch"], iters=iters, rng=np.random.RandomState(0))
+    values = []
+
+    def run():
+        values.append(scan())
+
+    run.warmup = scan.warmup
+    per_window = {"attention_fwd": per_forward * iters}
+    timing = bench_best_of(what, benchkit.timed(run), per_window)
+    reset_counts()
+    eager = scan.eager()
+    expect_counts(f"21 {case} eager window", read_counts(), per_window)
+    timed_values = values[-BENCH_WINDOWS:]
+    if not (np.isfinite(eager) and all(v == eager for v in timed_values)):
+        raise AssertionError(f"21 {case}: window values {values}, eager {eager}")
+    stats = benchkit.graph_stats(scan)
+    benchkit.release(scan)
+    return bench_report(case, f"{what} ({iters} forwards of {BENCH['eval_batch']})", timing,
+                        iters * BENCH["eval_batch"], "img/s", stats, before,
+                        dict(window_values=values, eager_value=eager,
+                             warmup_window_equal=values[0] == eager))
+
+
+def bench_tta_inference(cfg, model) -> dict:
+    """21f: ``do_inference_tta`` over a ``SyntheticValLoader`` (its images
+    on the card), timed as bench.py's TTA section."""
+    nq, ng = BENCH["val_batches"]
+    depth = len(model.image_encoder.transformer.resblocks)
+    before = allocated()
+    loader = benchkit.SyntheticValLoader(cfg, nq, ng, BENCH["eval_batch"],
+                                         rng=np.random.RandomState(3))
+    ranks = []
+
+    def run():
+        ranks.append(ttpt_engine.do_inference_tta(cfg, model, loader, loader.num_query))
+
+    run.warmup = benchkit.warmup_windows(min(nq, ng))  # the query and plain steps' calls
+    timing = bench_best_of("do_inference_tta", benchkit.timed(run),
+                           {"attention_fwd": depth * (4 * nq + ng)})
+    if len(set(ranks)) != 1 or not all(np.isfinite(ranks[0])):
+        raise AssertionError(f"21f: ranks {ranks}")
+    steps = [ttpt_engine.cached_tta_query_step(model, cfg),
+             processor.cached_eval_step(model, cfg, feat_norm=cfg.TEST.FEAT_NORM == "yes")]
+    each = [benchkit.graph_stats(s) for s in steps]
+    stats = {k: sum(e[k] for e in each) for k in each[0]}
+    stats["captures"] = max(e["captures"] for e in each)  # one a step
+    if [e["captures"] for e in each] != [1, 1]:
+        raise AssertionError(f"21f: the query and plain steps captured {each}")
+    release_eval_steps(model)
+    del loader
+    return bench_report("21f", f"do_inference_tta over SyntheticValLoader ({nq} + {ng} "
+                        f"batches of {BENCH['eval_batch']} on the card)", timing,
+                        (nq + ng) * BENCH["eval_batch"], "query + gallery img/s", stats,
+                        before, dict(ranks=ranks[0], steps={"tta_query": each[0],
+                                                            "plain": each[1]}))
+
+
+def run_benchkit() -> dict:
+    """Phase 21 (module docstring): the port's ``utils/benchkit.py`` at
+    bench.py's widths on seeded weights."""
+    prime_streams()
+    t0 = time.perf_counter()
+    cfg, model = benchkit.uniprompt_env(num_classes=BENCH["classes"])
+    vdepth = len(model.image_encoder.transformer.resblocks)
+    log(f"  21 uniprompt_env: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"{cfg.TPU.COMPUTE_DTYPE}, set up in {time.perf_counter() - t0:.1f} s")
+    out = {"21a": bench_epochs(cfg, model, "1a"), "21b": bench_epochs(cfg, model, "1b")}
+    before = allocated()
+    h = benchkit.stage2_harness(cfg, model, num_classes=BENCH["classes"], batch=BENCH["batch"],
+                                embed_dim=model.clip_config.embed_dim)
+    out["21c"] = bench_steps("21c", "stage-2a", h, before, vdepth)
+    out["21d"] = bench_scan("21d", "ViT-B/16 eval scan", benchkit.make_eval_scan, cfg, model,
+                            BENCH["eval_iters"], vdepth)
+    out["21e"] = bench_scan("21e", "TTA scan", benchkit.make_tta_scan, cfg, model,
+                            BENCH["tta_iters"], 4 * vdepth)
+    out["21f"] = bench_tta_inference(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = benchkit.rn50_env(num_classes=BENCH["classes"])
+    log(f"  21 rn50_env: {sum(p.numel() for p in model.parameters())} parameters, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = allocated()
+    h = benchkit.baseline_harness(cfg, model, num_classes=BENCH["classes"], batch=BENCH["batch"])
+    out["21g"] = bench_steps("21g", "RN50 baseline", h, before, 0)
+    out["21h"] = bench_scan("21h", "RN50 eval scan", benchkit.make_eval_scan, cfg, model,
+                            BENCH["eval_iters"], 0)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def expect_dp_counts(what: str, run: dict, want: dict) -> None:
     """A spawned rank's launch counts as ``want`` says (0 where it says
     nothing), every attention launch on "tc" (the runs are bf16)."""
@@ -5832,6 +6070,13 @@ def main() -> None:
     files_res = run_from_files()
     log(f"  from-files phase seconds {time.perf_counter() - t0:.1f}")
 
+    log("the measured programs of mpreid_tpu_torch/utils/benchkit.py at bench.py's widths (21a-b "
+        "stage-1 epochs, 21c stage-2a steps, 21d-e eval and TTA scans, 21f do_inference_tta, "
+        "21g-h RN50), best of 2 windows after each runner's warm-up:")
+    t0 = time.perf_counter()
+    bench_res = run_benchkit()
+    log(f"  benchkit phase seconds {time.perf_counter() - t0:.1f}")
+
     def timing(row):
         return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
@@ -5874,6 +6119,8 @@ def main() -> None:
             "launches_moe": {k: moe_res[k]["launches"][name]
                              for k in ("stage2a", "stage2b", "inference")},
             "launches_from_files": files_launches(name),
+            "launches_benchkit_per_window": {k: v["launches_per_window"][name]
+                                             for k, v in bench_res.items()},
             "launches_rn50_uniprompt": {k: v[name] for k, v in rn50_uni["launches"].items()},
             "launches_ttpt": {k: ttpt_res[k]["launches"][name] for k in ("tta", "ttpt")},
             "launches_margin": {k: margin_res[k]["launches"][name] for k in MARGIN_KINDS},
@@ -5954,6 +6201,8 @@ def main() -> None:
         "launches_per_replayed_compiled_step": step_res["18c_vit_fused_adam_on"][
             "launches_per_replayed_step"]["adam"],
         "launches_from_files": files_launches("adam"),
+        "launches_benchkit_per_window": {k: v["launches_per_window"]["adam"]
+                                         for k, v in bench_res.items()},
         "bit_equal_repeats": all(r["bit_equal_repeat"] for r in adam_rows),
         "scalars": "[lr*mult, 1-b1^t, 1-b2^t] fp32, read from device memory",
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),

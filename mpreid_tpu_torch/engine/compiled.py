@@ -52,7 +52,8 @@ How a step is captured:
   its own thread (host tensors only) cannot fail it. The capture runs the
   body's Python once and no kernel; it changes no host state but the
   kernels' launch counters, which are put back and then counted again for
-  every replay (``COUNTED``).
+  every replay (``COUNTED``). A runner's ``capture_seconds`` sums the host
+  time of its captures (instantiation included), apart from any replay.
 
 One graph at a time per runner: a new key that captures (a model rebuilt
 by ``switch_to_moe``, parameters given new storage, another batch width)
@@ -74,6 +75,7 @@ so the CPU tests cover all of it but the capture itself.
 
 from __future__ import annotations
 
+import time
 from contextlib import nullcontext
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -161,6 +163,7 @@ class _Graphed:
         self.draws: Optional[RematDraws] = None
         self.per_replay = None
         self.stats = dict(captures=0, replays=0, eager_steps=0, pool_bytes=0)
+        self.capture_seconds = 0.0  # host seconds spent capturing, over every capture
 
     def release(self) -> None:
         """Drop the graph, its static tensors and its memory pool."""
@@ -200,6 +203,7 @@ class _Graphed:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first: what it adds is the pool
         reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         if gen is not None:
             draws = draws if draws is not None else RematDraws(gen)
@@ -216,6 +220,7 @@ class _Graphed:
         _add_counts({k: -c for k, c in self.per_replay.items()})  # the capture launched none
         self.graph, self.key, self.static = graph, key, static
         self.draws = draws if draws is not None and draws.clones else None
+        self.capture_seconds += time.perf_counter() - t0
         self.stats["pool_bytes"] = torch.cuda.memory_reserved(self.device) - reserved
 
     def _replay(self) -> None:
