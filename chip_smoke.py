@@ -11,14 +11,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    the plain version, one library call computing the same function, and the
    bound (the least time the card could take for the same work): the
    attention forward and backward (bf16 on the tensor-core kernels at the
-   vision, text and 256×256 vehicle shapes, fp32 on the kernels that take
+   vision, text and 256×256 vehicle shapes and at L 442 (256×256 at stride
+   12, which the backward streams in chunks), untimed at L 1,000 (dh 64) and
+   L 600 (dh 128), where both stream; fp32 on the kernels that take
    each product on the tensor cores in three TF32 passes at the vision and
    causal text shapes, at L 163 (configs/cross/sysu_rgb2ir.yml), L 257 and
    L 442 (256×256 at stride 12), both layouts, each fp32 launch repeated
    and held bit-equal to the first, with a second bound at the TF32 rate
    (``bound_tc_ms``); the ptxas report of the attention sources, which must
-   show no spills: the fp32 sources at any head width, the bf16 ones at dh
-   64)
+   show no spills: the fp32 sources at any head width, the bf16 ones
+   (whole-sequence and chunked instances) at dh 64)
    and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW;
    its step scalars [lr·mult, 1 − b1^t, 1 − b2^t] read from device memory;
    two launches bit-equal); the L1 and min-sum kernels; the batch-hard
@@ -39,6 +41,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    Adam kernel's launches, and one fused update against the plain one; then
    three train steps of configs/veri/vit_base.yml (ViT-B/16 at 256×256, L
    257, 576 classes), whose attention backward an earlier fp32 kernel refused;
+   then three of the same configuration at ``MODEL.STRIDE_SIZE [12, 12]`` (L
+   442, which the bf16 backward refused before it streamed the sequence),
+   all attention launches on "tc", a train step's gradients in bf16 against
+   fp32 on the card (cosine, held to the same through the plain attention),
+   and one ``do_inference`` over 64 + 64 images;
 6. cross-checks: eval features and a train step's loss and gradients in
    fp32 on the card against fp32 on the CPU, and bf16 against fp32 on the
    card;
@@ -391,14 +398,25 @@ CHECK_BATCH = 8  # cross-check batch, 2 ids × 4
 GRAD_RTOL = 1e-3  # fp32 card vs CPU, per leaf, norm-relative (floored)
 LOSS_RTOL = 1e-4
 COSINE_FLOOR = 0.99
+# stride 12 (L 442): the bf16 gradients through the kernels against those
+# through the plain attention, each against fp32: at most this many times
+# the plain path's 1 - cosine over the large leaves together, and the lowest
+# single leaf at most LEAF_MARGIN under the plain path's lowest (about twice
+# the gap seen either way between the two, 0.0029)
+PLAIN_GAP_RATIO = 2.0
+LEAF_MARGIN = 0.006
 VISION = dict(name="vision", b=BATCH, l=129, heads=12, dh=64, masked=False)
 TEXT = dict(name="text", b=BATCH, l=77, heads=8, dh=64, masked=True)
 VEHICLE = dict(name="vehicle", b=BATCH, l=257, heads=12, dh=64, masked=False)
 # configs/cross/sysu_rgb2ir.yml: 288x144 at stride 16, so L 163 (fp32 backward)
 SYSU = dict(name="sysu", b=BATCH, l=163, heads=12, dh=64, masked=False)
-# 256x256 at MODEL.STRIDE_SIZE [12, 12]: 21 x 21 patches + 1, L 442 (fp32 only:
-# the bf16 kernels stop at L 384)
+# 256x256 at MODEL.STRIDE_SIZE [12, 12]: 21 x 21 patches + 1, L 442, past the
+# 384 rows the bf16 backward stages whole (it streams them)
 STRIDE12 = dict(name="stride12", b=BATCH, l=442, heads=12, dh=64, masked=False)
+# untimed bf16 checks past the rows each bf16 kernel stages whole (800 / 384
+# at dh 64, forward / backward; 416 / 208 at dh 128): several chunks each
+LONG64 = dict(name="long64", b=4, l=1000, heads=12, dh=64, masked=False)
+LONG128 = dict(name="long128", b=4, l=600, heads=6, dh=128, masked=True)
 VEHICLE_HW, VEHICLE_CLASSES, VEHICLE_CAMERAS = (256, 256), 576, 20  # VeRi-776
 VEHICLE_STEPS = 3
 # re-ranking: Market-1501 (dense route) and MSMT17 (sparse-V route) query and
@@ -684,7 +702,8 @@ def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) ->
     """Registers, spills and static shared memory that ptxas reported for each
     kernel of ``names`` built in this process, by head width (``dh64``), or
     by kernel and head width (``mha_bwd_rows_dh64``) where a source holds
-    several kernels; raises where a kernel of ``SPILL_FREE`` spills, or
+    several kernels, with ``_chunked`` after the width for the bf16 kernels'
+    chunked instances; raises where a kernel of ``SPILL_FREE`` spills, or
     another at dh 64."""
     out = {}
     for name in names:
@@ -698,10 +717,12 @@ def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) ->
             while (n := re.match(r"\d+", mangled[pos:])):  # _ZN <len><name>... I
                 pos += n.end() + int(n.group())
                 kernel = mangled[pos - int(n.group()):pos]
-            found.append((kernel, re.search(r"ILi(\d+)E", mangled).group(1), props))
+            args = re.search(r"ILi(\d+)E(Lb([01])E)?", mangled)
+            width = f"dh{args.group(1)}" + ("_chunked" if args.group(3) == "1" else "")
+            found.append((kernel, width, props))
         several = len({kernel for kernel, _, _ in found}) > 1
-        out[name] = {f"{kernel}_dh{dh}" if several else f"dh{dh}": props
-                     for kernel, dh, props in found}
+        out[name] = {f"{kernel}_{width}" if several else width: props
+                     for kernel, width, props in found}
     log(f"  ptxas {json.dumps(out)}")
     for name, kernels in out.items():
         if not isinstance(kernels, dict):
@@ -711,7 +732,7 @@ def ptxas_report(names=("attention_fwd_tc", "attention_bwd_tc") + SPILL_FREE) ->
                 continue
             if name in SPILL_FREE:
                 raise AssertionError(f"{name} spills registers in {key}: {props}")
-            if key.endswith("dh64"):
+            if re.search(r"dh64(_chunked)?$", key):
                 raise AssertionError(f"{name} spills registers at dh 64: {props}")
     return out
 
@@ -1004,6 +1025,9 @@ VERI = {**VIT_BASE,
                   "SIZE_TEST": list(VEHICLE_HW)},
         "DATASETS": {"NAMES": "veri", "ROOT_DIR": "../data"},
         "OUTPUT_DIR": "output/veri_vit_base"}
+# the same at MODEL.STRIDE_SIZE [12, 12], as train.py takes the key on the
+# command line: 21 x 21 patches + 1, L 442
+VERI_STRIDE12 = {**VERI, "MODEL": {**VERI["MODEL"], "STRIDE_SIZE": [12, 12]}}
 
 
 def vit_base_cfg(dtype: str = "bfloat16", device: str = "cuda", settings: dict = VIT_BASE):
@@ -1322,17 +1346,18 @@ def fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batch, lr) -> di
     return res
 
 
-def run_vehicle_train() -> dict:
-    """configs/veri/vit_base.yml at full width: ViT-B/16 at 256×256 (L 257),
-    576 classes, bf16 over fp32, VEHICLE_STEPS train steps on PK batches of
-    seeded images (augmentation on, Adam): finite losses and 12 + 12
-    attention launches a step, all on the tensor-core route."""
-    cfg = vit_base_cfg(device=CARD, settings=VERI)
+def run_vehicle_train(settings: dict = VERI, case: dict = VEHICLE) -> tuple:
+    """configs/veri/vit_base.yml (or ``settings``) at full width: ViT-B/16 at
+    256×256 (L 257; ``case["l"]`` with ``settings``' stride), 576 classes,
+    bf16 over fp32, VEHICLE_STEPS train steps on PK batches of seeded images
+    (augmentation on, Adam): finite losses and 12 + 12 attention launches a
+    step, all on the tensor-core route. Returns the result and the model."""
+    cfg = vit_base_cfg(device=CARD, settings=settings)
     model = make_model(cfg, num_class=VEHICLE_CLASSES, camera_num=VEHICLE_CAMERAS, view_num=1)
     depth = len(model.image_encoder.transformer.resblocks)
     length = model.image_encoder.positional_embedding.shape[0]
-    if length != VEHICLE["l"]:
-        raise AssertionError(f"vehicle ViT-B/16 sequence length {length}, expected {VEHICLE['l']}")
+    if length != case["l"]:
+        raise AssertionError(f"vehicle ViT-B/16 sequence length {length}, expected {case['l']}")
     loss_fn, _ = make_loss(cfg, VEHICLE_CLASSES)
     optimizer = make_optimizer(cfg.SOLVER, model, stage="baseline")
     lr = make_scheduler(cfg.SOLVER, "multistep")(1)
@@ -1355,11 +1380,105 @@ def run_vehicle_train() -> dict:
                                                   "attention_bwd": depth * VEHICLE_STEPS})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite vehicle train loss: {losses}")
-    res = dict(config="configs/veri/vit_base.yml", hw=list(VEHICLE_HW), seq_len=length,
-               classes=VEHICLE_CLASSES, steps=VEHICLE_STEPS, batch=BATCH, losses=losses,
-               step_seconds=seconds, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=counts, launches_by_route=read_routes())
+    res = dict(config="configs/veri/vit_base.yml", stride=cfg.MODEL.STRIDE_SIZE,
+               hw=list(VEHICLE_HW), seq_len=length, classes=VEHICLE_CLASSES,
+               steps=VEHICLE_STEPS, batch=BATCH, losses=losses, step_seconds=seconds,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+               launches_by_route=read_routes())
     log(f"vehicle train {json.dumps(res)}")
+    return res, model
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """bf16 attention on the card through the plain versions (no kernel, no
+    launch counted) inside the block: a reference for the kernels."""
+    launchers = attn._launch_cuda, attn._launch_bwd_cuda
+    attn._launch_cuda = attn.attention_plain
+    attn._launch_bwd_cuda = attn.attention_bwd_plain
+    try:
+        yield
+    finally:
+        attn._launch_cuda, attn._launch_bwd_cuda = launchers
+
+
+def grad_cosines(got: dict, want: dict, leaves: list) -> dict:
+    """Cosine of ``got`` against ``want``: over all ``leaves`` concatenated
+    (``all``), and the lowest single leaf's (``min_leaf``, ``min_leaf_name``)."""
+    per = {k: F.cosine_similarity(got[k].flatten(), want[k].flatten(), dim=0).item()
+           for k in leaves}
+    total = F.cosine_similarity(torch.cat([got[k].flatten() for k in leaves]),
+                                torch.cat([want[k].flatten() for k in leaves]), dim=0).item()
+    worst = min(per, key=per.get)
+    return dict(all=total, min_leaf=per[worst], min_leaf_name=worst)
+
+
+def run_stride12(model) -> dict:
+    """The stride-12 VeRi model of phase 5 (L 442, past the rows the bf16
+    backward stages whole) after its train steps: a train step's gradients
+    (augmentation off, a PK batch of 2 × 4) in bf16 against fp32 on the card
+    (fp32 launches the "tf32x3" kernels), cosine over the leaves of at least
+    MIN_FUSED_SIZE elements taken together at least COSINE_FLOOR, and held
+    to the same with the bf16 attention through the plain versions (the bf16
+    model's own rounding, kernels aside): 1 - cosine over the leaves
+    together at most PLAIN_GAP_RATIO times the plain path's, the lowest
+    single leaf's at most LEAF_MARGIN under the plain path's lowest (a
+    single leaf's floor of COSINE_FLOOR fails at L 442 on either path); then
+    one ``do_inference`` over 64 + 64 seeded images: 12 attention launches a
+    batch of 64, all on "tc", finite features of the eval width."""
+    images, pids = train_images(seed=41, hw=VEHICLE_HW)
+    batch = pk_batches(images, pids, 1, ids=CHECK_BATCH // K_INST, seed=42)[0]
+    del images
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def grads(dtype):
+        c = vit_base_cfg(dtype, CARD, VERI_STRIDE12)
+        return step_loss_and_grads(weights, c, batch, CARD, VEHICLE_CLASSES, VEHICLE_CAMERAS)[1]
+
+    depth = len(model.image_encoder.transformer.resblocks)
+    fp32 = grads("float32")
+    reset_counts()
+    bf16 = grads("bfloat16")
+    expect_counts("stride-12 bf16 step", read_counts(),
+                  {"attention_fwd": depth, "attention_bwd": depth})
+    with plain_attention():
+        bf16_plain = grads("bfloat16")
+    big = [k for k, g in fp32.items() if g.numel() >= adam.MIN_FUSED_SIZE]
+    cos = grad_cosines(bf16, fp32, big)
+    cos_plain = grad_cosines(bf16_plain, fp32, big)
+    del fp32, bf16, bf16_plain
+    torch.cuda.empty_cache()
+
+    cfg = vit_base_cfg(device=CARD, settings=VERI_STRIDE12)
+    loader = InMemoryBatcher(QUERY // 2, GALLERY // 2, BATCH, VEHICLE_HW, seed=43)
+    reset_counts()
+    t0 = time.perf_counter()
+    r1, r5 = do_inference(cfg, model, loader, QUERY // 2)
+    eval_s = time.perf_counter() - t0
+    expect_counts("stride-12 do_inference", read_counts(),
+                  {"attention_fwd": depth * (QUERY + GALLERY) // 2 // BATCH})
+    eval_launches = read_counts()["attention_fwd"]
+    feats = make_eval_step(model, cfg)({"images": torch.from_numpy(
+        next(loader.iter_sequential())["images"]).to(CARD)})
+    finite = bool(torch.isfinite(feats.float()).all().item())
+    res = dict(bf16_vs_fp32_grad_cosine=cos, bf16_plain_attention_vs_fp32_grad_cosine=cos_plain,
+               cosine_floor=COSINE_FLOOR, plain_gap_ratio=PLAIN_GAP_RATIO,
+               leaf_margin=LEAF_MARGIN, large_leaves=len(big),
+               eval_images=(QUERY + GALLERY) // 2,
+               eval_seconds_first_call=eval_s, rank1=float(r1), rank5=float(r5),
+               eval_feature_shape=list(feats.shape), eval_finite=finite,
+               eval_launches=eval_launches)
+    log(f"stride-12 checks {json.dumps(res)}")
+    if not cos["all"] >= COSINE_FLOOR:
+        raise AssertionError(f"stride 12: bf16 vs fp32 gradient cosine below {COSINE_FLOOR}: {res}")
+    if not 1 - cos["all"] <= PLAIN_GAP_RATIO * (1 - cos_plain["all"]):
+        raise AssertionError(f"stride 12: the kernels' bf16 gradients are more than "
+                             f"{PLAIN_GAP_RATIO}x further from fp32 than the plain path's: {res}")
+    if not cos["min_leaf"] >= cos_plain["min_leaf"] - LEAF_MARGIN:
+        raise AssertionError(f"stride 12: the kernels' lowest leaf cosine is more than "
+                             f"{LEAF_MARGIN} under the plain path's: {res}")
+    if not finite or tuple(feats.shape) != (BATCH, model.in_planes + model.in_planes_proj):
+        raise AssertionError(f"stride 12: bad eval features: {res}")
     return res
 
 
@@ -1387,17 +1506,18 @@ def check_batch() -> dict:
     return pk_batches(images, pids, 1, ids=CHECK_BATCH // K_INST, seed=6)[0]
 
 
-def step_loss_and_grads(weights: dict, c, batch: dict, device) -> tuple:
+def step_loss_and_grads(weights: dict, c, batch: dict, device, classes: int = NUM_CLASSES,
+                        cameras: int = 6) -> tuple:
     """(loss, {name: fp32 gradient on the CPU}) of one baseline train step of
     the model ``c`` builds, from ``weights``, augmentation off, on ``device``."""
     from mpreid_tpu_torch.engine.steps import augment_args
     from mpreid_tpu_torch.ops.augment import train_augment
 
     c.INPUT.PROB, c.INPUT.PADDING, c.INPUT.RE_PROB = 0.0, 0, 0.0
-    m = build_model(c, NUM_CLASSES, 6, 1)
+    m = build_model(c, classes, cameras, 1)
     m.load_state_dict(weights, strict=True)
     m = m.to(device)
-    loss_fn, _ = make_loss(c, NUM_CLASSES)
+    loss_fn, _ = make_loss(c, classes)
     opt = make_optimizer(c.SOLVER, m, stage="baseline")
     x = train_augment(batch["images"].to(device), torch.Generator(device=device),
                       **augment_args(c))
@@ -5894,12 +6014,14 @@ def main() -> None:
     rows, bwd_rows = [], []
     cases = [(VISION, torch.bfloat16), (VISION, torch.float32), (TEXT, torch.bfloat16),
              (TEXT, torch.float32), (VEHICLE, torch.bfloat16), (SYSU, torch.float32),
-             (VEHICLE, torch.float32), (STRIDE12, torch.float32), (TTPT_TEXT, torch.bfloat16),
-             (VISION_TP, torch.bfloat16), (TEXT_TP, torch.bfloat16)]
+             (VEHICLE, torch.float32), (STRIDE12, torch.bfloat16), (STRIDE12, torch.float32),
+             (TTPT_TEXT, torch.bfloat16), (VISION_TP, torch.bfloat16), (TEXT_TP, torch.bfloat16),
+             (LONG64, torch.bfloat16), (LONG128, torch.bfloat16)]
     t0 = time.perf_counter()
     for case, dtype in cases:
         for layout in attn.LAYOUTS:
-            timed_here = layout == "packed" or case is VISION and dtype == torch.bfloat16
+            timed_here = (layout == "packed" or case is VISION and dtype == torch.bfloat16) \
+                and case not in (LONG64, LONG128)
             rows.append(check_attention(case, dtype, layout, timed=timed_here))
             bwd_rows.append(check_attention_bwd(case, dtype, layout, timed=timed_here))
     log(f"  attention kernels {time.perf_counter() - t0:.1f} s")
@@ -5922,7 +6044,14 @@ def main() -> None:
     log("baseline training slice, ViT-B/16 at full width:")
     train_res = run_train(args.profile)
     log("vehicle training slice, configs/veri/vit_base.yml (256×256, L 257), full width:")
-    vehicle_res = run_vehicle_train()
+    vehicle_res, _ = run_vehicle_train()
+    log("vehicle training slice at MODEL.STRIDE_SIZE [12, 12] (256×256, L 442), full width:")
+    t0 = time.perf_counter()
+    stride12_res, stride12_model = run_vehicle_train(VERI_STRIDE12, STRIDE12)
+    stride12_res["checks"] = run_stride12(stride12_model)
+    del stride12_model
+    torch.cuda.empty_cache()
+    log(f"  stride-12 phase seconds {time.perf_counter() - t0:.1f}")
 
     log("cross-checks:")
     t0 = time.perf_counter()
@@ -6109,6 +6238,10 @@ def main() -> None:
             "launches_eval": slice_res["launches"] if direction == "fwd" else 0,
             "launches_uniprompt": {k: v[name] for k, v in uni_launches.items()},
             "launches_vehicle": vehicle_res["launches"][name],
+            "launches_vehicle_stride12": {
+                "train_steps": stride12_res["launches"][name],
+                "do_inference": stride12_res["checks"]["eval_launches"]
+                if direction == "fwd" else 0},
             "launches_device_epoch_do_train": epoch_res["res"]["launches"][name],
             "launches_per_replayed_step": {k: v["launches_per_replayed_step"][name]
                                            for k, v in graph_res.items()},
@@ -6144,6 +6277,8 @@ def main() -> None:
             "shape": "B64 L129 12x64 bf16 packed, no mask",
             "text": timing(pick(found, "text")),
             "vehicle": timing(pick(found, "vehicle")),
+            "stride12": {"shape": "B64 L442 12x64 bf16 packed, no mask (the backward "
+                                  "streams it)", **timing(pick(found, "stride12"))},
             "ttpt_text": {"shape": "B1000 L77 8x64 bf16 packed, causal",
                           **timing(pick(found, "ttpt_text"))},
             "vision_tp": {"shape": "B64 L129 6x64 bf16 packed, no mask (a rank's heads at "

@@ -33,9 +33,19 @@
 //   bytes, and holding 16 keys at a time keeps a thread under 100
 //   registers, so two blocks share an SM and one block's loads overlap the
 //   other's products.
-// Shared memory per block: K and V, 2 * L16 * (dh + 8) bf16 (L16 = L rounded
-// up to 16): 41 KB at L 129 and 78 KB at L 257 (dh 64), 148 KB at L 257 (dh
-// 128). The host side refuses a length that does not fit in 227 KB.
+// Shared memory per block: K and V, 2 * rows * (dh + 8) bf16, rows = L16 (L
+// rounded up to 16) while L16 <= chunk_rows<dh>() (800 at dh 64, 416 at dh
+// 128): 41 KB at L 129 and 78 KB at L 257 (dh 64), 148 KB at L 257 (dh 128).
+// A longer sequence goes by chunks of chunk_rows<dh>() keys (the most that
+// one block's 227 KB holds): the kernel's chunked instance loops over them
+// around each sweep's 16-key blocks, staging K alone for the first sweep and
+// K and V for the second, every block of keys in the same order as one
+// chunk would take them, so the row max and sum, and the P V sums, carry
+// from chunk to chunk and two launches give the same bits. Each round of
+// the warps' query blocks streams the chunks again, through a barrier at
+// each chunk, and only one block fits on an SM. So shared memory stays under
+// 227 KB at every length and no length is refused; lengths that fit run the
+// whole-sequence instance, the same loads and products as before chunks.
 
 #include <math_constants.h>
 
@@ -56,17 +66,43 @@ __host__ __device__ constexpr int max_warps() { return DH == 64 ? 9 : 8; }
 template <int DH>
 __host__ __device__ constexpr int min_blocks() { return DH == 64 ? 2 : 1; }
 
+// Keys a chunk holds, the rows of each tile of the chunked instance: the
+// most K and V rows that one block's 227 KB take. The CPU emulation's tests
+// build the source with MPREID_TC_CHUNK_ROWS (a multiple of 16) defined,
+// which sets the chunk and sends every length through the chunked instance.
 template <int DH>
-size_t smem_bytes(int L) {
-  return 2 * static_cast<size_t>(round16(L)) * tile_stride<DH>() * sizeof(bf16);
+__host__ __device__ constexpr int chunk_rows() {
+#ifdef MPREID_TC_CHUNK_ROWS
+  return MPREID_TC_CHUNK_ROWS;
+#else
+  return DH == 64 ? 800 : 416;
+#endif
+}
+static_assert(chunk_rows<64>() % 16 == 0 && chunk_rows<128>() % 16 == 0,
+              "a chunk is whole 16-row blocks");
+
+// The longest L16 the whole-sequence instance takes: what a chunk holds.
+template <int DH>
+__host__ __device__ constexpr int whole_rows() {
+#ifdef MPREID_TC_CHUNK_ROWS
+  return 0;
+#else
+  return chunk_rows<DH>();
+#endif
+}
+
+// Shared memory of a block whose tiles hold `rows` keys.
+template <int DH>
+size_t smem_bytes(int rows) {
+  return 2 * static_cast<size_t>(rows) * tile_stride<DH>() * sizeof(bf16);
 }
 
 // s[n] = qs K^T over keys kb * 16 + 8 n + (0..7), then the padding and the
 // mask: element c of tile n is (row r0 + g + 8 (c / 2), key kb * 16 + 8 n +
-// 2 t + c % 2).
+// 2 t + c % 2). k_s holds the keys from block kb0 on.
 template <int DH>
 __device__ __forceinline__ void scores(float s[2][4], const uint32_t (&qf)[DH / 16][4],
-                                       const bf16* k_s, int kb, int r0, int L,
+                                       const bf16* k_s, int kb, int kb0, int r0, int L,
                                        const float* __restrict__ mask, int lane) {
   constexpr int S = tile_stride<DH>();
 #pragma unroll
@@ -76,7 +112,7 @@ __device__ __forceinline__ void scores(float s[2][4], const uint32_t (&qf)[DH / 
 #pragma unroll
   for (int ks = 0; ks < DH / 16; ++ks) {
     uint32_t b[4];
-    ldmatrix_x4(b, bt_ptr(k_s, S, kb * 16, ks * 16, lane));
+    ldmatrix_x4(b, bt_ptr(k_s, S, (kb - kb0) * 16, ks * 16, lane));
     mma(s[0], qf[ks], b[0], b[1]);
     mma(s[1], qf[ks], b[2], b[3]);
   }
@@ -96,19 +132,22 @@ __device__ __forceinline__ void scores(float s[2][4], const uint32_t (&qf)[DH / 
     }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(max_warps<DH>() * 32, min_blocks<DH>())
+// kChunked: the keys go by in chunks of chunk_rows<DH>() rows, staged once
+// per sweep and round; otherwise K and V are staged whole, once.
+template <int DH, bool kChunked>
+__global__ void __launch_bounds__(max_warps<DH>() * 32, kChunked ? 1 : min_blocks<DH>())
 mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                   bf16* __restrict__ out, int L, int H, long long row_stride, int q_base,
                   int k_base, int v_base, int head_stride, float scale) {
   constexpr int S = tile_stride<DH>();
   constexpr int KS = DH / 16;  // k16 steps over the head width
   constexpr int CPR = DH / 8;  // 16-byte chunks per staged row
+  constexpr int C = chunk_rows<DH>();
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L16 = round16(L);
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + L16 * S;
+  bf16* v_s = k_s + (kChunked ? C : L16) * S;
 
   const int h = static_cast<int>(blockIdx.x);
   const int b = static_cast<int>(blockIdx.y);
@@ -117,23 +156,30 @@ mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
   const int kcol = k_base + h * head_stride;
   const int vcol = v_base + h * head_stride;
 
-  for (int idx = static_cast<int>(threadIdx.x); idx < L16 * CPR;
-       idx += static_cast<int>(blockDim.x)) {
-    const int j = idx / CPR;
-    const int c = (idx - j * CPR) * 8;
-    bf16* kd = k_s + j * S + c;
-    bf16* vd = v_s + j * S + c;
-    if (j < L) {
-      const bf16* row = base + static_cast<long long>(j) * row_stride;
-      cp_async_16(kd, row + kcol + c);
-      cp_async_16(vd, row + vcol + c);
-    } else {
-      *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
+  // keys j0 .. j0 + n - 1 of K, and of V when with_v, into the tiles; keys
+  // >= L zero-filled, not loaded
+  auto stage = [&](int j0, int n, bool with_v) {
+    for (int idx = static_cast<int>(threadIdx.x); idx < n * CPR;
+         idx += static_cast<int>(blockDim.x)) {
+      const int j = idx / CPR;
+      const int c = (idx - j * CPR) * 8;
+      bf16* kd = k_s + j * S + c;
+      bf16* vd = v_s + j * S + c;
+      if (j0 + j < L) {
+        const bf16* row = base + static_cast<long long>(j0 + j) * row_stride;
+        cp_async_16(kd, row + kcol + c);
+        if (with_v) cp_async_16(vd, row + vcol + c);
+      } else {
+        *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
+        if (with_v) *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
+      }
     }
+    cp_async_wait_all();
+  };
+  if constexpr (!kChunked) {
+    stage(0, L16, true);
+    __syncthreads();
   }
-  cp_async_wait_all();
-  __syncthreads();
 
   const int warp = static_cast<int>(threadIdx.x) >> 5;
   const int lane = static_cast<int>(threadIdx.x) & 31;
@@ -142,8 +188,30 @@ mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
   const int nwarps = static_cast<int>(blockDim.x) >> 5;
   const float sc = __bfloat162float(__float2bfloat16(scale));
   const long long D = static_cast<long long>(H) * DH;
+  const int cb = kChunked ? C / 16 : nrb;  // key blocks a chunk holds
+  const int nchunks = kChunked ? (nrb + cb - 1) / cb : 1;
 
-  for (int rb = warp; rb < nrb; rb += nwarps) {
+  // chunk c of K (and of V when with_v) in the tiles; every thread of the
+  // block calls it alike, so it may wait at the block's barrier
+  int staged = kChunked ? -1 : 0;
+  bool staged_v = !kChunked;
+  auto ensure = [&](int c, bool with_v) {
+    if constexpr (kChunked) {
+      with_v = with_v || nchunks == 1;  // one chunk: K and V once, for every sweep
+      if (c == staged && (staged_v || !with_v)) return;
+      __syncthreads();  // every warp is done with what the tiles hold
+      stage(c * C, min(C, L16 - c * C), with_v);
+      __syncthreads();
+      staged = c;
+      staged_v = with_v;
+    }
+  };
+
+  // rounds of nwarps query blocks: the whole-sequence instance's warp stops
+  // after its last block, every warp of the chunked one goes through every
+  // round (a warp past the last block only stages and waits)
+  for (int rb = warp, rb0 = 0; kChunked ? rb0 < nrb : rb < nrb; rb += nwarps, rb0 += nwarps) {
+    const bool active = !kChunked || rb < nrb;
     const int r0 = rb * 16;
     // qs as A fragments, straight from device memory; rows >= L are zero
     uint32_t qf[KS][4];
@@ -163,19 +231,24 @@ mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
     // sweep 1: row max and sum, the sum rescaled whenever the max grows
     float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
     float l[2] = {0.f, 0.f};
-    for (int kb = 0; kb < nrb; ++kb) {
-      float s[2][4];
-      scores<DH>(s, qf, k_s, kb, r0, L, mask, lane);
+    for (int c = 0; c < nchunks; ++c) {
+      ensure(c, false);
+      const int kb0 = c * cb;
+      const int kb1 = active ? min(nrb, kb0 + cb) : kb0;
+      for (int kb = kb0; kb < kb1; ++kb) {
+        float s[2][4];
+        scores<DH>(s, qf, k_s, kb, kb0, r0, L, mask, lane);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float cm = quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                        fmaxf(s[1][2 * r], s[1][2 * r + 1])));
-        const float mn = fmaxf(m[r], cm);
-        const float ref = mn == -CUDART_INF_F ? 0.f : mn;
-        l[r] = l[r] * __expf(m[r] - ref) + __expf(s[0][2 * r] - ref) +
-               __expf(s[0][2 * r + 1] - ref) + __expf(s[1][2 * r] - ref) +
-               __expf(s[1][2 * r + 1] - ref);
-        m[r] = mn;
+        for (int r = 0; r < 2; ++r) {
+          const float cm = quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                          fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+          const float mn = fmaxf(m[r], cm);
+          const float ref = mn == -CUDART_INF_F ? 0.f : mn;
+          l[r] = l[r] * __expf(m[r] - ref) + __expf(s[0][2 * r] - ref) +
+                 __expf(s[0][2 * r + 1] - ref) + __expf(s[1][2 * r] - ref) +
+                 __expf(s[1][2 * r + 1] - ref);
+          m[r] = mn;
+        }
       }
     }
     float ref[2], inv_l[2];
@@ -191,21 +264,26 @@ mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
     for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-    for (int kb = 0; kb < nrb; ++kb) {
-      float s[2][4];
-      scores<DH>(s, qf, k_s, kb, r0, L, mask, lane);
+    for (int c = 0; c < nchunks; ++c) {
+      ensure(c, true);
+      const int kb0 = c * cb;
+      const int kb1 = active ? min(nrb, kb0 + cb) : kb0;
+      for (int kb = kb0; kb < kb1; ++kb) {
+        float s[2][4];
+        scores<DH>(s, qf, k_s, kb, kb0, r0, L, mask, lane);
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = __expf(s[n][c] - ref[c >> 1]) * inv_l[c >> 1];
-      uint32_t pa[4];
-      c_to_a(pa, s[0], s[1]);
+          for (int e = 0; e < 4; ++e) s[n][e] = __expf(s[n][e] - ref[e >> 1]) * inv_l[e >> 1];
+        uint32_t pa[4];
+        c_to_a(pa, s[0], s[1]);
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, a_ptr(v_s, S, kb * 16, dp * 16, lane));
-        mma(o[2 * dp], pa, bv[0], bv[1]);
-        mma(o[2 * dp + 1], pa, bv[2], bv[3]);
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, a_ptr(v_s, S, (kb - kb0) * 16, dp * 16, lane));
+          mma(o[2 * dp], pa, bv[0], bv[1]);
+          mma(o[2 * dp + 1], pa, bv[2], bv[3]);
+        }
       }
     }
 
@@ -221,32 +299,47 @@ mha_fwd_tc_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
   }
 }
 
-template <int DH>
+template <int DH, bool kChunked>
 int launch(const void* qkv, const float* mask, void* out, int B, int L, int H,
            long long row_stride, int q_base, int k_base, int v_base, int head_stride,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>(L);
+  const size_t smem = smem_bytes<DH>(kChunked ? chunk_rows<DH>() : round16(L));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      mha_fwd_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_fwd_tc_kernel<DH, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxSmem));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const int warps = warps_for(round16(L) / 16, max_warps<DH>());
   const dim3 grid(H, B);
-  mha_fwd_tc_kernel<DH><<<grid, warps * 32, smem, stream>>>(
+  mha_fwd_tc_kernel<DH, kChunked><<<grid, warps * 32, smem, stream>>>(
       static_cast<const bf16*>(qkv), mask, static_cast<bf16*>(out), L, H, row_stride, q_base,
       k_base, v_base, head_stride, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole-sequence instance while K and V fit, the chunked one after.
+template <int DH>
+int dispatch(const void* qkv, const float* mask, void* out, int B, int L, int H,
+             long long row_stride, int q_base, int k_base, int v_base, int head_stride,
+             float scale, cudaStream_t stream) {
+  if (round16(L) <= whole_rows<DH>())
+    return launch<DH, false>(qkv, mask, out, B, L, H, row_stride, q_base, k_base, v_base,
+                             head_stride, scale, stream);
+  return launch<DH, true>(qkv, mask, out, B, L, H, row_stride, q_base, k_base, v_base,
+                          head_stride, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (0 for an unsupported head width).
+// Shared memory one block needs, in bytes (0 for an unsupported head width):
+// at most mpreid_mha_fwd_tc_max_smem_bytes() at every L.
 size_t mpreid_mha_fwd_tc_smem_bytes(int L, int dh) {
-  if (dh == 64) return smem_bytes<64>(L);
-  if (dh == 128) return smem_bytes<128>(L);
+  if (dh == 64)
+    return smem_bytes<64>(round16(L) <= whole_rows<64>() ? round16(L) : chunk_rows<64>());
+  if (dh == 128)
+    return smem_bytes<128>(round16(L) <= whole_rows<128>() ? round16(L) : chunk_rows<128>());
   return 0;
 }
 
@@ -255,8 +348,8 @@ size_t mpreid_mha_fwd_tc_max_smem_bytes() { return kMaxSmem; }
 // qkv (B, L, row_stride) and out (B, L, H * dh) are contiguous bf16, 16-byte
 // aligned, with row_stride and the column offsets multiples of 8; mask is
 // null or a contiguous (L, L) fp32 array. Head h reads q at column q_base +
-// h * head_stride, k and v likewise. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// h * head_stride, k and v likewise. Any L. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 int mpreid_mha_fwd_tc(const void* qkv, const void* mask, void* out, int B, int L, int H, int dh,
                       long long row_stride, int q_base, int k_base, int v_base, int head_stride,
                       float scale, void* stream) {
@@ -264,11 +357,11 @@ int mpreid_mha_fwd_tc(const void* qkv, const void* mask, void* out, int B, int L
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || L <= 0) return 0;
   if (dh == 64)
-    return launch<64>(qkv, m, out, B, L, H, row_stride, q_base, k_base, v_base, head_stride,
-                      scale, s);
+    return dispatch<64>(qkv, m, out, B, L, H, row_stride, q_base, k_base, v_base, head_stride,
+                        scale, s);
   if (dh == 128)
-    return launch<128>(qkv, m, out, B, L, H, row_stride, q_base, k_base, v_base, head_stride,
-                       scale, s);
+    return dispatch<128>(qkv, m, out, B, L, H, row_stride, q_base, k_base, v_base, head_stride,
+                         scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -21,8 +21,12 @@ bf16 goes to the bf16 tensor-core kernels (route ``"tc"``,
 ``kernels/csrc/attention_{fwd,bwd}_tc.cu``), fp32 to the kernels that take
 each fp32 product on the tensor cores in three TF32 passes (route
 ``"tf32x3"``, ``kernels/csrc/attention_{fwd,bwd}.cu``), which hold fp32 to
-1e-5 where one TF32 pass could not; they stream their tiles, so they take
-any length. On a CPU tensor they
+1e-5 where one TF32 pass could not. Both families take any length: the
+fp32 kernels stream their tiles, and the bf16 ones stage a sequence whole
+while it fits in a block's shared memory and stream it in chunks past that
+(L 800 forward, 384 backward at dh 64; 416 and 208 at dh 128), the
+backward then keeping its row statistics in a scratch array, as the fp32
+backward always does. On a CPU tensor they
 compute ``attention_plain`` and ``attention_bwd_plain``, the same functions
 in plain PyTorch. Numerics, as in the JAX package: q is scaled in the
 activation dtype, logits and softmax are fp32, probabilities are rounded to
@@ -170,28 +174,24 @@ def attention_route(dtype: torch.dtype, dh: int) -> str:
 def _library(direction: str, route: str) -> ctypes.CDLL:
     """The library of ``csrc/attention_<direction>[_tc].cu`` (``fwd`` or
     ``bwd``; ``_tc`` on the ``"tc"`` route), built at first use, with its C
-    signatures declared on ``lib.launch``, ``lib.smem_bytes`` and
-    ``lib.max_smem_bytes``; the fp32 backward adds ``lib.scratch_floats``."""
+    signature declared on ``lib.launch``; the backward adds
+    ``lib.scratch_floats``."""
     from mpreid_tpu_torch.kernels import build
 
     suffix = "_tc" if route == "tc" else ""
     lib = build.load(f"attention_{direction}{suffix}")
     symbol = f"mpreid_mha_{direction}{suffix}"
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # qkv, mask, out; the backward adds dout, and the fp32 backward a scratch
-    # array for its row statistics
-    scratch = direction == "bwd" and route == "tf32x3"
-    tensors = [p] * ({"fwd": 3, "bwd": 4}[direction] + scratch)
+    # qkv, mask, out; the backward adds dout and a scratch array for its row
+    # statistics
+    tensors = [p] * {"fwd": 3, "bwd": 5}[direction]
     lib.launch = getattr(lib, symbol)
     lib.launch.argtypes = tensors + [i, i, i, i, ll, i, i, i, i, ctypes.c_float, p]
     lib.launch.restype = i
-    lib.smem_bytes = getattr(lib, f"{symbol}_smem_bytes")
-    lib.smem_bytes.argtypes, lib.smem_bytes.restype = [i, i], ctypes.c_size_t
-    lib.max_smem_bytes = getattr(lib, f"{symbol}_max_smem_bytes")
-    lib.max_smem_bytes.argtypes, lib.max_smem_bytes.restype = [], ctypes.c_size_t
-    if scratch:
+    if direction == "bwd":  # (B, L, H), and dh on the "tc" route
         lib.scratch_floats = getattr(lib, f"{symbol}_scratch_floats")
-        lib.scratch_floats.argtypes, lib.scratch_floats.restype = [i, i, i], ll
+        lib.scratch_floats.argtypes = [i] * (4 if route == "tc" else 3)
+        lib.scratch_floats.restype = ll
     return lib
 
 
@@ -215,16 +215,7 @@ def _check_cuda(direction: str, qkv: torch.Tensor, num_heads: int, mask):
         if tuple(mask.shape) != (l, l):
             raise ValueError(f"mask must be ({l}, {l}), got {tuple(mask.shape)}")
         mask = mask.to(device=qkv.device, dtype=torch.float32).contiguous()
-    lib = _library(direction, route)
-    smem, limit = lib.smem_bytes(l, dh), lib.max_smem_bytes()
-    if smem > limit:
-        longest = max(n for n in range(1, l) if lib.smem_bytes(n, dh) <= limit)
-        raise ValueError(
-            f"{what}: sequence length {l} at head width {dh} in {qkv.dtype} needs "
-            f"{smem} bytes of shared memory per block, more than the {limit} a block may "
-            f"use: L above {longest} needs more shared memory than a block has"
-        )
-    return lib, route, dh, mask
+    return _library(direction, route), route, dh, mask
 
 
 def _launch_cuda(qkv, num_heads, mask, layout):
@@ -263,13 +254,14 @@ def _launch_bwd_cuda(qkv, do, num_heads, mask, layout):
     if b == 0 or l == 0:
         return dqkv
     q_base, k_base, v_base, head_stride = _column_offsets(d, dh, layout)
-    scratch = []
-    if route == "tf32x3":  # m, 1/l and delta of every row, from one launch to the next
-        scratch = [torch.empty(lib.scratch_floats(b, l, num_heads), dtype=torch.float32,
-                               device=qkv.device).data_ptr()]
+    # m, 1/l and delta of every row, from the kernel's query side to its key
+    # side: always in fp32, in bf16 only where the sequence is streamed
+    floats = lib.scratch_floats(b, l, num_heads, *([dh] if route == "tc" else []))
+    scratch = torch.empty(floats, dtype=torch.float32, device=qkv.device) if floats else None
     rc = lib.launch(
         qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-        do.data_ptr(), dqkv.data_ptr(), *scratch, b, l, num_heads, dh, dd,
+        do.data_ptr(), dqkv.data_ptr(), scratch.data_ptr() if floats else None,
+        b, l, num_heads, dh, dd,
         q_base, k_base, v_base, head_stride, dh ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )

@@ -12,6 +12,14 @@ and ``attention_bwd_plain`` at the card's tolerances: bf16 forward 2e-2 max
 abs, backward 3e-2 · max(1, max |plain|) (``check_tc_case``); fp32 forward
 1e-5 max abs, backward 1e-5 · max(1, max |plain|) (``check_fp32_case``).
 
+Past the rows they stage whole (bf16: 800 / 384 at dh 64, forward /
+backward; 416 / 208 at dh 128) the tensor-core kernels run chunked
+instances that stream the sequence: the cases at L 442 and 224 take the
+backward's. ``tc_kernels(out, chunk_rows)`` builds the sources with
+``MPREID_TC_CHUNK_ROWS`` defined, which sends every length through both
+chunked instances with chunks of that many rows, so several chunks show up
+at short lengths.
+
 The cases are spread over several test files, by length, because
 ``pytest --dist loadfile`` runs each file on one worker and the emulator's
 barriers make the long lengths slow: ``CASES`` and ``FP32_CASES`` list them
@@ -64,19 +72,21 @@ def _emulated_header(name: str) -> str:
     return text.replace(anchor, '\n#include "warp_prims.h"\n' + anchor, 1)
 
 
-def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1) -> ctypes.CDLL:
+def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1,
+             defines: tuple = ()) -> ctypes.CDLL:
     """``csrc/<source>.cu`` built for the CPU against the emulated ``header``,
     its kernel launches (``launches`` of them) turned into ``emu::launch``
-    calls and ``shared`` declaring the shared memory its kernels use."""
+    calls and ``shared`` declaring the shared memory its kernels use, with
+    ``-D`` of each of ``defines``, into ``out``."""
     (out / header).write_text(_emulated_header(header))
-    src, n = re.subn(r"(\w+<DH>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
+    src, n = re.subn(r"(\w+<[\w, ]+>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
                      r"emu::launch(\2, \3, \1, ", (build.CSRC / f"{source}.cu").read_text())
     assert n == launches
     (out / f"{source}.cpp").write_text('#include "cuda_runtime.h"\n' + shared + "\n" + src)
     lib = out / f"lib{source}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", "-I", str(EMULATION), "-I", str(out),
-                    "-o", str(lib), str(out / f"{source}.cpp")],
+                    "-Wno-unknown-pragmas", *(f"-D{d}" for d in defines), "-I", str(EMULATION),
+                    "-I", str(out), "-o", str(lib), str(out / f"{source}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
 
@@ -109,23 +119,42 @@ def batch_hard_library(out: Path) -> ctypes.CDLL:
     return lib
 
 
-@pytest.fixture(scope="module")
-def kernels(tmp_path_factory):
-    """{"fwd": fn, "bwd": fn}: the emulated tensor-core libraries' C entry points."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the host emulation")
-    out = tmp_path_factory.mktemp("emulated")
+def tc_kernels(out: Path, chunk_rows: int = None) -> dict:
+    """The emulated tensor-core libraries' C entry points, built into
+    ``out``: "fwd" and "bwd" (``mpreid_mha_{fwd,bwd}_tc``), "fwd_smem",
+    "bwd_smem" (bytes of shared memory a block needs at (L, dh)) and
+    "bwd_scratch" (floats of the backward's statistics at (B, L, H, dh));
+    with ``chunk_rows``, every length on the chunked instances, in chunks of
+    that many rows."""
+    defines = (f"MPREID_TC_CHUNK_ROWS={chunk_rows}",) if chunk_rows else ()
     fns = {}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    shape = [i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float]
     for direction in ("fwd", "bwd"):
         lib = _compile(out, "mma_bf16.cuh", f"attention_{direction}_tc",
-                       "namespace { alignas(16) unsigned char smem_raw[232448]; }")
+                       "namespace { alignas(16) unsigned char smem_raw[232448]; }",
+                       defines=defines)
         fn = getattr(lib, f"mpreid_mha_{direction}_tc")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * (3 if direction == "fwd" else 4) + [
-            i, i, i, i, ctypes.c_longlong, i, i, i, i, ctypes.c_float, p]
+        # qkv, mask, out; the backward adds dout and its statistics scratch
+        fn.argtypes = [p] * (3 if direction == "fwd" else 5) + shape + [p]
         fn.restype = i
         fns[direction] = fn
+        smem = getattr(lib, f"mpreid_mha_{direction}_tc_smem_bytes")
+        smem.argtypes, smem.restype = [i, i], ctypes.c_size_t
+        fns[f"{direction}_smem"] = smem
+        if direction == "bwd":
+            scratch = lib.mpreid_mha_bwd_tc_scratch_floats
+            scratch.argtypes, scratch.restype = [i, i, i, i], ctypes.c_longlong
+            fns["bwd_scratch"] = scratch
     return fns
+
+
+@pytest.fixture(scope="module")
+def kernels(tmp_path_factory):
+    """``tc_kernels`` of the sources as the card builds them."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host emulation")
+    return tc_kernels(tmp_path_factory.mktemp("emulated"))
 
 
 @contextlib.contextmanager
@@ -146,8 +175,9 @@ def one_core():
         os.sched_setaffinity(0, mask)
 
 
-def _run(kernels, length, dh, masked, layout, seed):
-    heads, b = 2, 2
+def _run(kernels, length, dh, masked, layout, seed, heads=2, b=2):
+    """Both emulated kernels of ``kernels`` on seeded bf16 inputs → (qkv,
+    do, mask, out, dqkv)."""
     d = heads * dh
     rng = np.random.default_rng(seed)
     qkv = torch.from_numpy(rng.standard_normal((b, length, 3 * d)).astype(np.float32)).bfloat16()
@@ -158,15 +188,22 @@ def _run(kernels, length, dh, masked, layout, seed):
     m = mask.data_ptr() if masked else None
     out = torch.empty(b, length, d, dtype=torch.bfloat16)
     dqkv = torch.empty_like(qkv)
+    floats = kernels["bwd_scratch"](b, length, heads, dh)
+    stats = torch.full((floats,), float("nan"))
+    s = stats.data_ptr() if floats else None
     with one_core():
         assert kernels["fwd"](qkv.data_ptr(), m, out.data_ptr(), *args) == 0
-        assert kernels["bwd"](qkv.data_ptr(), m, do.data_ptr(), dqkv.data_ptr(), *args) == 0
+        assert kernels["bwd"](qkv.data_ptr(), m, do.data_ptr(), dqkv.data_ptr(), s, *args) == 0
     return qkv, do, mask, out, dqkv
 
 
+# lengths at every padding edge of the 16-row blocks, the text and vision
+# towers' 77 and 129, and two past the rows the backward stages whole: 442
+# (256x256 at stride 12; 384 rows whole at dh 64) and 224 at dh 128 (208)
 CASES = ([(length, 64, masked, layout) for length in (1, 15, 16, 17, 77, 129)
           for masked in (False, True) for layout in ("packed", "head_major")]
-         + [(length, 128, masked, "packed") for length in (17, 129) for masked in (False, True)])
+         + [(length, 128, masked, "packed") for length in (17, 129) for masked in (False, True)]
+         + [(442, 64, False, "packed"), (224, 128, True, "head_major")])
 
 
 def _cases(lengths, dh=64, layouts=("packed", "head_major")):
@@ -180,17 +217,28 @@ SHARES = {
     "_l77_packed": _cases((77,), layouts=("packed",)),
     "_l77_head_major": _cases((77,), layouts=("head_major",)),
     "_l129": _cases((129,)),
+    "_l442": _cases((442,), layouts=("packed",)),
+    "_l224": _cases((224,), dh=128, layouts=("head_major",)),
 }
 assert sorted(c for share in SHARES.values() for c in share) == sorted(CASES)
 
 
+def tc_shape(length: int) -> tuple:
+    """(heads, B) an emulated case runs at: 2 × 2 up to L 200, then B 1, and
+    one head above L 400 (the emulation's time grows as L squared)."""
+    return (1 if length > 400 else 2), (1 if length > 200 else 2)
+
+
 def check_tc_case(kernels, length, dh, masked, layout):
-    """One case of ``CASES``: both tensor-core kernels against the plain
-    versions, at the seed ``length + dh``."""
-    qkv, do, mask, out, dqkv = _run(kernels, length, dh, masked, layout, seed=length + dh)
-    want = tattn.attention_plain(qkv, 2, mask, layout)
+    """One case of ``CASES``: both tensor-core kernels of ``kernels`` against
+    the plain versions, at the seed ``length + dh``, heads and B from
+    ``tc_shape``."""
+    heads, b = tc_shape(length)
+    qkv, do, mask, out, dqkv = _run(kernels, length, dh, masked, layout, seed=length + dh,
+                                    heads=heads, b=b)
+    want = tattn.attention_plain(qkv, heads, mask, layout)
     assert (out.float() - want.float()).abs().max().item() <= 2e-2
-    want = tattn.attention_bwd_plain(qkv, do, 2, mask, layout).float()
+    want = tattn.attention_bwd_plain(qkv, do, heads, mask, layout).float()
     err = (dqkv.float() - want).abs().max().item()
     assert err <= 3e-2 * max(1.0, want.abs().max().item())
 

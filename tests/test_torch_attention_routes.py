@@ -149,6 +149,37 @@ def test_chip_smoke_reads_ptxas_and_refuses_spills_at_dh64(monkeypatch, spill64,
     assert got["attention_fwd_tc"] == "built before this process: not reported"
 
 
+CHUNKED_KERNEL = "_ZN52_GLOBAL__N__fee59d9d_19_attention_fwd_tc_cu_6d0486d717mha_fwd_tc_kernelILi{dh}ELb{c}EEEvPK13__nv_bfloat16PKfPS1_iixiiiif"
+
+
+@pytest.mark.parametrize("spill,raises", [(0, False), (8, True)])
+def test_chip_smoke_keys_the_chunked_instances_and_refuses_their_spills_at_dh64(
+        monkeypatch, spill, raises):
+    """The bf16 sources hold a whole-sequence and a chunked instance a head
+    width (template arguments ``<dh, false>`` and ``<dh, true>``): the report
+    keys them ``dh64`` and ``dh64_chunked``, and a spill in either at dh 64
+    fails the run."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{CHUNKED_KERNEL.format(dh=dh, c=c)}' "
+        f"for 'sm_90a'\n"
+        f"    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for dh, c, s, regs in ((128, 1, 8, 175), (128, 0, 0, 167), (64, 1, spill, 116),
+                               (64, 0, 0, 96)))
+    monkeypatch.setattr(build, "LOGS", {"attention_fwd_tc": log})
+    if raises:
+        with pytest.raises(AssertionError, match="spills registers at dh 64"):
+            chip_smoke.ptxas_report(("attention_fwd_tc",))
+        return
+    got = chip_smoke.ptxas_report(("attention_fwd_tc",))["attention_fwd_tc"]
+    assert sorted(got) == ["dh128", "dh128_chunked", "dh64", "dh64_chunked"]
+    assert got["dh64_chunked"] == {"spill_stores": 0, "spill_loads": 0, "registers": 116}
+    assert got["dh128_chunked"]["spill_stores"] == 8
+
+
 FP32_KERNEL = "_ZN49_GLOBAL__N__bef256a1_16_attention_bwd_cu_9eeee98612mha_bwd_{which}ILi{dh}EEEvPKfS2_S2_PfS3_iixiiiif"
 
 

@@ -20,11 +20,6 @@ from mpreid_tpu_torch.ops import attention as tattn
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ROUTE = {torch.float32: "tf32x3", torch.bfloat16: "tc"}
-# the longest L each bf16 attention kernel takes: what one block's shared
-# memory (232,448 bytes) holds; the fp32 kernels stream their tiles and take
-# any length
-MAX_LEN = {("fwd", torch.bfloat16, 64): 800, ("fwd", torch.bfloat16, 128): 416,
-           ("bwd", torch.bfloat16, 64): 384, ("bwd", torch.bfloat16, 128): 208}
 # every padding edge of the 16-row blocks, the text and vision lengths, and
 # the 256x256 vehicle configs' L 257
 LENGTHS = [1, 15, 16, 17, 77, 129, 257]
@@ -58,11 +53,6 @@ def _causal(card, length):
 def test_kernel_matches_plain(card, layout, dtype, length, masked, dh):
     qkv = _qkv(card, 3, length, 2, dh, dtype)
     mask = _causal(card, length) if masked else None
-    longest = MAX_LEN.get(("fwd", dtype, dh))
-    if longest is not None and length > longest:
-        with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
-            tattn.fused_attention(qkv, 2, mask, layout=layout)
-        return
     before = tattn.fused_attention.launches
     routed = tattn.fused_attention.launches_by_route[ROUTE[dtype]]
     got = tattn.fused_attention(qkv, 2, mask, layout=layout)
@@ -152,15 +142,11 @@ def _bwd_err(got, want):
 def test_bwd_kernel_matches_plain(card, layout, dtype, length, masked, dh):
     """L 257 in bf16 at dh 64 pins the fault of the CUDA-core backward, which
     held the L x L probabilities in shared memory and refused bf16 above L
-    178; the tensor-core backward's shared memory grows as O(L)."""
+    178; at dh 128 it is past the 208 rows the tensor-core backward stages
+    whole, so it streams them."""
     qkv = _qkv(card, 3, length, 2, dh, dtype, seed=3)
     do = _qkv(card, 3, length, 2, dh, dtype, seed=4)[..., :2 * dh].contiguous()
     mask = _causal(card, length) if masked else None
-    longest = MAX_LEN.get(("bwd", dtype, dh))
-    if longest is not None and length > longest:
-        with pytest.raises(ValueError, match=f"L above {longest} needs more shared memory"):
-            tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
-        return
     before = tattn.fused_attention_bwd.launches
     routed = tattn.fused_attention_bwd.launches_by_route[ROUTE[dtype]]
     got = tattn.fused_attention_bwd(qkv, do, 2, mask, layout=layout)
@@ -260,28 +246,55 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
         tattn.fused_attention_bwd(qkv, do.transpose(0, 1).contiguous().transpose(0, 1), 2)
     with pytest.raises(ValueError, match="head widths"):
         tattn.fused_attention_bwd(_qkv(card, 2, 17, 2, 32, torch.float32), do[..., :64], 2)
-    with pytest.raises(ValueError, match="L above 384 needs more shared memory"):
-        tattn.fused_attention_bwd(_qkv(card, 1, 400, 1, 64, torch.bfloat16),
-                                  torch.zeros(1, 400, 64, device=card, dtype=torch.bfloat16), 1)
+    # no length is refused: bf16 L 400 at dh 64, past the 384 rows the
+    # backward stages whole, runs on "tc"
+    qkv = _qkv(card, 1, 400, 1, 64, torch.bfloat16, seed=400)
+    do = _qkv(card, 1, 400, 1, 64, torch.bfloat16, seed=401)[..., :64].contiguous()
+    routed = tattn.fused_attention_bwd.launches_by_route["tc"]
+    got = tattn.fused_attention_bwd(qkv, do, 1)
+    want = tattn.attention_bwd_plain(qkv, do, 1)
+    torch.cuda.synchronize()
+    assert tattn.fused_attention_bwd.launches_by_route["tc"] == routed + 1
+    assert _bwd_err(got, want) <= BWD_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("length,dh", [(418, 64), (442, 64), (1000, 64), (215, 128), (600, 128)])
-def test_fp32_kernels_take_any_length(card, length, dh):
-    """The fp32 kernels stream their key (or query) tiles, so shared memory
-    does not grow with L: past the 417 (dh 64) and 214 (dh 128) the CUDA-core
-    kernels stopped at, both directions run and match their plain versions,
-    causal mask included."""
-    qkv = _qkv(card, 2, length, 2, dh, torch.float32, seed=length)
-    do = _qkv(card, 2, length, 2, dh, torch.float32, seed=length + 1)[..., :2 * dh].contiguous()
+def test_kernels_take_any_length(card, length, dh, dtype):
+    """Shared memory does not grow with L in either family: the fp32
+    kernels stream their key (or query) tiles, past the 417 (dh 64) and 214
+    (dh 128) the CUDA-core kernels stopped at; the bf16 ones stream chunks
+    past the 800 / 384 rows (dh 64, forward / backward) and 416 / 208 (dh
+    128) they stage whole. Both directions run on their dtype's route and
+    match their plain versions, causal mask included."""
+    qkv = _qkv(card, 2, length, 2, dh, dtype, seed=length)
+    do = _qkv(card, 2, length, 2, dh, dtype, seed=length + 1)[..., :2 * dh].contiguous()
     mask = _causal(card, length)
+    counters = (tattn.fused_attention, tattn.fused_attention_bwd)
+    before = [fn.launches_by_route[ROUTE[dtype]] for fn in counters]
     got = tattn.fused_attention(qkv, 2, mask)
     want = tattn.attention_plain(qkv, 2, mask)
     dgot = tattn.fused_attention_bwd(qkv, do, 2, mask)
     dwant = tattn.attention_bwd_plain(qkv, do, 2, mask)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= TOL[torch.float32]
-    assert _bwd_err(dgot, dwant) <= BWD_TOL[torch.float32]
+    assert [fn.launches_by_route[ROUTE[dtype]] for fn in counters] == [n + 1 for n in before]
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _bwd_err(dgot, dwant) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,dh", [(442, 64), (1000, 64), (600, 128)])
+def test_streamed_bf16_kernels_are_deterministic(card, length, dh):
+    """Past the rows they stage whole the bf16 kernels carry every running
+    value across chunks in a fixed order: two launches give the same bits."""
+    qkv = _qkv(card, 4, length, 2, dh, torch.bfloat16, seed=length + 2)
+    do = _qkv(card, 4, length, 2, dh, torch.bfloat16, seed=length + 3)[..., :2 * dh].contiguous()
+    mask = _causal(card, length)
+    outs = [tattn.fused_attention(qkv, 2, mask) for _ in range(2)]
+    grads = [tattn.fused_attention_bwd(qkv, do, 2, mask) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*outs) and torch.equal(*grads)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,12 @@ the host emulation in ``tests/cuda_emulation/`` and held to
 rounding order here; whether nvcc takes the source and what the card's
 tensor cores sum in which order is for ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` on the card. B 2, 2 heads, lengths at every padding edge
-of the 16-row blocks: this file holds lengths 1, 15 and 16 and the vehicle
-length 257; ``test_torch_kernel_emulation_l{17,77_packed,77_head_major,129}.py``
-hold the rest of ``CASES``.
+of the 16-row blocks: this file holds lengths 1, 15 and 16, the vehicle
+length 257 and the shared memory the kernels ask for;
+``test_torch_kernel_emulation_l{17,77_packed,77_head_major,129}.py`` hold
+the rest of ``CASES`` up to L 129, ``_l442.py`` and ``_l224.py`` the two
+lengths past the rows the backward stages whole (B 1), and ``_chunked.py``
+the chunked instances forced to short chunks.
 
 The fp32 kernels (``kernels/csrc/attention_{fwd,bwd}.cu``: products in
 three TF32 passes on ``mma.sync``, keys or queries streamed through shared
@@ -36,6 +39,24 @@ from mpreid_tpu_torch.ops import attention as tattn
 @pytest.mark.parametrize("length,dh,masked,layout", SHARES[""])
 def test_emulated_tc_kernels_match_plain(kernels, length, dh, masked, layout):
     check_tc_case(kernels, length, dh, masked, layout)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_emulated_tc_kernels_need_bounded_shared_memory(kernels, dh):
+    """A block's shared memory stays within the 232,448 bytes it may use at
+    every length: past the rows they stage whole the tensor-core kernels
+    stream the sequence in chunks, and the backward's row statistics go
+    through a scratch array, so their needs stop growing with L. The
+    backward asks for that scratch only where it streams."""
+    limit = 232448
+    for length in (385, 442, 1000, 4096):
+        assert 0 < kernels["fwd_smem"](length, dh) <= limit
+        assert 0 < kernels["bwd_smem"](length, dh) <= limit
+    assert kernels["fwd_smem"](4096, dh) == kernels["fwd_smem"](1000 if dh == 64 else 600, dh)
+    assert kernels["bwd_smem"](4096, dh) == kernels["bwd_smem"](442, dh)
+    assert kernels["bwd_scratch"](2, 129, 12, dh) == 0
+    assert kernels["bwd_scratch"](2, 442, 12, dh) == 3 * 2 * 12 * 448
+    assert kernels["fwd_smem"](129, 96) == kernels["bwd_smem"](129, 96) == 0
 
 
 def test_emulated_bwd_kernel_at_the_vehicle_length(kernels):
