@@ -30,6 +30,8 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from mpreid_tpu_torch.utils.tracing import span
+
 from .base import ReIDDataset, Record
 from .datasets import build_dataset
 from .sampler import RandomIdentitySampler, shard_for_host
@@ -147,21 +149,24 @@ class ImageBatcher:
         return list(self.pool.map(self._decode, recs))
 
     def _load_batch(self, indices: Sequence[int]) -> Dict:
-        recs = [self.records[i] for i in indices]
-        images = self.decode_records(recs)
-        count = len(recs)
-        pad = self.batch_size - count
-        if pad:
-            images.extend([np.zeros((*self.size_hw, 3), np.uint8)] * pad)
-            recs = recs + [recs[-1]] * pad
-        return {
-            "images": np.stack(images),
-            "pids": np.asarray([r[1] for r in recs], np.int32),
-            "camids": np.asarray([r[2] for r in recs], np.int32),
-            "trackids": np.asarray([r[3] for r in recs], np.int32),
-            "paths": [r[0] for r in recs],
-            "count": count,
-        }
+        """One batch decoded and stacked: the span ``loader.batch``, on the
+        prefetch thread."""
+        with span("loader.batch"):
+            recs = [self.records[i] for i in indices]
+            images = self.decode_records(recs)
+            count = len(recs)
+            pad = self.batch_size - count
+            if pad:
+                images.extend([np.zeros((*self.size_hw, 3), np.uint8)] * pad)
+                recs = recs + [recs[-1]] * pad
+            return {
+                "images": np.stack(images),
+                "pids": np.asarray([r[1] for r in recs], np.int32),
+                "camids": np.asarray([r[2] for r in recs], np.int32),
+                "trackids": np.asarray([r[3] for r in recs], np.int32),
+                "paths": [r[0] for r in recs],
+                "count": count,
+            }
 
     def iter_indices(self, order: Sequence[int], drop_last: bool = False) -> Iterator[Dict]:
         n = len(order)

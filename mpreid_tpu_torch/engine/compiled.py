@@ -53,7 +53,9 @@ How a step is captured:
   body's Python once and no kernel; it changes no host state but the
   kernels' launch counters, which are put back and then counted again for
   every replay (``COUNTED``). A runner's ``capture_seconds`` sums the host
-  time of its captures (instantiation included), apart from any replay.
+  time of its captures (instantiation included), apart from any replay:
+  the durations of its ``compiled.capture`` spans, which time themselves
+  whether or not a profiler records.
 
 One graph at a time per runner: a new key that captures (a model rebuilt
 by ``switch_to_moe``, parameters given new storage, another batch width)
@@ -71,11 +73,18 @@ On the CPU (which only a caller that puts the model there gets) the same
 decisions run with a stand-in for the graph whose replay calls the body
 eagerly on the static inputs and copies its outputs into the static ones,
 so the CPU tests cover all of it but the capture itself.
+
+Spans (``utils/tracing.py``, recorded under a profiler): a call is
+``compiled.step``, an epoch ``compiled.epoch``; inside them
+``compiled.key`` (the key, ``storage_key`` over the bound tensors),
+``compiled.upload`` (host inputs, or the epoch's rows, onto the device),
+``compiled.warmup`` (an eager call or row), ``compiled.capture``,
+``compiled.replay`` (one replay; an epoch's row copy into ``idx`` and the
+copy of its outputs with it) and ``compiled.outputs`` (a step's clones).
 """
 
 from __future__ import annotations
 
-import time
 from contextlib import nullcontext
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -83,6 +92,7 @@ import torch
 
 from mpreid_tpu_torch.models.vit import RematDraws
 from mpreid_tpu_torch.ops import adam, attention, batch_hard, pairwise
+from mpreid_tpu_torch.utils.tracing import span, timed
 
 WARMUP_STEPS = 2
 KEYS_KEPT = 8  # the keys a CompiledStep counts calls of (the oldest forgotten first)
@@ -198,29 +208,31 @@ class _Graphed:
         recomputes. Nothing runs until the first ``_replay``."""
         self.stats["captures"] += 1
         if self.device.type == "cpu":
-            self.graph, self.key, self.static, self.per_replay = _EagerGraph(fn), key, (), {}
+            with timed("compiled.capture") as clock:
+                self.graph, self.key, self.static, self.per_replay = _EagerGraph(fn), key, (), {}
+            self.capture_seconds += clock.seconds
             return
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first: what it adds is the pool
         reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            draws = draws if draws is not None else RematDraws(gen)
-            graph.register_generator_state(gen)
-            draws.register(graph)
-        before = _counts()
-        current, side = torch.cuda.current_stream(self.device), side_stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"), \
-                draws.capturing() if draws is not None else nullcontext():
-            static = tuple(v.detach() for v in fn())
-        after = _counts()
-        self.per_replay = {k: after[k] - before[k] for k in after}
-        _add_counts({k: -c for k, c in self.per_replay.items()})  # the capture launched none
-        self.graph, self.key, self.static = graph, key, static
-        self.draws = draws if draws is not None and draws.clones else None
-        self.capture_seconds += time.perf_counter() - t0
+        with timed("compiled.capture") as clock:
+            graph = torch.cuda.CUDAGraph()
+            if gen is not None:
+                draws = draws if draws is not None else RematDraws(gen)
+                graph.register_generator_state(gen)
+                draws.register(graph)
+            before = _counts()
+            current, side = torch.cuda.current_stream(self.device), side_stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"), \
+                    draws.capturing() if draws is not None else nullcontext():
+                static = tuple(v.detach() for v in fn())
+            after = _counts()
+            self.per_replay = {k: after[k] - before[k] for k in after}
+            _add_counts({k: -c for k, c in self.per_replay.items()})  # the capture launched none
+            self.graph, self.key, self.static = graph, key, static
+            self.draws = draws if draws is not None and draws.clones else None
+        self.capture_seconds += clock.seconds
         self.stats["pool_bytes"] = torch.cuda.memory_reserved(self.device) - reserved
 
     def _replay(self) -> None:
@@ -259,12 +271,17 @@ class CompiledStep(_Graphed):
         input); ``body`` draws only from ``gen``, and ``bound`` holds every
         tensor it reads or updates in place other than its inputs and its
         own temporaries."""
+        with span("compiled.step"):
+            return self._call(body, inputs, gen, bound)
+
+    def _call(self, body, inputs, gen, bound) -> Tuple[torch.Tensor, ...]:
         host = tuple(None if a is None else torch.as_tensor(a) for a in inputs)
         if self.eager:
             self.stats["eager_steps"] += 1
             return tuple(body(*self._upload(host)))
-        key = (tuple(None if a is None else (tuple(a.shape), a.dtype) for a in host),
-               None if gen is None else id(gen), storage_key(bound))
+        with span("compiled.key"):
+            key = (tuple(None if a is None else (tuple(a.shape), a.dtype) for a in host),
+                   None if gen is None else id(gen), storage_key(bound))
         if self.graph is not None and key == self.key:
             return self._replay_with(host)
         calls = self.seen.pop(key, 0) + 1
@@ -276,7 +293,8 @@ class CompiledStep(_Graphed):
             draws = None
             if gen is not None and calls == WARMUP_STEPS and self.device.type == "cuda":
                 draws = self._draws[key] = RematDraws(gen)
-            return self._warm_up(lambda: body(*self._upload(host)), draws)
+            with span("compiled.warmup"):
+                return self._warm_up(lambda: body(*self._upload(host)), draws)
         draws = self._draws.pop(key, None)
         seen = self.seen
         self.release()
@@ -290,14 +308,17 @@ class CompiledStep(_Graphed):
     def _replay_with(self, host) -> Tuple[torch.Tensor, ...]:
         """Copy ``host`` into the static inputs, replay, and return copies of
         the static outputs."""
-        for buf, a in zip(self.inputs, host):
-            if buf is not None:
-                buf.copy_(a, non_blocking=True)
-        self._replay()
-        out = []
-        for v in self.static:
-            with torch.inference_mode(v.is_inference()):
-                out.append(v.clone())
+        with span("compiled.upload"):
+            for buf, a in zip(self.inputs, host):
+                if buf is not None:
+                    buf.copy_(a, non_blocking=True)
+        with span("compiled.replay"):
+            self._replay()
+        with span("compiled.outputs"):
+            out = []
+            for v in self.static:
+                with torch.inference_mode(v.is_inference()):
+                    out.append(v.clone())
         return tuple(out)
 
 
@@ -325,31 +346,39 @@ class CompiledEpoch(_Graphed):
         a 0-dim tensor) stacked over the rows, on the device. ``step`` draws
         only from ``gen``; ``bound`` holds every tensor it reads or updates
         in place other than its own temporaries and ``idx``."""
-        rows = torch.as_tensor(rows).to(self.device, torch.int64)
+        with span("compiled.epoch"):
+            return self._run(step, rows, gen, bound)
+
+    def _run(self, step, rows, gen, bound) -> Tuple[torch.Tensor, ...]:
+        with span("compiled.upload"):
+            rows = torch.as_tensor(rows).to(self.device, torch.int64)
         n, width = rows.shape
         if n == 0:
             raise RuntimeError("an epoch of no batches")
         outs: List[Optional[torch.Tensor]] = [None]
         first = 0
-        key = (width, None if gen is None else id(gen), storage_key(bound))
+        with span("compiled.key"):
+            key = (width, None if gen is None else id(gen), storage_key(bound))
         if self.graph is None or self.key != key:
             self.release()
             idx = self._index(width)
             w = min(WARMUP_STEPS, n)
             draws = RematDraws(gen) if gen is not None and self.device.type == "cuda" else None
             for i in range(w):
-                idx.copy_(rows[i])
-                self._keep(outs, i, n, self._warm_up(lambda: step(idx),
-                                                     draws if i == w - 1 else None))
+                with span("compiled.warmup"):
+                    idx.copy_(rows[i])
+                    self._keep(outs, i, n, self._warm_up(lambda: step(idx),
+                                                         draws if i == w - 1 else None))
             if w == n:
                 return tuple(outs[0])
             self._capture(lambda: step(idx), key, gen, draws)
             first = w
         idx = self.idx
         for i in range(first, n):
-            idx.copy_(rows[i])
-            self._replay()
-            self._keep(outs, i, n, self.static)
+            with span("compiled.replay"):
+                idx.copy_(rows[i])
+                self._replay()
+                self._keep(outs, i, n, self.static)
         return tuple(outs[0])
 
     @staticmethod

@@ -12,6 +12,12 @@ raises without a card rather than compute on the CPU unasked). With
 ``reranking``, corpora of at most ``rerank_sparse_n`` rows take the dense
 re-ranking (``rerank_fast``: the quantized min-sum), larger ones the
 sparse-V re-ranking with the quantized min-sum.
+
+Spans (``utils/tracing.py``, recorded under a profiler): ``evaluator.update``
+a batch's features kept; ``evaluator.compute``, and inside it
+``evaluator.distances`` (the distances or the re-ranking),
+``evaluator.cmc_map`` (the labels' upload, CMC and mAP) and
+``evaluator.fetch`` (the results copied to the host).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from mpreid_tpu_torch.ops import (
     cmc_map, cosine_distmat, euclidean_squared_distmat, re_ranking, re_ranking_sparse,
 )
 from mpreid_tpu_torch.utils.device import resolve_device
+from mpreid_tpu_torch.utils.tracing import span
 
 
 class R1mAPEvaluator:
@@ -55,14 +62,19 @@ class R1mAPEvaluator:
         self.camids: List[np.ndarray] = []
 
     def update(self, output):
-        feat, pid, camid = output
-        if not isinstance(feat, torch.Tensor):
-            feat = torch.as_tensor(np.asarray(feat), device=resolve_device(self.device))
-        self.feats.append(feat.float())
-        self.pids.append(np.asarray(pid))
-        self.camids.append(np.asarray(camid))
+        with span("evaluator.update"):
+            feat, pid, camid = output
+            if not isinstance(feat, torch.Tensor):
+                feat = torch.as_tensor(np.asarray(feat), device=resolve_device(self.device))
+            self.feats.append(feat.float())
+            self.pids.append(np.asarray(pid))
+            self.camids.append(np.asarray(camid))
 
     def compute(self):
+        with span("evaluator.compute"):
+            return self._compute()
+
+    def _compute(self):
         feats = torch.cat(self.feats, dim=0)
         pids = np.concatenate(self.pids)
         camids = np.concatenate(self.camids)
@@ -75,32 +87,35 @@ class R1mAPEvaluator:
             raise AssertionError("Error: all query identities do not appear in gallery")
         q_camids, g_camids = camids[: self.num_query], camids[self.num_query:]
 
-        if self.reranking:
-            k1, k2, lam = self.rerank_params
-            if feats.shape[0] > self.rerank_sparse_n:
-                # corpora whose N×N matrices do not fit (MSMT17, N ≈ 94k)
-                distmat = re_ranking_sparse(qf, gf, k1=k1, k2=k2, lambda_value=lam,
-                                            minsum="quantized")
+        with span("evaluator.distances"):
+            if self.reranking:
+                k1, k2, lam = self.rerank_params
+                if feats.shape[0] > self.rerank_sparse_n:
+                    # corpora whose N×N matrices do not fit (MSMT17, N ≈ 94k)
+                    distmat = re_ranking_sparse(qf, gf, k1=k1, k2=k2, lambda_value=lam,
+                                                minsum="quantized")
+                else:
+                    distmat = re_ranking(qf, gf, k1=k1, k2=k2, lambda_value=lam,
+                                         fast_minsum=self.rerank_fast)
+            elif self.dist_metric == "cosine":
+                distmat = cosine_distmat(qf, gf)
             else:
-                distmat = re_ranking(qf, gf, k1=k1, k2=k2, lambda_value=lam,
-                                     fast_minsum=self.rerank_fast)
-        elif self.dist_metric == "cosine":
-            distmat = cosine_distmat(qf, gf)
-        else:
-            distmat = euclidean_squared_distmat(qf, gf)
+                distmat = euclidean_squared_distmat(qf, gf)
 
         def dev(a):
             return torch.as_tensor(a, device=distmat.device)
 
-        cmc, mAP = cmc_map(distmat, dev(q_pids), dev(g_pids), dev(q_camids),
-                           dev(g_camids), max_rank=self.max_rank,
-                           camera_filter=self.camera_filter)
-        return (
-            cmc.cpu().numpy(),
-            float(mAP),
-            distmat.cpu().numpy(),
-            pids,
-            camids,
-            qf.cpu().numpy(),
-            gf.cpu().numpy(),
-        )
+        with span("evaluator.cmc_map"):
+            cmc, mAP = cmc_map(distmat, dev(q_pids), dev(g_pids), dev(q_camids),
+                               dev(g_camids), max_rank=self.max_rank,
+                               camera_filter=self.camera_filter)
+        with span("evaluator.fetch"):
+            return (
+                cmc.cpu().numpy(),
+                float(mAP),
+                distmat.cpu().numpy(),
+                pids,
+                camids,
+                qf.cpu().numpy(),
+                gf.cpu().numpy(),
+            )

@@ -32,7 +32,12 @@ writes a ``torch.profiler`` trace (CPU activity, and CUDA's on the card) of
 steps 1..``TPU.PROFILE_STEPS`` of epoch 1, or with ``DEVICE_DATASET`` of
 the whole second epoch, into that directory. On the card the step loop's
 trace holds step 1 eager (the second warm-up step), step 2's capture and
-first replay, and replays after it.
+first replay, and replays after it. The trace carries the port's spans
+(``utils/tracing.py``) as host ranges: ``train.epoch`` (the
+device epoch's call; in the step loop only when a profiler is on from the
+epoch's start), ``train.fetch`` (the losses' ``.tolist()``, ``drain``),
+``validation.pass`` and those of the layers below (``steps.*``,
+``compiled.*``, ``evaluator.*``, ``loader.batch``).
 
 The mesh (ref processor.py:186-201, :69-100): under a process group of
 more than one rank (``parallel.init_distributed``, torchrun) and
@@ -85,6 +90,7 @@ from mpreid_tpu_torch.utils.checkpoint import (
     load_checkpoint, restore_state, save_checkpoint, wait_for_pending_saves,
 )
 from mpreid_tpu_torch.utils.meter import AverageMeter
+from mpreid_tpu_torch.utils.tracing import span
 
 from .evaluator import R1mAPEvaluator
 from .steps import make_eval_step, make_train_epoch, make_train_step
@@ -283,7 +289,13 @@ def run_validation(cfg, model, val_loader, num_query, logger=None,
     Under ``TPU.EVAL_SHARDED`` over more than one rank, without
     ``TEST.RE_RANKING``, the metrics come from ``sharded_gallery_metrics``
     over the data group of ``mesh`` (the training mesh; none with a data
-    axis of 1) or, without one, over every rank."""
+    axis of 1) or, without one, over every rank. One pass is the span
+    ``validation.pass``."""
+    with span("validation.pass"):
+        return _validation(cfg, model, val_loader, num_query, logger, epoch, mesh)
+
+
+def _validation(cfg, model, val_loader, num_query, logger, epoch, mesh):
     sharded = (cfg.TPU.EVAL_SHARDED and world_size() > 1 and not cfg.TEST.RE_RANKING
                and (mesh is None or mesh.data > 1))
     logger = rank_logger(logger) if logger else None
@@ -409,12 +421,14 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
                 raise RuntimeError("empty training epoch — dataset smaller than one batch")
             # the second epoch: the first carries the warm-up
             prof = start_trace(device) if profile_dir and epoch == start_epoch + 1 else None
-            state, (losses, accs) = train_epoch(state, *data, perm, lr, gen)
+            with span("train.epoch"):
+                state, (losses, accs) = train_epoch(state, *data, perm, lr, gen)
             if prof is not None:
                 stop_trace(prof, profile_dir, logger)
-            for loss, acc in zip(losses.tolist(), accs.tolist()):
-                loss_meter.update(loss, batch_size)
-                acc_meter.update(acc, 1)
+            with span("train.fetch"):
+                for loss, acc in zip(losses.tolist(), accs.tolist()):
+                    loss_meter.update(loss, batch_size)
+                    acc_meter.update(acc, 1)
             n_batches = len(perm)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -427,30 +441,32 @@ def train_epochs(cfg, model, train_loader, val_loader, num_query: int, train_ste
             pending = []  # device scalars, fetched only at log points
 
             def drain():
-                for m in pending:
-                    loss_meter.update(float(m["loss"]), batch_size)
-                    acc_meter.update(float(m["acc"]), 1)
-                pending.clear()
+                with span("train.fetch"):
+                    for m in pending:
+                        loss_meter.update(float(m["loss"]), batch_size)
+                        acc_meter.update(float(m["acc"]), 1)
+                    pending.clear()
 
             n_iter = -1
             prof = None
-            for n_iter, batch in enumerate(train_loader.epoch(epoch)):
-                if profile_dir and epoch == 1 and n_iter == 1:
-                    prof = start_trace(device)
-                state, metrics = train_step(state, batch, lr, gen)
-                pending.append(metrics)
-                if prof is not None and n_iter == cfg.TPU.PROFILE_STEPS:
+            with span("train.epoch"):  # recorded when a profiler is on from the epoch's start
+                for n_iter, batch in enumerate(train_loader.epoch(epoch)):
+                    if profile_dir and epoch == 1 and n_iter == 1:
+                        prof = start_trace(device)
+                    state, metrics = train_step(state, batch, lr, gen)
+                    pending.append(metrics)
+                    if prof is not None and n_iter == cfg.TPU.PROFILE_STEPS:
+                        stop_trace(prof, profile_dir, logger)
+                        prof = None
+                    if (n_iter + 1) % log_period == 0:
+                        drain()
+                        logger.info(
+                            "Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Acc: {:.3f}, Base Lr: {:.2e}"
+                            .format(epoch, n_iter + 1, len(train_loader), loss_meter.avg,
+                                    acc_meter.avg, lr))
+                if prof is not None:  # the epoch ended inside the traced steps
                     stop_trace(prof, profile_dir, logger)
-                    prof = None
-                if (n_iter + 1) % log_period == 0:
-                    drain()
-                    logger.info(
-                        "Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Acc: {:.3f}, Base Lr: {:.2e}"
-                        .format(epoch, n_iter + 1, len(train_loader), loss_meter.avg,
-                                acc_meter.avg, lr))
-            if prof is not None:  # the epoch ended inside the traced steps
-                stop_trace(prof, profile_dir, logger)
-            drain()
+                drain()
             if n_iter < 0:
                 raise RuntimeError("empty training epoch — dataset smaller than one batch")
             if device.type == "cuda":

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import logging
 import weakref
+from contextlib import nullcontext
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -59,6 +60,7 @@ from mpreid_tpu_torch.parallel import collectives as C
 from mpreid_tpu_torch.parallel.dist import is_main, world_size
 from mpreid_tpu_torch.parallel.mesh import global_batch
 from mpreid_tpu_torch.solver.optim import CenterOptimizer
+from mpreid_tpu_torch.utils.tracing import span
 
 from .compiled import CompiledEpoch, CompiledStep
 from .train_state import TrainState
@@ -314,8 +316,6 @@ def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
 
     def epoch(state: TrainState, images, pids, camids, trackids, perm, lr: float,
               gen: torch.Generator):
-        optimizer.set_lr(state.opt_state, lr)
-
         def step(idx):
             cam = camids.index_select(0, idx) if sie_cam else None
             view = trackids.index_select(0, idx) if sie_view else None
@@ -323,8 +323,10 @@ def make_train_epoch(model, cfg, loss_fn: Callable, optimizer,
                               cam, view, gen)
             return metrics["loss"], metrics["acc"]
 
-        losses, accs = compiled.run(step, perm, gen, [*state_tensors(state), images, pids,
-                                                      camids, trackids])
+        with span("steps.train_epoch"):
+            optimizer.set_lr(state.opt_state, lr)
+            losses, accs = compiled.run(step, perm, gen, [*state_tensors(state), images, pids,
+                                                          camids, trackids])
         return state, (losses, accs)
 
     epoch.compiled = compiled
@@ -353,10 +355,10 @@ def _make_eval_body(model_of: Callable, cfg, feat_norm: bool = False):
 
 
 def model_step(model, make_body: Callable, inputs: Callable, what: str, weak: bool = False,
-               one: bool = False):
+               one: bool = False, span_name: Optional[str] = None):
     """→ ``step(*args)``: ``make_body(model_of)``'s outputs (with ``one`` its
     only output) for the inputs ``inputs(*args)`` (numpy arrays, tensors or
-    None), through a
+    None), under the span ``span_name`` where one is given, through a
     ``CompiledStep`` keyed on their shapes and on the storage of every
     parameter and buffer of the model (``step.compiled``; ``step.release()``
     frees its graph). ``model_of()`` is the model, held through a weak
@@ -371,7 +373,8 @@ def model_step(model, make_body: Callable, inputs: Callable, what: str, weak: bo
     compiled = CompiledStep(_device_of(model), eager=eager)
 
     def step(*args):
-        out = compiled(body, inputs(*args), bound=module_tensors(model_of()))
+        with span(span_name) if span_name else nullcontext():
+            out = compiled(body, inputs(*args), bound=module_tensors(model_of()))
         return out[0] if one else out
 
     step.compiled = compiled
@@ -391,7 +394,7 @@ def make_eval_step(model, cfg, weak: bool = False, feat_norm: bool = False):
     is unchanged."""
     return model_step(model, lambda model_of: _make_eval_body(model_of, cfg, feat_norm),
                       lambda batch: (batch["images"], *labels_for(cfg, batch)), "eval step",
-                      weak, one=True)
+                      weak, one=True, span_name="steps.eval_step")
 
 
 def _make_bank_body(model, cfg):
@@ -499,12 +502,12 @@ def make_stage1_step(model, cfg, optimizer, stage: str):
     compiled = CompiledStep(_device_of(model))
 
     def step(state: TrainState, image_feats, target, views, lr: float):
-        optimizer.set_lr(state.opt_state, lr)
-
         def run(feats, target, views):
             return (body(state, feats, target.long(), None if views is None else views.long()),)
 
-        (loss,) = compiled(run, (image_feats, target, views), bound=state_tensors(state))
+        with span("steps.stage1_step"):
+            optimizer.set_lr(state.opt_state, lr)
+            (loss,) = compiled(run, (image_feats, target, views), bound=state_tensors(state))
         return state, {"loss": loss}
 
     step.compiled = compiled
@@ -531,15 +534,15 @@ def make_stage1_epoch(model, cfg, optimizer, stage: str):
     compiled = CompiledEpoch(_device_of(model))
 
     def epoch(state: TrainState, feats_bank, labels_bank, views_bank, perm, lr: float):
-        optimizer.set_lr(state.opt_state, lr)
-
         def step(idx):
             views = views_bank.index_select(0, idx).long() if stage == "1b" else None
             return (body(state, feats_bank.index_select(0, idx),
                          labels_bank.index_select(0, idx).long(), views),)
 
-        (losses,) = compiled.run(step, perm, None, [*state_tensors(state), feats_bank,
-                                                     labels_bank, views_bank])
+        with span("steps.stage1_epoch"):
+            optimizer.set_lr(state.opt_state, lr)
+            (losses,) = compiled.run(step, perm, None, [*state_tensors(state), feats_bank,
+                                                         labels_bank, views_bank])
         return state, losses
 
     epoch.compiled = compiled

@@ -16,7 +16,9 @@ batches; the views enter in 1b only. The bank and the text features run
 through graphed steps too (``make_image_bank_step``, ``make_text_step``),
 each released when its pass ends. The epoch's losses come
 back once, at its end, and are logged at the same iterations as the JAX
-package logs them.
+package logs them. Spans (``utils/tracing.py``, under a profiler):
+``stage1.epoch`` (one epoch), inside it ``stage1.fetch`` (losses fetched to
+the host) and ``stage1.trailing`` (the partial batch's step and its fetch).
 Stage 2 (a/b): text features of every class are computed once, then the
 model fine-tunes with ID + triplet + i2t losses (and, with the MoE tower,
 the load-balancing loss) under the stage's freeze policy, through the
@@ -49,6 +51,7 @@ import torch
 
 from mpreid_tpu_torch.utils.checkpoint import save_checkpoint, wait_for_pending_saves
 from mpreid_tpu_torch.utils.meter import AverageMeter
+from mpreid_tpu_torch.utils.tracing import span
 
 from mpreid_tpu_torch.parallel import is_main
 
@@ -119,22 +122,28 @@ def do_train_stage1(cfg, model, train_loader_stage1, optimizer,
         loss_meter.reset()
         lr = scheduler(epoch)
         perm = rng.permutation(num_image)
-        # the full batches as one compiled epoch ...
-        if i_ter > 0:
-            rows = perm[:i_ter * batch].reshape(i_ter, batch)
-            state, losses = epoch_fn(state, feats_bank, labels_bank, views_bank, rows, lr)
-            for i, loss in enumerate(losses.tolist()):
-                loss_meter.update(loss, batch)
-                if (i + 1) % stage_cfg.LOG_PERIOD == 0:
-                    log.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
-                        epoch, i + 1, i_ter + 1, loss_meter.avg, lr))
-        # ... and the trailing partial batch through the single step
-        rest = perm[i_ter * batch:]
-        if len(rest):
-            sel = torch.from_numpy(rest).to(device)
-            state, metrics = step(state, feats_bank[sel], labels_bank[sel],
-                                  views_bank[sel] if is_stage1b else None, lr)
-            loss_meter.update(float(metrics["loss"]), len(rest))
+        with span("stage1.epoch"):
+            # the full batches as one compiled epoch ...
+            if i_ter > 0:
+                rows = perm[:i_ter * batch].reshape(i_ter, batch)
+                state, losses = epoch_fn(state, feats_bank, labels_bank, views_bank, rows, lr)
+                with span("stage1.fetch"):
+                    losses = losses.tolist()
+                for i, loss in enumerate(losses):
+                    loss_meter.update(loss, batch)
+                    if (i + 1) % stage_cfg.LOG_PERIOD == 0:
+                        log.info("Epoch[{}] Iteration[{}/{}] Loss: {:.3f}, Base Lr: {:.2e}".format(
+                            epoch, i + 1, i_ter + 1, loss_meter.avg, lr))
+            # ... and the trailing partial batch through the single step
+            rest = perm[i_ter * batch:]
+            if len(rest):
+                with span("stage1.trailing"):
+                    sel = torch.from_numpy(rest).to(device)
+                    state, metrics = step(state, feats_bank[sel], labels_bank[sel],
+                                          views_bank[sel] if is_stage1b else None, lr)
+                    with span("stage1.fetch"):
+                        loss = float(metrics["loss"])
+                loss_meter.update(loss, len(rest))
         history.append({"epoch": epoch, "loss": loss_meter.avg})
         if cfg.OUTPUT_DIR and epoch % stage_cfg.CHECKPOINT_PERIOD == 0 and is_main():
             name = f"{cfg.MODEL.NAME}_stage{stage}_{epoch}.pth"

@@ -311,6 +311,10 @@ def test_profile_dir_writes_a_trace_and_leaves_the_results_unchanged(trees, tmp_
     assert any(n.startswith("aten::") for n in names)
     # the device epoch traces whole steps: every one of its batches' optimizer steps
     assert ("aten::index_select" in names) == device_dataset
+    # the port's spans ride in the trace (utils/tracing.py)
+    assert names >= ({"train.epoch", "steps.train_epoch", "compiled.epoch", "compiled.replay"}
+                     if device_dataset else
+                     {"compiled.step", "compiled.warmup", "compiled.capture", "compiled.replay"})
 
 
 def test_stage2_ignores_profile_dir(trees, tmp_path, caplog):
