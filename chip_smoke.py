@@ -23,7 +23,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    (whole-sequence and chunked instances) at dh 64)
    and the Adam leaf update (a c_fc leaf, fp32/bf16 moments, Adam/AdamW;
    its step scalars [lr·mult, 1 − b1^t, 1 − b2^t] read from device memory;
-   two launches bit-equal); the L1 and min-sum kernels; the batch-hard
+   two launches bit-equal), and the Adam table (``adam_leaves``: one
+   ``multi_adam_kernel`` launch over stage 2a's 161 trainable leaves, the
+   Uni-Prompt ViT-B/16's) bit for bit against the per-op update of every leaf
+   (``adam_leaf_plain``) and against ``SOLVER.FUSED_ADAM``'s route (the 53
+   leaves of at least ``MIN_FUSED_SIZE`` elements on the per-leaf kernel, the
+   rest in the table), each timed beside ``torch.optim.Adam(fused=True)`` on
+   the same leaves and the bound; the L1 and min-sum kernels; the batch-hard
    kernel (the PK batch 64 × 768 in fp32 and bf16, ragged, grid cases, 600
    rows in two tiles; timed at B 64, 128 and 512 × 768 beside
    ``torch.cdist`` and an empty kernel launched the same way, the launch
@@ -38,7 +44,8 @@ Phases, in order; any failure raises and the exit code is not 0:
    a warm-up step, then timed steps, counting the attention kernels'
    launches; one short epoch through ``engine.processor.do_train`` over a
    ``TrainLoader``; then steps with ``SOLVER.FUSED_ADAM`` on, counting the
-   Adam kernel's launches, and one fused update against the plain one; then
+   Adam kernel's launches, and one fused update against the per-op update of
+   every leaf; then
    three train steps of configs/veri/vit_base.yml (ViT-B/16 at 256×256, L
    257, 576 classes), whose attention backward an earlier fp32 kernel refused;
    then three of the same configuration at ``MODEL.STRIDE_SIZE [12, 12]`` (L
@@ -284,7 +291,12 @@ captured graph from their third call with a key on, the epochs of phases
 8, 9, 10, 11 and 16 that run through ``do_train_stage1`` or a
 device-resident ``do_train`` / ``do_train_stage2`` from their third step;
 the steps over a mesh of more than one rank (phases 14 and 15) stay eager.
-A replay's kernel launches count once for every replay.
+A replay's kernel launches count once for every replay. Every Adam update
+on the card launches the table once (``adam_table``; every optimizer here
+has fewer than TABLE_LEAVES leaves in it), beside the per-leaf kernel's
+launches where ``SOLVER.FUSED_ADAM`` is on; the stage-2a steps of phase 8,
+phase 5's steps and the replayed steps of phases 17 and 18 also count the
+leaves the table updated.
 Phase 3 also holds the attention kernels at the TTPT tuner's text batch
 (B 1,000, L 77, 8 × 64, causal, bf16), timed, and the L1 and min-sum
 kernels (re-ranking's exact Jaccard step) against their plain versions at
@@ -391,6 +403,8 @@ QUERY, GALLERY, BATCH, HW = 128, 128, 64, (256, 128)
 RUNS = 10  # timed do_inference runs of the slice
 NUM_CLASSES, P_IDS, K_INST = 751, 16, 4
 ADAM_LEAVES = 52  # ViT-B/16 ReID leaves of at least MIN_FUSED_SIZE elements
+TABLE_LEAVES = 448  # the leaves one launch of the Adam table takes (kernels/csrc/adam.cu)
+STAGE2A_LEAVES, STAGE2A_BIG = 161, 53  # stage 2a's trainable leaves; those of MIN_FUSED_SIZE
 TRAIN_STEPS = 24  # timed train steps
 FUSED_STEPS = 12
 TRAIN_IDS, TRAIN_IMGS_PER_ID = 64, 8  # in-memory train set (512 images)
@@ -786,6 +800,134 @@ def check_adam(moment_dtype: torch.dtype, decoupled: bool, timed: bool) -> dict:
     return row
 
 
+def graph_ms(fn, reps: int = 10, runs: int = 30) -> float:
+    """Median ms of one ``fn()`` over ``runs`` CUDA-event timings of a
+    replay of a CUDA graph of ``reps`` calls (two eager calls on a side
+    stream first), per call: the device's work alone, however many
+    launches ``fn`` makes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def check_adam_table() -> dict:
+    """The Adam update of stage 2a's trainable leaves (the Uni-Prompt
+    ViT-B/16 of configs/ours/cctv_ir_cctv_rgb.yml's settings: fp32
+    parameters, gradients and moments, Adam, lr multipliers 1 and 2) on the
+    card, three ways from one state: ``adam_leaves`` over every leaf (one
+    launch, the route with ``SOLVER.FUSED_ADAM`` off), ``fused_adam_leaf``
+    on the leaves of at least MIN_FUSED_SIZE elements and the table on the
+    rest (the route with it on), and ``adam_leaf_plain`` on every leaf (the
+    per-op update): both routes bit for bit the per-op one. Each is timed
+    as a train step runs it, replayed in a CUDA graph (``graph_ms``: the
+    per-op update's ~2,900 launches outrun the launch queue that
+    ``cuda_ms``'s sleep hides enqueueing behind), beside
+    ``torch.optim.Adam(fused=True, capturable=True)`` over the same leaves
+    (its math is not the port's, so it is timed, not compared) and the
+    bound: 28 bytes an element (p, m, v, g read; p, m, v written) at the
+    memory rate."""
+    dev = torch.device("cuda")
+    cfg = uniprompt_cfg()
+    with torch.device("meta"):
+        model = build_model_uniprompt(cfg, UNI_CLASSES, 14, UNI_VIEWS)
+    opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    shapes = {k: p.shape for k, p in opt.partition(model)[0].items()}
+    big = {k for k, s in shapes.items() if s.numel() >= adam.MIN_FUSED_SIZE}
+    if (len(shapes), len(big)) != (STAGE2A_LEAVES, STAGE2A_BIG):
+        raise AssertionError(f"stage 2a trains {len(shapes)} leaves, {len(big)} of at least "
+                             f"{adam.MIN_FUSED_SIZE} elements; expected {STAGE2A_LEAVES}, "
+                             f"{STAGE2A_BIG}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = {k: torch.randn(s, device=dev, generator=gen) * 0.02 for k, s in shapes.items()}
+    g = {k: torch.randn(s, device=dev, generator=gen) * 1e-3 for k, s in shapes.items()}
+    m = {k: torch.randn(s, device=dev, generator=gen) * 1e-4 for k, s in shapes.items()}
+    v = {k: torch.rand(s, device=dev, generator=gen) * 1e-7 for k, s in shapes.items()}
+    mult, wd, t = opt.lr_mult, opt.wd, 7
+    scalars = {x: torch.tensor([5e-6 * x, 1 - 0.9 ** t, 1 - 0.999 ** t], device=dev)
+               for x in set(mult.values())}
+    b = (opt.b1, opt.b2, opt.eps)
+
+    def table(ps, ms, vs, keys):
+        adam.adam_leaves([(ps[k], ms[k], vs[k], g[k], scalars[mult[k]], wd[k]) for k in keys],
+                         *b, False)
+
+    def per_leaf(ps, ms, vs):
+        for k in big:
+            adam.fused_adam_leaf(ps[k], ms[k], vs[k], g[k], scalars[mult[k]], *b, wd[k], False)
+        table(ps, ms, vs, [k for k in shapes if k not in big])
+
+    def per_op(ps, ms, vs):
+        for k in shapes:
+            adam.adam_leaf_plain(ps[k], ms[k], vs[k], g[k], scalars[mult[k]], *b, wd[k], False)
+
+    routes = {"ms": lambda *s: table(*s, shapes), "per_leaf_route_ms": per_leaf,
+              "plain_ms": per_op}
+    after = {}
+    for name, fn in routes.items():
+        state = tuple({k: x.clone() for k, x in d.items()} for d in (p, m, v))
+        reset_counts()
+        fn(*state)
+        after[name] = (state, read_counts(), table_leaves())
+    torch.cuda.synchronize()
+
+    def equal(x, y):
+        return all(torch.equal(a[k], c[k]) for a, c in zip(x, y) for k in shapes)
+
+    n = sum(s.numel() for s in shapes.values())
+    want = {"ms": {"adam_table": 1}, "per_leaf_route_ms": {"adam": len(big), "adam_table": 1},
+            "plain_ms": {}}
+    row = dict(leaves=len(shapes), elements=n, big_leaves=len(big),
+               launches={name: a[1] for name, a in after.items()},
+               table_leaves={name: a[2] for name, a in after.items()},
+               table_bit_equal_per_op=equal(after["ms"][0], after["plain_ms"][0]),
+               per_leaf_route_bit_equal_per_op=equal(after["per_leaf_route_ms"][0],
+                                                     after["plain_ms"][0]),
+               bound_ms=28 * n / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    del after
+    for name, fn in routes.items():
+        state = tuple({k: x.clone() for k, x in d.items()} for d in (p, m, v))
+        row[name] = graph_ms(lambda: fn(*state))
+        del state
+    leaves = [torch.nn.Parameter(p[k].clone()) for k in shapes]
+    groups = {}
+    for x, k in zip(leaves, shapes):
+        x.grad = g[k]
+        groups.setdefault(mult[k], []).append(x)
+    library = torch.optim.Adam([{"params": xs, "lr": torch.tensor(5e-6 * mk, device=dev)}
+                                for mk, xs in groups.items()],
+                               weight_decay=1e-4, fused=True, capturable=True)
+    row["library_ms"] = graph_ms(library.step)
+    del leaves, groups, library
+    log(f"  adam table {json.dumps(row)}")
+    for name, counts in row["launches"].items():
+        expect_counts(f"Adam table check, {name}", counts, want[name])
+    if row["table_leaves"] != {"ms": len(shapes), "per_leaf_route_ms": len(shapes) - len(big),
+                               "plain_ms": 0}:
+        raise AssertionError(f"Adam table check: leaves updated {row['table_leaves']}")
+    if not (row["table_bit_equal_per_op"] and row["per_leaf_route_bit_equal_per_op"]):
+        raise AssertionError(f"an Adam route disagrees with the per-op update: {row}")
+    return row
+
+
 def sparse_rows(rows: int, n: int, nnz: int, gen: torch.Generator) -> torch.Tensor:
     """(rows, n) fp32 on the card shaped as re-ranking's V: ``nnz`` seeded
     positive entries per row (a repeated index keeps the larger value), each
@@ -1170,19 +1312,36 @@ def pk_batches(images, pids, n: int, ids: int = P_IDS, seed: int = 3) -> list:
 
 COUNTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd,
            "adam": adam.fused_adam_leaf, "l1_cross": pairwise.l1_cross,
-           "minsum_cross": pairwise.minsum_cross, "batch_hard": bh.fused_batch_hard}
+           "minsum_cross": pairwise.minsum_cross, "batch_hard": bh.fused_batch_hard,
+           "adam_table": adam.adam_leaves}
 ROUTED = {"attention_fwd": attn.fused_attention, "attention_bwd": attn.fused_attention_bwd}
 
 
 def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+    adam.adam_leaves.leaves = 0
     for fn in ROUTED.values():
         fn.launches_by_route = dict.fromkeys(attn.ROUTES, 0)
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def table_leaves() -> int:
+    """The leaves the Adam table updated since ``reset_counts``."""
+    return adam.adam_leaves.leaves
+
+
+def routed_to_table(opt, params) -> int:
+    """The trainable leaves of ``params`` that ``opt`` updates in the Adam
+    table on the card."""
+    train, _ = opt.partition(params)
+    n = sum(opt.route(p) == "table" for p in train.values())
+    if n > TABLE_LEAVES:
+        raise AssertionError(f"{n} leaves in the Adam table: more than one launch an update")
+    return n
 
 
 def read_routes() -> dict:
@@ -1233,9 +1392,13 @@ def run_train(profile: bool) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(metrics["loss"])
-    counts = read_counts()
+    counts, leaves = read_counts(), table_leaves()
     expect_counts("train steps", counts, {"attention_fwd": depth * TRAIN_STEPS,
-                                          "attention_bwd": depth * TRAIN_STEPS, "adam": 0})
+                                          "attention_bwd": depth * TRAIN_STEPS, "adam": 0,
+                                          "adam_table": TRAIN_STEPS})
+    if leaves != routed_to_table(optimizer, model) * TRAIN_STEPS:
+        raise AssertionError(f"train steps: the Adam table updated {leaves} leaves in "
+                             f"{TRAIN_STEPS} steps, expected every trainable leaf each step")
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
@@ -1253,7 +1416,7 @@ def run_train(profile: bool) -> dict:
     res = dict(train_img_per_s=med, train_img_per_s_q1=q1, train_img_per_s_q3=q3,
                step_ms_median=float(np.median(seconds)) * 1e3, steps=TRAIN_STEPS, batch=BATCH,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
-               launches_by_route=read_routes(),
+               launches_by_route=read_routes(), table_leaves=leaves,
                changed_leaves=len(changed), trainable_leaves=len(train), losses=losses)
     log(f"train {json.dumps(res)}")
 
@@ -1270,7 +1433,8 @@ def run_train(profile: bool) -> dict:
                           QUERY, max_epochs=1)
     epoch_s = time.perf_counter() - t0
     expect_counts("do_train epoch", read_counts(), {"attention_fwd": depth * n_epoch,
-                                                    "attention_bwd": depth * n_epoch, "adam": 0})
+                                                    "attention_bwd": depth * n_epoch, "adam": 0,
+                                                    "adam_table": n_epoch})
     if not np.isfinite(history[0]["loss"]):
         raise AssertionError(f"non-finite do_train loss {history}")
     res_epoch = dict(batches=n_epoch, seconds=epoch_s, img_per_s=n_epoch * BATCH / epoch_s,
@@ -1290,15 +1454,20 @@ def run_train(profile: bool) -> dict:
         state_f, metrics = step_f(state_f, batches[i % len(batches)], lr, gen)
         torch.cuda.synchronize()
         fused_s.append(time.perf_counter() - t0)
-    fused_counts = read_counts()
+    fused_counts, fused_leaves = read_counts(), table_leaves()
     expect_counts("fused-Adam steps", fused_counts, {
         "attention_fwd": depth * FUSED_STEPS, "attention_bwd": depth * FUSED_STEPS,
-        "adam": len(big) * FUSED_STEPS})
+        "adam": len(big) * FUSED_STEPS, "adam_table": FUSED_STEPS})
+    if fused_leaves != (len(train) - len(big)) * FUSED_STEPS:
+        raise AssertionError(f"fused-Adam steps: the Adam table updated {fused_leaves} leaves "
+                             f"in {FUSED_STEPS} steps, expected the {len(train) - len(big)} "
+                             f"below MIN_FUSED_SIZE each step")
     if not np.isfinite(float(metrics["loss"])):
         raise AssertionError("non-finite loss with SOLVER.FUSED_ADAM")
     f_q1, f_med, f_q3 = (float(x) for x in np.percentile(sorted(BATCH / x for x in fused_s),
                                                          [25, 50, 75]))
     res_fused = dict(steps=FUSED_STEPS, big_leaves=len(big), launches=fused_counts,
+                     table_leaves=fused_leaves,
                      step_ms_median=float(np.median(fused_s)) * 1e3, train_img_per_s=f_med,
                      train_img_per_s_q1=f_q1, train_img_per_s_q3=f_q3,
                      **fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batches[0],
@@ -1309,25 +1478,35 @@ def run_train(profile: bool) -> dict:
     return dict(model=model, train=res, epoch=res_epoch, fused=res_fused, big_leaves=len(big))
 
 
-def fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batch, lr) -> dict:
-    """One update from the same state and gradients, fused against plain:
-    parameters within ADAM_RTOL·|p| + ADAM_ATOL_LR·lr·mult (a step that
-    differs in its last bits moves p by an ulp of p), moments within
-    ADAM_RTOL relative."""
+def fused_update_check(model, cfg, loss_fn, opt, state_f, batch, lr) -> dict:
+    """One update from the same state and gradients, ``SOLVER.FUSED_ADAM``'s
+    routes (the per-leaf kernel and the table) against the per-op update of
+    every leaf (``adam_leaf_plain``): parameters within ADAM_RTOL·|p| +
+    ADAM_ATOL_LR·lr·mult (a step that differs in its last bits moves p by an
+    ulp of p), moments within ADAM_RTOL relative; whether they are equal bit
+    for bit is reported."""
     from mpreid_tpu_torch.solver import OptState
 
     x = eval_preprocess(batch["images"], mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD)
-    _, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt_fused, x, batch["pids"].long())
-    opt_plain = make_optimizer(cfg.SOLVER, model, stage="baseline")
-    train, _ = opt_fused.partition(model)
+    _, _, grads, _ = loss_and_grads(model, cfg, loss_fn, opt, x, batch["pids"].long())
+    train, _ = opt.partition(model)
     results = []
-    for opt in (opt_fused, opt_plain):
+    for plain in (False, True):
         params = {k: p.detach().clone() for k, p in train.items()}
         st = OptState(step=state_f.opt_state.step.clone(),
                       mu={k: t.clone() for k, t in state_f.opt_state.mu.items()},
                       nu={k: t.clone() for k, t in state_f.opt_state.nu.items()},
                       lr=state_f.opt_state.lr.clone())
-        st = opt.update(grads, st, params, lr)
+        if plain:
+            opt.set_lr(st, lr)
+            st.step.add_(1)
+            scalars = opt.step_scalars(st)
+            for k, p in params.items():
+                adam.adam_leaf_plain(p, st.mu[k], st.nu[k], grads[k].contiguous(),
+                                     scalars[opt.lr_mult[k]], opt.b1, opt.b2, opt.eps, opt.wd[k],
+                                     opt.name == "AdamW")
+        else:
+            st = opt.update(grads, st, params, lr)
         results.append((params, st))
     torch.cuda.synchronize()
     (pf, sf), (pp, sp) = results
@@ -1335,14 +1514,17 @@ def fused_update_check(model, cfg, loss_fn, opt_fused, state_f, batch, lr) -> di
     def excess(a, b, atol):  # largest |a - b| over its allowance
         return ((a.float() - b.float()).abs() / (ADAM_RTOL * b.float().abs() + atol)).max().item()
 
-    p_x = max(excess(pf[k], pp[k], ADAM_ATOL_LR * lr * opt_plain.lr_mult[k]) for k in pf)
+    p_x = max(excess(pf[k], pp[k], ADAM_ATOL_LR * lr * opt.lr_mult[k]) for k in pf)
     m_x = max(excess(st_f[k], st_p[k], 1e-30) for st_f, st_p in ((sf.mu, sp.mu), (sf.nu, sp.nu))
               for k in pf)
-    p_err = max(((pf[k] - pp[k]).abs().max() / (lr * opt_plain.lr_mult[k])).item() for k in pf)
+    p_err = max(((pf[k] - pp[k]).abs().max() / (lr * opt.lr_mult[k])).item() for k in pf)
+    bits = all(torch.equal(a[k], b[k]) for a, b in ((pf, pp), (sf.mu, sp.mu), (sf.nu, sp.nu))
+               for k in pf)
     res = dict(fused_vs_plain_max_param_err_lr_units=p_err, param_err_over_allowance=p_x,
-               moment_err_over_allowance=m_x, rtol=ADAM_RTOL, atol_lr_units=ADAM_ATOL_LR)
+               moment_err_over_allowance=m_x, rtol=ADAM_RTOL, atol_lr_units=ADAM_ATOL_LR,
+               fused_vs_plain_bit_equal=bits)
     if not (p_x <= 1.0 and m_x <= 1.0):
-        raise AssertionError(f"fused Adam update disagrees with the plain one: {res}")
+        raise AssertionError(f"fused Adam update disagrees with the per-op one: {res}")
     return res
 
 
@@ -1377,7 +1559,8 @@ def run_vehicle_train(settings: dict = VERI, case: dict = VEHICLE) -> tuple:
         losses.append(float(metrics["loss"]))
     counts = read_counts()
     expect_counts("vehicle train steps", counts, {"attention_fwd": depth * VEHICLE_STEPS,
-                                                  "attention_bwd": depth * VEHICLE_STEPS})
+                                                  "attention_bwd": depth * VEHICLE_STEPS,
+                                                  "adam_table": VEHICLE_STEPS})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite vehicle train loss: {losses}")
     res = dict(config="configs/veri/vit_base.yml", stride=cfg.MODEL.STRIDE_SIZE,
@@ -1759,7 +1942,8 @@ def run_uniprompt(profile: bool) -> dict:
             is_stage1b=stage == "1b", bank=bank, stage_cfg=stage_cfg))
         counts = read_counts()
         expect_counts(f"stage {stage} epoch", counts, {"attention_fwd": tdepth * n_steps,
-                                                       "attention_bwd": tdepth * n_steps})
+                                                       "attention_bwd": tdepth * n_steps,
+                                                       "adam_table": n_steps})
         if state.opt_state.step != n_steps or not np.isfinite(hist[0]["loss"]):
             raise AssertionError(f"stage {stage}: {state.opt_state.step} steps, {hist}")
         res[f"stage{stage}"] = dict(steps=n_steps, batch=BATCH, seconds=secs,
@@ -1803,9 +1987,14 @@ def run_uniprompt(profile: bool) -> dict:
         (state, metrics), secs = timed(lambda: step(state, batches[i % len(batches)], lr, gen))
         seconds.append(secs)
         losses.append(metrics["loss"])
-    counts = read_counts()
+    counts, leaves = read_counts(), table_leaves()
     expect_counts("stage 2a steps", counts, {"attention_fwd": vdepth * STAGE2A_STEPS,
-                                             "attention_bwd": vdepth * STAGE2A_STEPS})
+                                             "attention_bwd": vdepth * STAGE2A_STEPS,
+                                             "adam_table": STAGE2A_STEPS})
+    if leaves != STAGE2A_LEAVES * STAGE2A_STEPS or \
+            routed_to_table(opt_2a, model) != STAGE2A_LEAVES:
+        raise AssertionError(f"stage 2a steps: the Adam table updated {leaves} leaves in "
+                             f"{STAGE2A_STEPS} steps, expected {STAGE2A_LEAVES} a step")
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite stage-2a loss: {losses}")
@@ -1814,6 +2003,7 @@ def run_uniprompt(profile: bool) -> dict:
     res["stage2a"] = dict(steps=STAGE2A_STEPS, batch=BATCH, train_img_per_s=med,
                           train_img_per_s_q1=q1, train_img_per_s_q3=q3,
                           step_ms_median=float(np.median(seconds)) * 1e3, launches=counts,
+                          table_leaves=leaves,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses)
     if profile:
         res["stage2a_profile"] = profile_idle(
@@ -1837,7 +2027,8 @@ def run_uniprompt(profile: bool) -> dict:
         loss_fn, QUERY, UNI_CLASSES, max_epochs=1))
     counts = read_counts()
     expect_counts("stage 2b epoch", counts, {
-        "attention_fwd": tdepth * n_text + vdepth * n_2b, "attention_bwd": vdepth * n_2b})
+        "attention_fwd": tdepth * n_text + vdepth * n_2b, "attention_bwd": vdepth * n_2b,
+        "adam_table": n_2b})
     if not np.isfinite(hist[0]["loss"]):
         raise AssertionError(f"non-finite stage-2b loss {hist}")
     res["stage2b"] = dict(steps=n_2b, seconds=secs, img_per_s=n_2b * BATCH / secs,
@@ -2185,7 +2376,7 @@ def run_margin() -> dict:
         counts = read_counts()
         expect_counts(f"margin head {kind}", counts, {
             "attention_fwd": depth * MARGIN_STEPS, "attention_bwd": depth * MARGIN_STEPS,
-            "adam": big * MARGIN_STEPS if fused else 0})
+            "adam": big * MARGIN_STEPS if fused else 0, "adam_table": MARGIN_STEPS})
         res[kind] = dict(fused_adam=fused, lr=lr, steps=MARGIN_STEPS, batch=BATCH, losses=losses,
                          step_seconds=seconds, setup_seconds=setup_s, launches=counts)
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -2306,7 +2497,8 @@ def run_device_epoch() -> dict:
     speeds = [float(re.search(r"Speed: ([0-9.]+)", r.getMessage()).group(1))
               for r in records if "done." in r.getMessage()]
     expect_counts("device-epoch do_train", counts, {"attention_fwd": depth * 2 * n_epoch[0],
-                                                    "attention_bwd": depth * 2 * n_epoch[0]})
+                                                    "attention_bwd": depth * 2 * n_epoch[0],
+                                                    "adam_table": 2 * n_epoch[0]})
     if state.opt_state.step != 2 * n_epoch[0] or not all(np.isfinite(h["loss"]) for h in history):
         raise AssertionError(f"device-epoch do_train: {state.opt_state.step} steps, {history}")
     if trace["trace_bytes"] <= 0 or trace["device_spans"] <= 0:
@@ -2506,7 +2698,8 @@ def run_uniprompt_moe(after_1b: dict, images, pids, views, profile: bool) -> dic
                 loss_fn, QUERY, UNI_CLASSES, max_epochs=1))
         counts = read_counts()
         expect_counts(f"MoE {stage} epoch", counts, {
-            "attention_fwd": tdepth * n_text + vdepth * n, "attention_bwd": vdepth * n})
+            "attention_fwd": tdepth * n_text + vdepth * n, "attention_bwd": vdepth * n,
+            "adam_table": n})
         with torch.no_grad():
             aux = load_balancing_loss(model.image_encoder(x)[3][0], MOE_BENCH["TOP_K"]).item()
         moved = {k: not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters()}
@@ -2725,7 +2918,7 @@ def run_rn50_base(path: str, profile: bool) -> dict:
         (state, metrics), secs = timed(lambda: step(state, batch, lr, gen))
         seconds.append(secs)
         losses.append(float(metrics["loss"]))
-    expect_counts("RN50 train steps", read_counts(), {})
+    expect_counts("RN50 train steps", read_counts(), {"adam_table": RN50_TRAIN_STEPS})
     tracked = int(model.image_encoder.bn1.num_batches_tracked)
     if not all(np.isfinite(losses)) or tracked != warm + RN50_TRAIN_STEPS:
         raise AssertionError(f"RN50 train steps: losses {losses}, BN batches {tracked}")
@@ -2919,7 +3112,8 @@ def run_rn50_uniprompt(path: str) -> dict:
         launches[f"stage{stage}_steps"] = read_counts()
         expect_counts(f"RN50 stage {stage}", launches[f"stage{stage}_steps"],
                       {"attention_fwd": tdepth * RN50_STAGE1_STEPS,
-                       "attention_bwd": tdepth * RN50_STAGE1_STEPS})
+                       "attention_bwd": tdepth * RN50_STAGE1_STEPS,
+                       "adam_table": RN50_STAGE1_STEPS})
         if state.opt_state.step != RN50_STAGE1_STEPS or not np.isfinite(hist[0]["loss"]):
             raise AssertionError(f"RN50 stage {stage}: {state.opt_state.step} steps, {hist}")
         res[f"stage{stage}"] = dict(steps=RN50_STAGE1_STEPS, seconds=secs,
@@ -2950,7 +3144,8 @@ def run_rn50_uniprompt(path: str) -> dict:
         seconds.append(secs)
         losses.append(float(metrics["loss"]))
     launches["stage2a_steps"] = read_counts()
-    expect_counts("RN50 stage 2a steps", launches["stage2a_steps"], {})
+    expect_counts("RN50 stage 2a steps", launches["stage2a_steps"],
+                  {"adam_table": RN50_STAGE2A_STEPS})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite RN50 stage-2a loss: {losses}")
     res["stage2a"] = dict(steps=RN50_STAGE2A_STEPS, losses=losses, step_seconds=seconds,
@@ -2985,7 +3180,7 @@ def run_rn50_vehicle(path: str) -> dict:
     (_, metrics), secs = timed(lambda: step(initial_state(model, opt), batch, 1e-5, gen))
     counts = read_counts()
     expect_counts("RN50 vehicle step", counts,
-                  {"attention_fwd": tdepth * -(-VEHICLE_CLASSES // BATCH)})
+                  {"attention_fwd": tdepth * -(-VEHICLE_CLASSES // BATCH), "adam_table": 1})
     res = dict(config="configs/veri/cnn_prom.yml", hw=list(VEHICLE_HW), pool_len=pool_len,
                loss=float(metrics["loss"]), seconds=secs, launches=counts)
     log(f"RN50 vehicle step {json.dumps(res)}")
@@ -3574,9 +3769,10 @@ def run_data_parallel(plan: dict) -> dict:
     depth, n = b["depth"], 1 + DP_TIMED_STEPS
     for r, out in enumerate(ranks):
         expect_dp_counts(f"14b rank {r} plain Adam", out["bf16"], {
-            "attention_fwd": depth * n, "attention_bwd": depth * n})
+            "attention_fwd": depth * n, "attention_bwd": depth * n, "adam_table": n})
         expect_dp_counts(f"14b rank {r} fused Adam", out["fused"], {
-            "attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES})
+            "attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES,
+            "adam_table": 1})
     rates = dict(two_ranks_img_per_s=plan["batch"] / bf["step_s"],
                  one_process_img_per_s=plan["batch"] / bf["one_process_step_s"], note=RATE_NOTE)
     rate_line("data-parallel train img/s (configs/person/vit_base.yml, global batch 64, "
@@ -3594,7 +3790,7 @@ def run_data_parallel(plan: dict) -> dict:
             fused = name.endswith("True")
             expect_dp_counts(f"14c rank {r} {name}", c, {
                 "attention_fwd": depth * ZERO_STEPS, "attention_bwd": depth * ZERO_STEPS,
-                "adam": ADAM_LEAVES * ZERO_STEPS if fused else 0})
+                "adam": ADAM_LEAVES * ZERO_STEPS if fused else 0, "adam_table": ZERO_STEPS})
     res["14c"] = {name: {k: c[k] for k in ("replicated_opt_bytes", "zero_opt_bytes")}
                   for name, c in z.items()}
     res["14c"]["launches"] = {r: out["zero"]["bfloat16_fused_True"]["launches"]
@@ -3928,11 +4124,12 @@ def run_model_axis(plan: dict) -> dict:
         if out["fp32_fused_False"]["local_heads"] != [VISION_TP["heads"]]:
             raise AssertionError(f"15a rank {r}: local heads {out['fp32_fused_False']['local_heads']}")
         expect_dp_counts(f"15a rank {r} bf16 steps", out["bf16"], {
-            "attention_fwd": depth * n, "attention_bwd": depth * n})
+            "attention_fwd": depth * n, "attention_bwd": depth * n, "adam_table": n})
         fused = out["fp32_fused_True"]
-        if plan["device"] != "cpu" and fused["launches"]["adam"] != ADAM_LEAVES:
+        if plan["device"] != "cpu" and (fused["launches"]["adam"] != ADAM_LEAVES
+                                        or fused["launches"]["adam_table"] != 1):
             raise AssertionError(f"15a rank {r}: fused Adam launches {fused['launches']}, "
-                                 f"expected {ADAM_LEAVES}")
+                                 f"expected {ADAM_LEAVES} and one of the table")
     rates = dict(two_ranks_img_per_s=plan["batch"] / bf["step_s"],
                  one_process_img_per_s=plan["batch"] / bf["one_process_step_s"], note=RATE_NOTE)
     rate_line("model-axis (TP towers, 1x2 mesh) train img/s (configs/person/vit_base.yml, "
@@ -4061,7 +4258,8 @@ def remat_steps(model, cfg, loss_fn, optimizer, batches, depth: int, on: bool,
     n = len(batches) - 1
     counts = read_counts()
     expect_counts(f"16 {what} remat {'on' if on else 'off'}: {n} train steps", counts,
-                  {"attention_fwd": (2 if on else 1) * depth * n, "attention_bwd": depth * n})
+                  {"attention_fwd": (2 if on else 1) * depth * n, "attention_bwd": depth * n,
+                   "adam_table": n})
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"16 {what}: non-finite losses {losses}")
@@ -4285,7 +4483,8 @@ def run_async_checkpoint(tmp: str) -> dict:
         loop_s = time.perf_counter() - t0
         counts = read_counts()
         expect_counts(f"16c do_train epoch, async {on}", counts,
-                      {"attention_fwd": depth * n_epoch, "attention_bwd": depth * n_epoch})
+                      {"attention_fwd": depth * n_epoch, "attention_bwd": depth * n_epoch,
+                       "adam_table": n_epoch})
         path = os.path.join(cfg.OUTPUT_DIR, f"{cfg.MODEL.NAME}_1.pth")
         payload = load_checkpoint(path)
         want = {"model": host_copy(model.state_dict()), "mu": host_copy(state.opt_state.mu),
@@ -4351,11 +4550,25 @@ def per_replay_counts(epoch) -> dict:
             for name, fn in COUNTED.items()}
 
 
+def replay_table_leaves(epoch, opt, params) -> int:
+    """The leaves one replay of ``epoch``'s captured step updates in the Adam
+    table, held to those ``opt`` routes there."""
+    from mpreid_tpu_torch.engine.compiled import COUNTED as GRAPH_COUNTED
+
+    got = epoch.compiled.per_replay.get((GRAPH_COUNTED.index(adam.adam_leaves), "leaves"), 0)
+    want = routed_to_table(opt, params)
+    if got != want:
+        raise AssertionError(f"{epoch}: the Adam table updates {got} leaves a replay, "
+                             f"expected {want}")
+    return got
+
+
 # the kernel each counted wrapper launches once a call, as a trace names it
 TRACE_KERNELS = {"attention_fwd": r"\bmha_fwd(_tc)?_kernel<",
                  "attention_bwd": r"\bmha_bwd_tc_kernel<|\bmha_bwd_rows<",
                  "adam": r"\badam_kernel<", "l1_cross": r"\bcross_kernel<L1Op>",
-                 "minsum_cross": r"\bcross_kernel<MinOp>", "batch_hard": r"\bbatch_hard_kernel<"}
+                 "minsum_cross": r"\bcross_kernel<MinOp>", "batch_hard": r"\bbatch_hard_kernel<",
+                 "adam_table": r"\bmulti_adam_kernel<"}
 
 
 def trace_kernel_counts(path: str, span: str = None) -> dict:
@@ -4568,7 +4781,7 @@ def graph_stage1(model, cfg, bank, stage: str) -> dict:
     res = graph_report(f"17a stage {stage} (configs/ours/cctv_ir_cctv_rgb.yml, text tower "
                        f"12 x 512, L 77, {UNI_CLASSES} classes, bank {len(labels)}, batch "
                        f"{BATCH})", diffs, per_step,
-                       {"attention_fwd": tdepth, "attention_bwd": tdepth},
+                       {"attention_fwd": tdepth, "attention_bwd": tdepth, "adam_table": 1},
                        g["counts"], 2 * n, rates, trace, pool, "bank rows/s",
                        dict(loss=float(g["losses"][0]), stats=g["epoch"].compiled.stats))
     for r in modes.values():
@@ -4652,7 +4865,9 @@ def graph_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: dic
     res = graph_report(what, diffs, per_step, want, g["counts"], 2 * n, rates, trace, pool,
                        "img/s", dict(loss=float(g["out"][0, 0]), stats=g["epoch"].compiled.stats,
                                      remat=bool(cfg.TPU.REMAT),
-                                     fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False))))
+                                     fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False)),
+                                     table_leaves_per_replay=replay_table_leaves(
+                                         g["epoch"], g["opt"], g["model"])))
     for r in modes.values():
         r["epoch"].release()
     del modes
@@ -4709,7 +4924,7 @@ def run_compiled_epochs(market_loader, market_data) -> dict:
             f"FUSED_ADAM {'on' if fused else 'off'}, REMAT {'on' if remat else 'off'}",
             cfg, model, loss_fn, "baseline", cfg.SOLVER, {}, market_data, market_rows,
             {"attention_fwd": depth * (2 if remat else 1), "attention_bwd": depth,
-             "adam": ADAM_LEAVES if fused else 0})
+             "adam": ADAM_LEAVES if fused else 0, "adam_table": 1})
         del model
         torch.cuda.empty_cache()
     log(f"  17b/17d ViT seconds {time.perf_counter() - t0:.1f}")
@@ -4741,7 +4956,8 @@ def run_compiled_epochs(market_loader, market_data) -> dict:
             cfg, model, loss_fn, f"stage{stage}", cfg.SOLVER.STAGE2,
             dict(uniprompt=True, text_features=text), data,
             lambda e: pk_rows(pids, GRAPH_ROWS["vit"], seed=e),
-            {"attention_fwd": depth * (2 if remat else 1), "attention_bwd": depth})
+            {"attention_fwd": depth * (2 if remat else 1), "attention_bwd": depth,
+             "adam_table": 1})
         del model
         torch.cuda.empty_cache()
     log(f"  17c/17d MoE seconds {time.perf_counter() - t0:.1f}")
@@ -5031,7 +5247,9 @@ def compiled_train(what: str, cfg, model, loss_fn, stage: str, opt_cfg, kwargs: 
                        trace, stats["pool_bytes"], "img/s",
                        dict(stats=stats, loss=float(graph["out"][0, 0]),
                             remat=bool(cfg.TPU.REMAT),
-                            fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False))),
+                            fused_adam=bool(getattr(opt_cfg, "FUSED_ADAM", False)),
+                            table_leaves_per_replay=replay_table_leaves(
+                                step, graph["opt"], graph["model"])),
                        phase="18", against="its eager body")
     step.release()
     del modes
@@ -5124,7 +5342,8 @@ def compiled_stage1_tail(model, cfg, bank) -> dict:
     return graph_report(
         f"18d stage 1b trailing step, configs/ours/cctv_ir_cctv_rgb.yml, {STAGE1_TAIL} bank "
         f"rows, {STAGE1_TAIL_EPOCHS} epochs", diffs, per_step,
-        {"attention_fwd": tdepth, "attention_bwd": tdepth}, g["counts"], STAGE1_TAIL_EPOCHS,
+        {"attention_fwd": tdepth, "attention_bwd": tdepth, "adam_table": 1}, g["counts"],
+        STAGE1_TAIL_EPOCHS,
         rates, trace, stats["pool_bytes"], "bank rows/s",
         dict(stats=stats, do_train_stage1_3_epochs=dict(
             bank_rows=len(labels) + STAGE1_TAIL, seconds=secs, trailing_step=loop_stats)),
@@ -5165,7 +5384,8 @@ def run_compiled_steps(market_loader) -> dict:
             f"{key[:3]} configs/person/{'vit' if vit else 'cnn'}_base.yml, host loader "
             f"(Market-1501 size), FUSED_ADAM {'on' if fused else 'off'}", cfg, model, loss_fn,
             "baseline", cfg.SOLVER, {}, market_loader,
-            {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES if fused else 0})
+            {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES if fused else 0,
+             "adam_table": 1})
         del model
         torch.cuda.empty_cache()
         log(f"  {key} seconds {time.perf_counter() - t0:.1f}")
@@ -5180,7 +5400,7 @@ def run_compiled_steps(market_loader) -> dict:
         f"18c MoE stage 2b (configs/tpu/uniprompt_tuned.yml, MoE 4/2/2, bf16 moments), dropout "
         f"{GRAPH_MOE_DROPOUT}, REMAT on, host loader", cfg, model, make_loss(cfg, UNI_CLASSES)[0],
         "stage2b", cfg.SOLVER.STAGE2, dict(uniprompt=True, text_features=text), market_loader,
-        {"attention_fwd": 2 * depth, "attention_bwd": depth})
+        {"attention_fwd": 2 * depth, "attention_bwd": depth, "adam_table": 1})
     del model, text
     torch.cuda.empty_cache()
     log(f"  18c MoE seconds {time.perf_counter() - t0:.1f}")
@@ -5484,7 +5704,7 @@ def files_train(model, cfg, loaders: dict) -> dict:
     seed = int(cfg.SOLVER.SEED)
     loss_fn, _ = make_loss(cfg, FILE_IDS)
     depth = len(model.image_encoder.transformer.resblocks)
-    want = {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES}
+    want = {"attention_fwd": depth, "attention_bwd": depth, "adam": ADAM_LEAVES, "adam_table": 1}
     modes = {}
     for mode, loader in loaders.items():
         m = copy.deepcopy(model)
@@ -5858,7 +6078,8 @@ def bench_epochs(cfg, model, stage: str) -> dict:
                                 embed_dim=model.clip_config.embed_dim,
                                 random_views=stage == "1b", rng=np.random.RandomState(0))
     timing = bench_best_of(f"stage {stage} epoch", benchkit.epoch_window(h),
-                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters})
+                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters,
+                            "adam_table": iters})
     steps, losses = int(h["state"].opt_state.step), h["losses"].tolist()
     if steps != len(timing["window_s"]) * iters or not np.isfinite(losses).all():
         raise AssertionError(f"21 stage {stage}: step {steps} after {timing['window_s']} "
@@ -5875,7 +6096,8 @@ def bench_steps(case: str, what: str, h, before: int, depth: int) -> dict:
     """21c / 21g: ``step_window`` over a built harness."""
     iters = BENCH["step_iters"]
     timing = bench_best_of(what, benchkit.step_window(h, iters=iters),
-                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters})
+                           {"attention_fwd": depth * iters, "attention_bwd": depth * iters,
+                            "adam_table": iters})
     steps, loss = int(h["state"].opt_state.step), float(h["metrics"]["loss"])
     if steps != len(timing["window_s"]) * iters or not np.isfinite(loss):
         raise AssertionError(f"21 {case}: step {steps} after {timing['window_s']} windows of "
@@ -6027,6 +6249,7 @@ def main() -> None:
     log(f"  attention kernels {time.perf_counter() - t0:.1f} s")
     adam_rows = [check_adam(md, decoupled, timed=md == torch.float32 and not decoupled)
                  for md in (torch.float32, torch.bfloat16) for decoupled in (False, True)]
+    table_row = check_adam_table()
     t0 = time.perf_counter()
     n_market, n_msmt = MARKET["q"] + MARKET["g"], MSMT["q"] + MSMT["g"]
     l1_rows = [check_pairwise("l1_cross", MARKET["q"], MARKET["g"], n_market, V_NONZEROS, True),
@@ -6168,7 +6391,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     dp_res = run_data_parallel(dp_plan())
     expect_dp_counts("14a world 1", dp_res["14a"], {
-        "attention_fwd": 12 * dp_res["14a"]["steps"], "attention_bwd": 12 * dp_res["14a"]["steps"]})
+        "attention_fwd": 12 * dp_res["14a"]["steps"], "attention_bwd": 12 * dp_res["14a"]["steps"],
+        "adam_table": dp_res["14a"]["steps"]})
     log(f"  data-parallel phase seconds {time.perf_counter() - t0:.1f}")
 
     log("the model axis, GPipe and the sharded sparse re-ranking (15a-b, d-e: ranks sharing "
@@ -6343,6 +6567,41 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in adam_rows),
         **timing(adam_rows[0]),
         "shape": "c_fc leaf 3072x768 fp32, fp32 moments, Adam (coupled L2)",
+    }, {
+        "name": "adam_leaves",
+        "route": "cuda",
+        "source": "mpreid_tpu_torch/kernels/csrc/adam.cu",
+        "kernel": "multi_adam_kernel",
+        "replaces": "mpreid_tpu/ops/adam_kernel.py:60",
+        "launches": train_res["train"]["launches"]["adam_table"],
+        "leaves": train_res["train"]["table_leaves"],
+        "launches_fused_adam_steps": train_res["fused"]["launches"]["adam_table"],
+        "leaves_fused_adam_steps": train_res["fused"]["table_leaves"],
+        "launches_stage2a_steps": uni_res["stage2a"]["launches"]["adam_table"],
+        "leaves_stage2a_steps": uni_res["stage2a"]["table_leaves"],
+        "launches_per_replayed_step": {k: v["launches_per_replayed_step"]["adam_table"]
+                                       for k, v in graph_res.items()},
+        "leaves_per_replayed_step": {k: v["table_leaves_per_replay"]
+                                     for k, v in graph_res.items()
+                                     if "table_leaves_per_replay" in v},
+        "launches_per_replayed_compiled_step": {
+            k: v["launches_per_replayed_step"]["adam_table"] for k, v in step_res.items()},
+        "leaves_per_replayed_compiled_step": {k: v["table_leaves_per_replay"]
+                                              for k, v in step_res.items()
+                                              if "table_leaves_per_replay" in v},
+        "launches_data_parallel": {
+            "per_rank_dp_step": dp_res["14b"]["bf16"]["launches"]["adam_table"]
+            // (1 + DP_TIMED_STEPS),
+            "per_rank_zero_slices_3_steps": dp_res["14c"]["launches"][0]["adam_table"]},
+        "launches_from_files": files_launches("adam_table"),
+        "launches_benchkit_per_window": {k: v["launches_per_window"]["adam_table"]
+                                         for k, v in bench_res.items()},
+        "bit_equal_per_op": table_row["table_bit_equal_per_op"],
+        "per_leaf_route_bit_equal_per_op": table_row["per_leaf_route_bit_equal_per_op"],
+        **timing(table_row),
+        "per_leaf_route_ms": table_row["per_leaf_route_ms"],
+        "shape": f"stage 2a's {table_row['leaves']} trainable leaves ({table_row['elements']} "
+                 "elements) fp32, fp32 moments, Adam (coupled L2), lr multipliers 1 and 2",
     }, {
         "name": "l1_cross",
         "route": "cuda",

@@ -51,8 +51,9 @@ def _stage_solver() -> CN:
     # fp32, see solver/optim.py)
     s.MOMENT_DTYPE = "float32"
     # Fused Adam/AdamW update (ops/adam.py, the CUDA kernel
-    # kernels/csrc/adam.cu) for CUDA leaves of at least
-    # ops.adam.MIN_FUSED_SIZE elements; off: the plain per-leaf update.
+    # kernels/csrc/adam.cu), one launch a leaf, for CUDA leaves of at least
+    # ops.adam.MIN_FUSED_SIZE elements; every other CUDA leaf (all of them
+    # when off) is updated in one multi-tensor launch (ops.adam.adam_leaves).
     # Times on the card: PERF.md.
     s.FUSED_ADAM = False
     return s

@@ -100,26 +100,33 @@ KEYS_KEPT = 8  # the keys a CompiledStep counts calls of (the oldest forgotten f
 
 # the kernel wrappers whose launch counters a replay adds to
 COUNTED = (attention.fused_attention, attention.fused_attention_bwd, adam.fused_adam_leaf,
-           pairwise.l1_cross, pairwise.minsum_cross, batch_hard.fused_batch_hard)
+           pairwise.l1_cross, pairwise.minsum_cross, batch_hard.fused_batch_hard,
+           adam.adam_leaves)
 
 
 def _counts() -> Dict[tuple, int]:
-    """Every launch counter: (i, None) wrapper ``COUNTED[i]``'s total, (i,
-    route) its count on ``route``."""
+    """Every launch counter: (i, None) wrapper ``COUNTED[i]``'s launches, (i,
+    route) its launches on ``route``, (i, "leaves") the leaves it updated
+    (``adam_leaves``)."""
     out = {}
     for i, fn in enumerate(COUNTED):
         out[i, None] = fn.launches
         for route, n in getattr(fn, "launches_by_route", {}).items():
             out[i, route] = n
+        if hasattr(fn, "leaves"):
+            out[i, "leaves"] = fn.leaves
     return out
 
 
 def _add_counts(delta: Dict[tuple, int]) -> None:
-    for (i, route), n in delta.items():
-        if route is None:
-            COUNTED[i].launches += n
+    for (i, key), n in delta.items():
+        fn = COUNTED[i]
+        if key is None:
+            fn.launches += n
+        elif key == "leaves":
+            fn.leaves += n
         else:
-            COUNTED[i].launches_by_route[route] += n
+            fn.launches_by_route[key] += n
 
 
 _SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}

@@ -1,4 +1,4 @@
-from .adam import adam_leaf_plain, fused_adam_leaf
+from .adam import adam_leaf_plain, adam_leaves, fused_adam_leaf
 from .attention import (
     FusedAttention, attention_bwd_plain, attention_plain, fused_attention, fused_attention_bwd,
     head_major_perm, head_major_perm_inverse,
@@ -14,7 +14,7 @@ from .reranking import re_ranking
 from .reranking_sparse import re_ranking_sparse, re_ranking_sparse_rows
 
 __all__ = [
-    "FusedAttention", "adam_leaf_plain", "attention_bwd_plain", "attention_plain",
+    "FusedAttention", "adam_leaf_plain", "adam_leaves", "attention_bwd_plain", "attention_plain",
     "batch_hard_mining", "batch_hard_plain", "batch_hard_triplet_loss", "cmc_map",
     "cosine_distmat", "euclidean_squared_distmat", "eval_preprocess", "fused_adam_leaf",
     "fused_attention", "fused_attention_bwd", "fused_batch_hard", "head_major_perm",

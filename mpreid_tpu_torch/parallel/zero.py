@@ -6,8 +6,8 @@ Replicated data parallelism keeps Adam's two moments of every trainable
 parameter on every rank. Under ``TPU.ZERO_OPT_STATE`` each rank owns one
 contiguous slice of each ZeRO'd leaf's flattened, zero-padded moments
 instead: it updates its slice of the parameter with the replicated
-optimizer's own per-leaf math (``solver/optim.py::Optimizer.update_leaf``,
-the gradients being already summed over the ranks), and one all-gather of
+optimizer's own per-leaf math (``solver/optim.py::Optimizer.apply``, the
+gradients being already summed over the ranks), and one all-gather of
 the ranks' updated slices rebuilds the replicated parameters. The JAX
 package states the same algorithm as shardings and lets GSPMD place the
 collective; the port calls it.
@@ -17,10 +17,11 @@ The result is bitwise the replicated optimizer's (``tests/test_torch_zero.py``;
 
 * every operation of the update is elementwise, so a slice's elements come
   out as the whole leaf's;
-* the fused-Adam route is decided from the whole leaf's size
-  (``Optimizer.kernel_route``), never from the slice's: half of a leaf of
-  ``MIN_FUSED_SIZE`` elements takes the kernel exactly when the whole leaf
-  does;
+* the route of an update (``Optimizer.route``) is decided from the whole
+  leaf's size, never from the slice's: half of a leaf of
+  ``MIN_FUSED_SIZE`` elements takes the per-leaf kernel exactly when the
+  whole leaf does, and every other slice on the card joins the step's one
+  table;
 * the padding lanes are never updated and never read back;
 * bf16 moments (``SOLVER.MOMENT_DTYPE``) round per element, slice or not.
 
@@ -92,18 +93,18 @@ class ZeroOptimizer(Optimizer):
         if lr is not None:
             self.set_lr(state, lr)
         state.step.add_(1)
-        table = self.step_scalars(state)
+        scalars = self.step_scalars(state)
+        entries = []
         for k, p in train.items():
-            fused = self.kernel_route(p)
-            scalars = table[self.lr_mult[k]]
+            entry = (scalars[self.lr_mult[k]], self.route(p))
             if k not in self.zero_keys:
-                self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k], scalars, fused)
+                entries.append((k, p, state.mu[k], state.nu[k], grads[k], *entry))
                 continue
             lo, hi, _ = self.span(p.numel())
             if hi > lo:
-                self.update_leaf(k, p.view(-1)[lo:hi], state.mu[k][:hi - lo],
-                                 state.nu[k][:hi - lo], grads[k].reshape(-1)[lo:hi], scalars,
-                                 fused)
+                entries.append((k, p.view(-1)[lo:hi], state.mu[k][:hi - lo],
+                                state.nu[k][:hi - lo], grads[k].reshape(-1)[lo:hi], *entry))
+        self.apply(entries)
         zeroed = {k: p for k, p in train.items() if k in self.zero_keys}
         self._gather_slices(zeroed, lambda k, lo, hi: zeroed[k].view(-1)[lo:hi])
         return state

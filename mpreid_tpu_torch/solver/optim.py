@@ -18,12 +18,16 @@ gradient, as torch's Adam) or AdamW (decoupled: lr·mult·wd·p added to the
 step), per leaf, written in plain PyTorch and applied in place under
 ``no_grad``; it is not ``torch.optim.Adam``. Moments are stored as
 ``MOMENT_DTYPE`` (fp32 or bf16) with their math in fp32, and the step uses
-the fresh fp32 moments. With ``FUSED_ADAM`` on, CUDA leaves of at least
-``ops.adam.MIN_FUSED_SIZE`` elements go through the fused kernel
-(``ops/adam.py``; ``kernel_route``). Frozen parameters get neither
-gradients nor moments. ``update_leaf`` is one leaf's update, on the whole
-leaf or on a flat slice of it with the route of the whole leaf: the hook
-ZeRO-1 (``parallel/zero.py``) updates its slices through.
+the fresh fp32 moments. Where an Adam/AdamW leaf's update runs is
+``route``: with ``FUSED_ADAM`` on, CUDA leaves of at least
+``ops.adam.MIN_FUSED_SIZE`` elements take the per-leaf kernel
+(``ops/adam.py::fused_adam_leaf``; ``kernel_route``), every other CUDA leaf
+goes into one table that ``ops/adam.py::adam_leaves`` updates in one
+launch, and CPU leaves (and SGD's) take the plain per-op update; all give
+the same bits. Frozen parameters get neither gradients nor moments.
+``apply`` updates a list of whole leaves or flat slices of them, each with
+the route of its whole leaf, the table's in one call: the hook ZeRO-1
+(``parallel/zero.py``) updates its slices through.
 
 The step lives on the device, as the JAX optimizer's traced step count
 does: ``OptState.step`` is an int32 counter and ``OptState.lr`` an fp32
@@ -44,7 +48,8 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from mpreid_tpu_torch.ops.adam import MIN_FUSED_SIZE, adam_leaf_plain, fused_adam_leaf
+from mpreid_tpu_torch.ops.adam import (MIN_FUSED_SIZE, adam_leaf_plain, adam_leaves,
+                                      fused_adam_leaf)
 
 _VISUAL = "image_encoder"
 _TEXT = "text_encoder"
@@ -200,10 +205,24 @@ class Optimizer:
             self.set_lr(state, lr)
         state.step.add_(1)
         scalars = self.step_scalars(state)
-        for k, p in train.items():
-            self.update_leaf(k, p, state.mu[k], state.nu[k], grads[k],
-                             scalars[self.lr_mult[k]], self.kernel_route(p))
+        self.apply([(k, p, state.mu[k], state.nu[k], grads[k], scalars[self.lr_mult[k]],
+                     self.route(p)) for k, p in train.items()])
         return state
+
+    @torch.no_grad()
+    def apply(self, entries) -> None:
+        """Every entry's step in place: an entry is (k, p, m, v, g, scalars,
+        route), leaf ``k``'s parameter, moments and gradient (the whole leaf,
+        or a flat slice of it), its entry of ``step_scalars`` and the whole
+        leaf's ``route``. The "table" entries go to ``adam_leaves`` in one
+        call, every other one to ``update_leaf``."""
+        table = []
+        for k, p, m, v, g, scalars, route in entries:
+            if route == "table":
+                table.append((p, m, v, g.contiguous(), scalars, self.wd[k]))
+            else:
+                self.update_leaf(k, p, m, v, g, scalars, route == "leaf")
+        adam_leaves(table, self.b1, self.b2, self.eps, self.name == "AdamW")
 
     def kernel_route(self, p: torch.Tensor) -> bool:
         """Whether leaf ``p``'s update takes the fused Adam kernel: Adam or
@@ -214,11 +233,23 @@ class Optimizer:
         n = p.numel() if split is None else math.prod(split.full_shape)
         return self.fused_adam and p.is_cuda and n >= MIN_FUSED_SIZE
 
+    def route(self, p: torch.Tensor) -> str:
+        """Where leaf ``p``'s update runs: "leaf", the per-leaf kernel
+        (``kernel_route``); "table", the one launch of ``adam_leaves`` that
+        takes every other CUDA leaf of Adam or AdamW; "plain", the per-op
+        update (a CPU leaf, or SGD)."""
+        if self.name == "SGD":
+            return "plain"
+        if self.kernel_route(p):
+            return "leaf"
+        return "table" if p.is_cuda else "plain"
+
     @torch.no_grad()
     def update_leaf(self, k: str, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     g: torch.Tensor, scalars: torch.Tensor, fused: bool) -> None:
-        """Leaf ``k``'s step in place, on ``p`` and its moments ``m``, ``v``
-        with gradient ``g``, all of one shape: the whole leaf, or (ZeRO,
+        """Leaf ``k``'s step in place on the "plain" or (``fused``) the
+        "leaf" route, on ``p`` and its moments ``m``, ``v`` with gradient
+        ``g``, all of one shape: the whole leaf, or (ZeRO,
         ``parallel/zero.py``) one flat slice of it; ``scalars`` is the leaf's
         entry of ``step_scalars``. Every operation is elementwise, so a
         slice's elements come out as the whole leaf's."""

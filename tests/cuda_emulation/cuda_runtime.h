@@ -28,6 +28,7 @@
 #define __shared__
 #define __align__(n)
 #define __restrict__
+#define __grid_constant__
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -36,6 +37,7 @@ struct dim3 {
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
@@ -83,6 +85,7 @@ struct Block {
 inline thread_local dim3 tid;
 inline thread_local dim3 bid;
 inline dim3 bdim;
+inline dim3 gdim;
 inline thread_local Block* blk;
 inline thread_local Slot (*slots)[32];
 inline thread_local unsigned cluster_rank;
@@ -115,6 +118,7 @@ void run_blocks(std::vector<Block*>& blocks, dim3 first, int threads, K kernel,
 // kernel<<<grid, threads>>>(args...), blocks one after another
 template <class K, class... A>
 void launch(dim3 grid, int threads, K kernel, A... args) {
+  gdim = grid;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
@@ -151,6 +155,7 @@ T* block_smem() {
 #define threadIdx (emu::tid)
 #define blockIdx (emu::bid)
 #define blockDim (emu::bdim)
+#define gridDim (emu::gdim)
 
 inline void __syncthreads() { emu::blk->bar.arrive_and_wait(); }
 inline void __syncwarp() { emu::warp_sync(); }
@@ -176,4 +181,5 @@ inline int __shfl_xor_sync(unsigned, int v, int o) {
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }

@@ -30,6 +30,9 @@ builds its own libraries (the fixtures are module-scoped).
 ``cluster.cuh`` (``batch_hard_library``): ``emu::launch_cluster`` runs the
 8 blocks of a cluster together, with a barrier over all of them and each
 block's shared memory reachable from its siblings by rank.
+
+``kernels/csrc/adam.cu`` (both kernels; no shared header) builds the same
+way: ``adam_library``.
 """
 
 import contextlib
@@ -40,12 +43,14 @@ import shutil
 import subprocess
 import types
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import pytest
 import torch
 
 from mpreid_tpu_torch.kernels import build
+from mpreid_tpu_torch.ops import adam as tadam
 from mpreid_tpu_torch.ops import attention as tattn
 
 EMULATION = Path(__file__).resolve().parent / "cuda_emulation"
@@ -72,13 +77,15 @@ def _emulated_header(name: str) -> str:
     return text.replace(anchor, '\n#include "warp_prims.h"\n' + anchor, 1)
 
 
-def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1,
+def _compile(out: Path, header: Optional[str], source: str, shared: str, launches: int = 1,
              defines: tuple = ()) -> ctypes.CDLL:
-    """``csrc/<source>.cu`` built for the CPU against the emulated ``header``,
-    its kernel launches (``launches`` of them) turned into ``emu::launch``
-    calls and ``shared`` declaring the shared memory its kernels use, with
-    ``-D`` of each of ``defines``, into ``out``."""
-    (out / header).write_text(_emulated_header(header))
+    """``csrc/<source>.cu`` built for the CPU against the emulated ``header``
+    (None for a source that includes no shared header), its kernel launches
+    (``launches`` of them) turned into ``emu::launch`` calls and ``shared``
+    declaring the shared memory its kernels use, with ``-D`` of each of
+    ``defines``, into ``out``."""
+    if header is not None:
+        (out / header).write_text(_emulated_header(header))
     src, n = re.subn(r"(\w+<[\w, ]+>)<<<([^,]*), ([^,]*), [^>]*>>>\(",
                      r"emu::launch(\2, \3, \1, ", (build.CSRC / f"{source}.cu").read_text())
     assert n == launches
@@ -89,6 +96,15 @@ def _compile(out: Path, header: str, source: str, shared: str, launches: int = 1
                     "-I", str(out), "-o", str(lib), str(out / f"{source}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
+
+
+def adam_library(out: Path) -> ctypes.CDLL:
+    """``csrc/adam.cu`` built for the CPU: its two launches (the per-leaf
+    kernel and ``multi_adam_kernel``) as ``emu::launch``;
+    ``mpreid_adam_leaves`` declared as ``ops/adam.py`` declares it."""
+    lib = _compile(out, None, "adam", "", launches=2)
+    tadam.declare_leaves(lib)
+    return lib
 
 
 def batch_hard_library(out: Path) -> ctypes.CDLL:

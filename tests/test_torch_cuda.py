@@ -357,6 +357,148 @@ def test_adam_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 
 # ---------------------------------------------------------------------------
+# the multi-tensor Adam kernel (multi_adam_kernel, ops/adam.py::adam_leaves):
+# each element through the per-leaf kernel's function, every operation
+# rounded on its own, and the card's torch.sqrt correctly rounded, so the
+# table gives the plain version's bits
+# ---------------------------------------------------------------------------
+
+TABLE_SIZES = (1, 7, 768, 2304, 99072, 262145)
+
+
+def _adam_table(card, moment_dtype, seed=0):
+    """Leaves (p, m, v, g, lr multiplier, weight decay) of ``TABLE_SIZES``
+    elements and one of 1,000 whose tensors start 4 bytes off a 16-byte
+    boundary."""
+    leaves = []
+    for i, n in enumerate(TABLE_SIZES + (1001,)):
+        p, m, v, grad = _adam_leaf(card, n, moment_dtype, seed=seed + i)
+        if n == 1001:
+            p, m, v, grad = p[1:], m[1:], v[1:], grad[1:]
+            assert p.data_ptr() % 16 == 4
+        leaves.append((p, m, v, grad, 1.0 + i % 2, 1e-4 * (i % 3)))
+    return leaves
+
+
+def _opt_scalars(card, t, lr):
+    return {mult: torch.tensor([lr * mult, 1 - 0.9 ** t, 1 - 0.999 ** t], device=card)
+            for mult in (1.0, 2.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoupled", [False, True])
+def test_multi_adam_kernel_gives_the_plain_bits(card, moment_dtype, decoupled):
+    from mpreid_tpu_torch.ops import adam
+
+    leaves = _adam_table(card, moment_dtype)
+    plain = [(*(t.clone() for t in leaf[:4]), *leaf[4:]) for leaf in leaves]
+    empty = [torch.empty(0, device=card), *(torch.empty(0, device=card, dtype=moment_dtype)
+                                              for _ in range(2)), torch.empty(0, device=card)]
+    before = (adam.adam_leaves.launches, adam.adam_leaves.leaves, adam.fused_adam_leaf.launches)
+    for t in (1, 2, 3):
+        scalars = _opt_scalars(card, t, 3e-4)
+        # a leaf of no elements among them: skipped, and not counted
+        adam.adam_leaves([(p, m, v, g, scalars[mult], wd) for p, m, v, g, mult, wd in leaves]
+                         + [(*empty, scalars[1.0], 0.0)], 0.9, 0.999, 1e-8, decoupled)
+        for p, m, v, g, mult, wd in plain:
+            adam.adam_leaf_plain(p, m, v, g, scalars[mult], 0.9, 0.999, 1e-8, wd, decoupled)
+    torch.cuda.synchronize()
+    after = (adam.adam_leaves.launches, adam.adam_leaves.leaves, adam.fused_adam_leaf.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 3 * len(leaves), 0]
+    for got, want in zip(leaves, plain):
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a, b), (a.numel(), a.dtype)
+
+
+@pytest.mark.cuda
+def test_adam_leaves_refuses_what_the_kernel_does_not_take(card):
+    from mpreid_tpu_torch.ops import adam
+
+    p, m, v, grad = _adam_leaf(card, 64, torch.float32)
+    scalars = torch.tensor([1e-3, 0.1, 0.001], device=card)
+    args = (0.9, 0.999, 1e-8, False)
+
+    def table(*leaf, wd=0.0):
+        return [(p, m, v, grad, scalars, 0.0), (*leaf, wd)]
+
+    with pytest.raises(TypeError):
+        adam.adam_leaves(table(p.half(), m, v, grad, scalars), *args)
+    with pytest.raises(TypeError, match="one type"):
+        adam.adam_leaves(table(p, m.bfloat16(), v.bfloat16(), grad, scalars), *args)
+    with pytest.raises(ValueError, match="shape"):
+        adam.adam_leaves(table(p, m[:32], v, grad, scalars), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam.adam_leaves(table(p[::2], m[::2], v[::2], grad[::2], scalars), *args)
+    with pytest.raises(ValueError, match="one device"):
+        adam.adam_leaves(table(p.cpu(), m.cpu(), v.cpu(), grad.cpu(), scalars), *args)
+    for bad in (scalars.double(), scalars[:2], scalars.cpu()):
+        with pytest.raises(ValueError, match="scalars"):
+            adam.adam_leaves(table(p, m, v, grad, bad), *args)
+
+
+def _stage2a_optimizer(card, fused):
+    """The Uni-Prompt ViT-B/16 of configs/ours/cctv_ir_cctv_rgb.yml on the
+    card (751 classes) and its stage-2a optimizer."""
+    from pathlib import Path
+
+    from mpreid_tpu_torch.config import get_default_cfg
+    from mpreid_tpu_torch.models.factory import build_model_uniprompt
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs" / "ours"
+                            / "cctv_ir_cctv_rgb.yml"))
+    cfg.SOLVER.STAGE2.FUSED_ADAM = fused
+    with torch.device(card):
+        model = build_model_uniprompt(cfg, 751, 6, 1)
+    gen = torch.Generator(device=card).manual_seed(17)
+    with torch.no_grad():
+        for p in model.parameters():  # some are left uninitialised by the build
+            p.copy_(torch.randn(p.shape, device=card, generator=gen) * 0.02)
+    return model, make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_stage2a_update_is_one_launch_with_the_plain_bits(card, fused):
+    """``Optimizer.update`` over stage 2a's 161 trainable leaves, 3 steps:
+    one launch of the table a step, 161 leaves in it with FUSED_ADAM off (no
+    per-leaf launch), 108 beside 53 per-leaf launches with it on; every
+    leaf's p, m and v bit for bit the per-op plain path's."""
+    from mpreid_tpu_torch.ops import adam
+
+    model, opt = _stage2a_optimizer(card, fused)
+    train, _ = opt.partition(model)
+    big = {k for k, p in train.items() if p.numel() >= adam.MIN_FUSED_SIZE}
+    assert len(train) == 161 and len(big) == 53
+    state, plain = opt.init(model), opt.init(model)
+    plain_p = {k: p.detach().clone() for k, p in train.items()}
+    gen = torch.Generator(device=card).manual_seed(23)
+    lr = 5e-6
+    before = (adam.fused_adam_leaf.launches, adam.adam_leaves.launches, adam.adam_leaves.leaves)
+    for _ in range(3):
+        grads = {k: torch.randn(p.shape, device=card, generator=gen) * 1e-3
+                 for k, p in train.items()}
+        opt.update(grads, state, train, lr)
+        opt.set_lr(plain, lr)
+        plain.step.add_(1)
+        scalars = opt.step_scalars(plain)
+        for k in train:
+            adam.adam_leaf_plain(plain_p[k], plain.mu[k], plain.nu[k], grads[k],
+                                 scalars[opt.lr_mult[k]], opt.b1, opt.b2, opt.eps, opt.wd[k],
+                                 opt.name == "AdamW")
+    torch.cuda.synchronize()
+    after = (adam.fused_adam_leaf.launches, adam.adam_leaves.launches, adam.adam_leaves.leaves)
+    want = [3 * 53, 3, 3 * 108] if fused else [0, 3, 3 * 161]
+    assert [a - b for a, b in zip(after, before)] == want
+    for k, p in train.items():
+        for a, b in ((p.detach(), plain_p[k]), (state.mu[k], plain.mu[k]),
+                     (state.nu[k], plain.nu[k])):
+            assert torch.equal(a, b), k
+
+
+# ---------------------------------------------------------------------------
 # the training path on the card
 # ---------------------------------------------------------------------------
 
@@ -929,14 +1071,22 @@ def _card_zero_kernel_job():
         opt = zero_sharded(opt, make_mesh(), module) if zero else opt
         state = opt.init(module)
         train, _ = opt.partition(module)
-        before = adam.fused_adam_leaf.launches
+        before = (adam.fused_adam_leaf.launches, adam.adam_leaves.launches,
+                  adam.adam_leaves.leaves)
         for _ in range(2):
             grads = {k: torch.randn(p.shape, device="cuda", generator=gen)
                      for k, p in train.items()}
             state = opt.update(grads, state, train, 1e-3)
         torch.cuda.synchronize()
+        after = (adam.fused_adam_leaf.launches, adam.adam_leaves.launches,
+                 adam.adam_leaves.leaves)
+        # the table's entries a step: "odd" and "small", or this rank's
+        # slices of them that hold any elements
+        table = sum(k not in getattr(opt, "zero_keys", ())
+                    or opt.span(p.numel())[1] > opt.span(p.numel())[0]
+                    for k, p in train.items() if k != "big")
         out[zero] = ({k: p.detach().cpu() for k, p in module.named_parameters()},
-                     adam.fused_adam_leaf.launches - before)
+                     [a - b for a, b in zip(after, before)], 2 * table)
     return out
 
 
@@ -944,13 +1094,15 @@ def _card_zero_kernel_job():
 def test_zero_slices_take_the_kernel_the_whole_leaf_takes(card):
     """ZeRO on the card with the fused Adam kernel: each rank's half of a
     MIN_FUSED_SIZE leaf launches the kernel, the leaf one element smaller
-    takes the plain path, and the parameters equal the replicated update's
-    bit for bit."""
+    and the 5-element one (or this rank's slices of them) go into one table
+    launch a step, and the parameters equal the replicated update's bit for
+    bit."""
     from mpreid_tpu_torch.parallel.launch import spawn
 
     for out in spawn(_card_zero_kernel_job, 2, timeout=180):
-        (p_rep, n_rep), (p_zero, n_zero) = out[False], out[True]
-        assert n_rep == n_zero == 2
+        (p_rep, n_rep, leaves_rep), (p_zero, n_zero, leaves_zero) = out[False], out[True]
+        assert n_rep == [2, 2, leaves_rep] and leaves_rep == 4
+        assert n_zero == [2, 2, leaves_zero] and leaves_zero >= 2
         for k, p in p_rep.items():
             assert torch.equal(p_zero[k], p), k
 
@@ -1260,6 +1412,7 @@ def test_graphed_train_epoch_equals_the_step_loop(card, case, monkeypatch):
         epoch = make_train_epoch(m, cfg, loss_fn, opt, **kwargs)
         step = make_train_step(m, cfg, loss_fn, opt, **kwargs)
         fwd, adam0 = tattn.fused_attention.launches, adam.fused_adam_leaf.launches
+        table0 = adam.adam_leaves.launches, adam.adam_leaves.leaves
         out = []
         for e, lr in enumerate((1e-3, 2e-4)):
             rows = _graph_rows(e)
@@ -1281,7 +1434,8 @@ def test_graphed_train_epoch_equals_the_step_loop(card, case, monkeypatch):
             out = [torch.cat(out[0::2]), torch.cat(out[1::2])]
         else:
             out = [torch.cat(out[0::2]), torch.cat(out[1::2])]
-        launched = (tattn.fused_attention.launches - fwd, adam.fused_adam_leaf.launches - adam0)
+        launched = (tattn.fused_attention.launches - fwd, adam.fused_adam_leaf.launches - adam0,
+                    adam.adam_leaves.launches - table0[0], adam.adam_leaves.leaves - table0[1])
         runs.append((out, launched, m.state_dict(), state.opt_state.mu, state.opt_state.nu,
                      state.opt_state.step, gen.get_state()))
         epoch.release()
@@ -1289,6 +1443,10 @@ def test_graphed_train_epoch_equals_the_step_loop(card, case, monkeypatch):
     _assert_same(g_out, l_out)
     _assert_same(g_rest, l_rest)
     assert g_n == l_n and g_n[0] > 0 and (g_n[1] > 0) == (case == "baseline_fused_adam")
+    # one table launch an update, every replay counted: 12 updates, each
+    # with every trained leaf off the per-leaf kernel
+    table = sum(not opt.kernel_route(p) for p in opt.partition(m)[0].values())
+    assert g_n[2] == 12 and g_n[3] == 12 * table > 0
     assert int(runs[0][5]) == 12
 
 

@@ -23,6 +23,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -539,6 +540,47 @@ def test_fused_adam_is_used_only_on_the_card():
         assert tadam.fused_adam_leaf.launches == before
         results.append(params["big.weight"])
     torch.testing.assert_close(results[0], results[1], atol=0, rtol=0)
+
+
+class _OnTheCard:
+    """A leaf as ``Optimizer.route`` sees it: its size, on the card."""
+
+    is_cuda = True
+
+    def __init__(self, p):
+        self.n = p.numel()
+
+    def numel(self):
+        return self.n
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_adam_route_of_every_stage2a_leaf(fused):
+    """Where each of stage 2a's 161 trainable leaves (the Uni-Prompt
+    ViT-B/16 of configs/ours/cctv_ir_cctv_rgb.yml, built on the meta
+    device) is updated: on the card, every leaf in the one table with
+    FUSED_ADAM off; with it on, the 53 of at least MIN_FUSED_SIZE elements
+    on the per-leaf kernel and the other 108 in the table. Leaves off the
+    card take the plain path, and so does every leaf under SGD."""
+    from mpreid_tpu_torch.models.factory import build_model_uniprompt
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parents[1] / "configs" / "ours"
+                            / "cctv_ir_cctv_rgb.yml"))
+    cfg.SOLVER.STAGE2.FUSED_ADAM = fused
+    with torch.device("meta"):
+        model = build_model_uniprompt(cfg, 751, 6, 1)
+    opt = toptim.make_optimizer(cfg.SOLVER.STAGE2, model, stage="stage2a")
+    assert opt.name == "Adam"
+    train, _ = opt.partition(model)
+    routes = {k: opt.route(_OnTheCard(p)) for k, p in train.items()}
+    big = {k for k, p in train.items() if p.numel() >= tadam.MIN_FUSED_SIZE}
+    assert len(train) == 161 and len(big) == 53
+    want = {k: "leaf" if fused and k in big else "table" for k in train}
+    assert routes == want
+    assert {opt.route(p) for p in train.values()} == {"plain"}  # meta tensors: off the card
+    opt.name = "SGD"
+    assert {opt.route(_OnTheCard(p)) for p in train.values()} == {"plain"}
 
 
 def test_center_optimizer_matches_jax():
