@@ -368,6 +368,7 @@ from mpreid_tpu_torch.models import (
     make_model, make_model_uniprompt, switch_to_moe, topk_routing,
 )
 from mpreid_tpu_torch.models.layers import MultiHeadAttention
+from mpreid_tpu_torch.models.moe import expert_layers
 from mpreid_tpu_torch.ops import adam
 from mpreid_tpu_torch.ops import attention as attn
 from mpreid_tpu_torch.ops import batch_hard as bh
@@ -1321,6 +1322,7 @@ def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
     adam.adam_leaves.leaves = 0
+    expert_layers.launches = expert_layers.rows = 0
     for fn in ROUTED.values():
         fn.launches_by_route = dict.fromkeys(attn.ROUTES, 0)
 
@@ -2700,6 +2702,17 @@ def run_uniprompt_moe(after_1b: dict, images, pids, views, profile: bool) -> dic
         expect_counts(f"MoE {stage} epoch", counts, {
             "attention_fwd": tdepth * n_text + vdepth * n, "attention_bwd": vdepth * n,
             "adam_table": n})
+        # the expert layers' counters, every replay counted: each step runs
+        # both MoE blocks' experts densely over its tokens
+        tokens = BATCH * ((HW[0] // 16) * (HW[1] // 16) + 1)
+        layers = MOE_BENCH["MOE_LAYERS"]
+        expert_counts = dict(launches=expert_layers.launches, rows=expert_layers.rows)
+        want = dict(launches=layers * n, rows=n * layers * tokens * MOE_BENCH["NUM_EXPERTS"])
+        if expert_counts != want:
+            raise AssertionError(f"MoE {stage} epoch: expert layers {expert_counts}, "
+                                 f"expected {want}")
+        log(f"MoE {stage} epoch: Adam table {counts['adam_table']} launches, "
+            f"{table_leaves()} leaves; expert layers {json.dumps(expert_counts)}")
         with torch.no_grad():
             aux = load_balancing_loss(model.image_encoder(x)[3][0], MOE_BENCH["TOP_K"]).item()
         moved = {k: not torch.equal(p.detach(), before[k]) for k, p in model.named_parameters()}
@@ -2713,6 +2726,7 @@ def run_uniprompt_moe(after_1b: dict, images, pids, views, profile: bool) -> dic
                           img_per_s_epoch_log=speed_from_log(records), loss=hist[0]["loss"],
                           acc=hist[0]["acc"], aux_loss=aux, gates_moved=[moved[g] for g in gates],
                           experts_moved=any(moved[k] for k in experts), launches=counts,
+                          expert_layers=expert_counts, table_leaves=table_leaves(),
                           attention_per_step={"fwd": vdepth, "bwd": vdepth},
                           launches_by_route=read_routes(),
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)

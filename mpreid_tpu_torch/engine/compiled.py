@@ -90,6 +90,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from mpreid_tpu_torch.models import moe
 from mpreid_tpu_torch.models.vit import RematDraws
 from mpreid_tpu_torch.ops import adam, attention, batch_hard, pairwise
 from mpreid_tpu_torch.utils.tracing import span, timed
@@ -98,23 +99,27 @@ WARMUP_STEPS = 2
 KEYS_KEPT = 8  # the keys a CompiledStep counts calls of (the oldest forgotten first)
 
 
-# the kernel wrappers whose launch counters a replay adds to
+# the kernel wrappers (and the MoE expert layers) whose launch counters a
+# replay adds to
 COUNTED = (attention.fused_attention, attention.fused_attention_bwd, adam.fused_adam_leaf,
            pairwise.l1_cross, pairwise.minsum_cross, batch_hard.fused_batch_hard,
-           adam.adam_leaves)
+           adam.adam_leaves, moe.expert_layers)
+# counters beside the launches: the leaves ``adam_leaves`` updated and the
+# rows the expert layers computed
+TALLIES = ("leaves", "rows")
 
 
 def _counts() -> Dict[tuple, int]:
-    """Every launch counter: (i, None) wrapper ``COUNTED[i]``'s launches, (i,
-    route) its launches on ``route``, (i, "leaves") the leaves it updated
-    (``adam_leaves``)."""
+    """Every launch counter: (i, None) ``COUNTED[i]``'s launches, (i, route)
+    its launches on ``route``, (i, tally) each of its ``TALLIES``."""
     out = {}
     for i, fn in enumerate(COUNTED):
         out[i, None] = fn.launches
         for route, n in getattr(fn, "launches_by_route", {}).items():
             out[i, route] = n
-        if hasattr(fn, "leaves"):
-            out[i, "leaves"] = fn.leaves
+        for tally in TALLIES:
+            if hasattr(fn, tally):
+                out[i, tally] = getattr(fn, tally)
     return out
 
 
@@ -123,8 +128,8 @@ def _add_counts(delta: Dict[tuple, int]) -> None:
         fn = COUNTED[i]
         if key is None:
             fn.launches += n
-        elif key == "leaves":
-            fn.leaves += n
+        elif key in TALLIES:
+            setattr(fn, key, getattr(fn, key) + n)
         else:
             fn.launches_by_route[key] += n
 

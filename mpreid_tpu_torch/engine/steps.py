@@ -133,8 +133,8 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
     logits (ref processor_uniprompt_stage2.py:110-143). Under
     ``MODEL.MOE.ENABLED`` an MoE tower's router logits add
     ``MODEL.MOE.AUX_LOSS_COEFF`` × the mean over gating blocks of
-    ``load_balancing_loss`` (ref mpreid_tpu/engine/steps.py:70-75). ``gen`` draws the MoE
-    experts' dropout.
+    ``load_balancing_loss`` (ref mpreid_tpu/engine/steps.py:70-75), under the span
+    ``moe.aux``. ``gen`` draws the MoE experts' dropout.
 
     With ``mesh`` (a data-parallel step of more than one rank) ``x`` and the
     labels are this rank's block of the global batch. The forward runs on
@@ -170,10 +170,11 @@ def loss_and_grads(model, cfg, loss_fn: Callable, optimizer, x: torch.Tensor,
             logits = out["scores"][0]
             loss = loss_fn(out["scores"], out["feats"], target, cam, class_split=split)
         if aux_coeff and "router_logits" in out:
-            top_k = cfg.MODEL.MOE.TOP_K
-            aux = torch.stack([load_balancing_loss(rl, top_k, mesh)
-                               for rl in out["router_logits"]])
-            loss = loss + aux_coeff * aux.mean()
+            with span("moe.aux"):
+                top_k = cfg.MODEL.MOE.TOP_K
+                aux = torch.stack([load_balancing_loss(rl, top_k, mesh)
+                                   for rl in out["router_logits"]])
+                loss = loss + aux_coeff * aux.mean()
         inputs = list(train.values())
         if center_weight is not None:
             centers = centers.detach().requires_grad_(True)

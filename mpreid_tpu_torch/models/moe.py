@@ -38,10 +38,20 @@ Expert selection: ``lax.top_k`` returns tied values lowest index first.
 After ``switch_to_moe`` the gates are zero, so every token's probabilities
 tie, and ``torch.topk`` promises no order among ties: experts are picked by
 a stable descending sort instead.
+
+Counters (``expert_layers``, beside the kernels' launch counters in
+``engine/compiled.py::COUNTED``, so a graph replay adds its capture's
+counts): each forward of ``ExpertMLPs`` adds 1 to ``launches`` and to
+``rows`` the rows its expert products take (tokens × local experts under
+the dense dispatch), from the hidden activation's shape, with no device
+sync. Under expert parallelism ``rows`` is the rank's. Spans (``utils/tracing.py``):
+``moe.route`` (gate and routing), ``moe.experts`` (the expert products)
+and ``moe.mix`` (the weighted sum).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -51,11 +61,16 @@ from torch import nn
 from mpreid_tpu_torch.ops.matmul import bmm_f32
 from mpreid_tpu_torch.parallel import collectives as C
 from mpreid_tpu_torch.parallel.mesh import batch_mesh
+from mpreid_tpu_torch.utils.tracing import span
 
 from .layers import LayerNorm, Linear, MultiHeadAttention, init_normal_, linear_bias_act, quick_gelu
 
 _EXPERT_LEAVES = (("c_fc_weight", "c_fc.weight"), ("c_fc_bias", "c_fc.bias"),
                   ("c_proj_weight", "c_proj.weight"), ("c_proj_bias", "c_proj.bias"))
+
+
+# the expert layers' counters (module docstring)
+expert_layers = SimpleNamespace(launches=0, rows=0)
 
 
 def top_k_indices(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -161,18 +176,23 @@ class ExpertMLPs(nn.Module):
             experts = (self.ep.offset, self.num_experts)
             x = C.copy_to_model(x, self.ep.axis)
             combine = C.copy_to_model(combine, self.ep.axis)[:, experts[0]:experts[0] + e]
-        # every expert's c_fc in one (N, D) × (D, E·4D) product, fp32 sums
-        h = linear_bias_act(x, self.c_fc_weight.to(dt).reshape(e * hidden, self.dim), None, True)
-        h = quick_gelu(h.reshape(n, e, hidden) + self.c_fc_bias.to(dt))
-        if train and self.dropout > 0:
-            h = dropout(h, self.dropout, gen, experts)
-        y = bmm_f32(h.transpose(0, 1), self.c_proj_weight.to(dt).transpose(1, 2), dt)
-        y = y + self.c_proj_bias[:, None, :].to(dt)                       # (E, N, D)
-        # mix by routing weight: products of two dt values are exact in fp32
-        mixed = (y.float() * combine.to(dt).float().t()[:, :, None]).sum(dim=0)
-        if self.ep is not None:
-            mixed = C.reduce_from_model(mixed, self.ep.axis)
-        return mixed.to(dt)
+        with span("moe.experts"):
+            # every expert's c_fc in one (N, D) × (D, E·4D) product, fp32 sums
+            h = linear_bias_act(x, self.c_fc_weight.to(dt).reshape(e * hidden, self.dim), None,
+                                True)
+            h = quick_gelu(h.reshape(n, e, hidden) + self.c_fc_bias.to(dt))
+            expert_layers.launches += 1
+            expert_layers.rows += h.shape[0] * h.shape[1]
+            if train and self.dropout > 0:
+                h = dropout(h, self.dropout, gen, experts)
+            y = bmm_f32(h.transpose(0, 1), self.c_proj_weight.to(dt).transpose(1, 2), dt)
+            y = y + self.c_proj_bias[:, None, :].to(dt)                   # (E, N, D)
+        with span("moe.mix"):
+            # mix by routing weight: products of two dt values are exact in fp32
+            mixed = (y.float() * combine.to(dt).float().t()[:, :, None]).sum(dim=0)
+            if self.ep is not None:
+                mixed = C.reduce_from_model(mixed, self.ep.axis)
+            return mixed.to(dt)
 
 
 def _split_experts(module, state_dict, prefix, local_metadata):
@@ -229,8 +249,9 @@ class MoEResidualAttentionBlock(nn.Module):
         flat = self.ln_2(x).reshape(-1, d)
         router_logits = None
         if routing is None:
-            router_logits = bmm_f32(flat[None], self.gate.weight.to(x.dtype).t()[None])[0]
-            combine, _ = topk_routing(router_logits, self.top_k)
+            with span("moe.route"):
+                router_logits = bmm_f32(flat[None], self.gate.weight.to(x.dtype).t()[None])[0]
+                combine, _ = topk_routing(router_logits, self.top_k)
         else:
             combine = routing
         mixed = self.experts(flat, combine, train, gen)

@@ -1451,6 +1451,50 @@ def test_graphed_train_epoch_equals_the_step_loop(card, case, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_graphed_epochs_count_the_expert_layers_every_replay(card):
+    """Two graphed epochs of 6 PK rows (2 warm-up steps, the capture, 10
+    replays): stage 2b of the tiny MoE tower (2 MoE blocks, 4 experts,
+    top-2) adds the expert-layer counters once a step, each replay its
+    capture's 2 layers and tokens × 4 × 2 rows; stage 2a of the dense
+    tower adds none."""
+    from mpreid_tpu_torch.engine import compiled, initial_state, make_train_epoch
+    from mpreid_tpu_torch.engine import precompute_text_features
+    from mpreid_tpu_torch.losses import make_loss
+    from mpreid_tpu_torch.models import make_model_uniprompt, moe, switch_to_moe
+    from mpreid_tpu_torch.solver import make_optimizer
+
+    cfg = _graph_cfg(0.0)
+    dense_cfg = cfg.clone()
+    dense_cfg.MODEL.MOE.ENABLED = False
+    dense = make_model_uniprompt(dense_cfg, 8, 6, 15)
+    loss_fn, _ = make_loss(cfg, 8)
+    rng = np.random.default_rng(5)
+    data = [torch.from_numpy(a).to(card) for a in (
+        rng.integers(0, 256, (48, 64, 32, 3), dtype=np.uint8),
+        np.repeat(np.arange(8), 6).astype(np.int32), rng.integers(0, 6, 48).astype(np.int32),
+        rng.integers(0, 15, 48).astype(np.int32))]
+    tokens = 8 * (4 * 2 + 1)  # a row of 8 images of 4 x 2 patches and a class token
+    c, i = moe.expert_layers, compiled.COUNTED.index(moe.expert_layers)
+    for stage, model in (("stage2b", switch_to_moe(cfg, dense)), ("stage2a", dense)):
+        opt = make_optimizer(cfg.SOLVER.STAGE2, model, stage=stage)
+        state = initial_state(model, opt)
+        epoch = make_train_epoch(model, cfg, loss_fn, opt, uniprompt=True,
+                                 text_features=precompute_text_features(cfg, model, 8))
+        gen = torch.Generator(device=card).manual_seed(11)
+        before = (c.launches, c.rows)
+        for e in range(2):
+            state, _ = epoch(state, *data, _graph_rows(e), 1e-4, gen)
+        torch.cuda.synchronize()
+        assert epoch.compiled.stats["replays"] == 10
+        per_step = (2, tokens * 4 * 2) if stage == "stage2b" else (0, 0)
+        replay = epoch.compiled.per_replay
+        assert (replay[i, None], replay[i, "rows"]) == per_step, stage
+        assert (c.launches - before[0], c.rows - before[1]) == \
+            tuple(12 * n for n in per_step), stage
+        epoch.release()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stage", ["1a", "1b"])
 def test_graphed_stage1_epoch_equals_the_step_loop(card, stage):
     """Two epochs of 5 batches of 8 bank rows at different lr: the graphed
